@@ -1,0 +1,236 @@
+"""SimpleTransformer: the shared IBTT/AGTT sequence model, in PyTorch.
+
+Port of ``glearning_benchmark_tpu/models/transformer.py`` for inference:
+learned token + absolute positional embeddings, a post-LN encoder stack
+(self-attention -> add -> LayerNorm -> FFN(ReLU) -> add -> LayerNorm),
+<bos> pooling with a masked-mean fallback, the '<q> u v' query readout, and
+the packed-row readout. Module and parameter names follow the flax ones
+(``embed``, ``pos``, ``layer_{i}/{qkv,out_proj,ff1,ff2,norm1,norm2}``,
+``norm``, ``cls``) so ``convert.py`` maps checkpoints mechanically.
+
+Numerics follow flax: parameters are f32; the ``Dense`` layers inside the
+encoder and the attention compute in ``compute_dtype``; residual sums and
+LayerNorms (eps 1e-6, flax's default) run in f32; the readout runs in f32.
+Attention always goes through :func:`..ops.flash_attention.flash_attention`
+with the padding mask as segment ids (the JAX package's ``use_flash``
+path): on a CUDA tensor that is the hand-written kernel, on a CPU tensor
+its plain version. Pad query rows then carry zeros, which no readout
+reads. Dropout is not implemented: this slice serves only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+
+LN_EPS = 1e-6            # flax nn.LayerNorm default
+_TRUNC_STD = 0.02        # flax truncated_normal(0.02): embed, pos, cls
+_TRUNC_NORMAL_STD = 0.87962566103423978  # std of N(0,1) cut at +-2
+
+
+def _trunc_normal_(t: torch.Tensor, std: float,
+                   generator: Optional[torch.Generator]) -> None:
+    nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std,
+                          generator=generator)
+
+
+def _lecun_normal_(lin: nn.Linear, generator: Optional[torch.Generator]) -> None:
+    """flax lecun_normal: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / lin.in_features) / _TRUNC_NORMAL_STD
+    _trunc_normal_(lin.weight, std, generator)
+    nn.init.zeros_(lin.bias)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: inputs and parameters promoted to the
+    compute dtype."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return norm(x.float())
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN encoder layer (torch ``TransformerEncoderLayer`` semantics:
+    norm_first=False, ReLU)."""
+
+    def __init__(self, d_model: int, nhead: int, d_ff: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if d_model % nhead:
+            raise ValueError(f"d_model {d_model} is not a multiple of "
+                             f"nhead {nhead}")
+        self.nhead = nhead
+        self.dtype = dtype
+        self.qkv = nn.Linear(d_model, 3 * d_model)
+        self.out_proj = nn.Linear(d_model, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ff1 = nn.Linear(d_model, d_ff)
+        self.ff2 = nn.Linear(d_ff, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        for lin in (self.qkv, self.out_proj, self.ff1, self.ff2):
+            _lecun_normal_(lin, generator)
+        for norm in (self.norm1, self.norm2):
+            nn.init.ones_(norm.weight)
+            nn.init.zeros_(norm.bias)
+
+    def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        """x [B, L, d] f32, seg [B, L] int32 (0 = pad) -> [B, L, d] f32."""
+        b, l, d = x.shape
+        h = self.nhead
+        # q|k|v along the last axis (jnp.split order); each stays a strided
+        # view of qkv, which the kernel reads in place
+        q, k, v = _dense(self.qkv, x, self.dtype).split(d, dim=-1)
+        attn = flash_attention(q.unflatten(-1, (h, d // h)),
+                               k.unflatten(-1, (h, d // h)),
+                               v.unflatten(-1, (h, d // h)), seg=seg)
+        attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
+        x = _layer_norm(self.norm1, x + attn.float())
+        y = F.relu(_dense(self.ff1, x, self.dtype))
+        y = _dense(self.ff2, y, self.dtype)
+        return _layer_norm(self.norm2, x + y.float())
+
+
+def transformer_embed(embed: nn.Embedding, pos_embed: nn.Embedding,
+                      x: torch.Tensor, pos: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token + positional embedding prefix."""
+    if pos is None:
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    return embed(x) + pos_embed(pos)
+
+
+def transformer_readout(norm, cls, h, x, attn_mask, *, task, use_query_nodes,
+                        bos_id, query_offsets, q_token_id=None, seg=None,
+                        pos_bos=None, pos_u=None, pos_v=None) -> torch.Tensor:
+    """Pooling + classifier after the encoder stack.
+
+    Unpacked rows (seg None): <bos> pooling when EVERY row of the batch
+    starts with <bos> (a batch-global test, as in the reference), else the
+    masked mean; the '<q>' readout takes u and v at ``query_offsets`` past
+    the first '<q>' of each row, zeroed when that lies past the row's true
+    length. Packed rows: host-computed per-slot gathers [B, K]."""
+    d = h.shape[-1]
+    if seg is not None:
+        def take(idx):
+            return torch.gather(h, 1, idx[:, :, None].expand(-1, -1, d).long())
+
+        pooled = norm(take(pos_bos))
+        if use_query_nodes:
+            # slot 0 is always a segment's <bos>, so 0 means "no query"
+            u = take(pos_u)
+            v = take(pos_v)
+            u = torch.where((pos_u > 0)[..., None], u, torch.zeros_like(u))
+            v = torch.where((pos_v > 0)[..., None], v, torch.zeros_like(v))
+            pooled = torch.cat([pooled, norm(u), norm(v)], dim=-1)
+        out = cls(pooled)
+        return out.squeeze(-1) if task == "zinc" else out
+
+    l = x.shape[1]
+    maskf = attn_mask.to(h.dtype)
+    lens = maskf.sum(-1, keepdim=True).clamp(min=1.0)
+    mean_emb = (h * maskf[..., None]).sum(1) / lens
+    all_bos = torch.all(x[:, 0] == bos_id)
+    bos_emb = torch.where(all_bos, h[:, 0], mean_emb)
+
+    if use_query_nodes and q_token_id is not None:
+        is_q = (x == q_token_id) & attn_mask
+        found = is_q.any(dim=1)
+        q_pos = is_q.to(torch.int32).argmax(dim=1)
+        off_u, off_v = query_offsets
+        row_len = attn_mask.sum(dim=1)
+        in_range = found & (q_pos + off_v < row_len)
+        rows = torch.arange(h.shape[0], device=h.device)
+        u_emb = h[rows, (q_pos + off_u).clamp(0, l - 1)]
+        v_emb = h[rows, (q_pos + off_v).clamp(0, l - 1)]
+        keep = in_range[:, None]
+        u_emb = torch.where(keep, u_emb, torch.zeros_like(u_emb))
+        v_emb = torch.where(keep, v_emb, torch.zeros_like(v_emb))
+        pooled = torch.cat([norm(bos_emb), norm(u_emb), norm(v_emb)], dim=-1)
+    else:
+        pooled = norm(bos_emb)
+    out = cls(pooled)
+    return out.squeeze(-1) if task == "zinc" else out
+
+
+class SimpleTransformer(nn.Module):
+    """Token transformer for IBTT and AGTT.
+
+    ``generator`` seeds the initial parameters, which follow flax's inits
+    in distribution: truncated normal (std 0.02, cut at 2 std) for
+    ``embed``, ``pos`` and the ``cls`` kernel; lecun-normal for the other
+    ``Dense`` kernels; zero biases; LayerNorm scale 1, bias 0."""
+
+    def __init__(self, vocab_size: int, d_model: int = 256, nhead: int = 8,
+                 nlayers: int = 4, d_ff: int = 512, p_drop: float = 0.1,
+                 max_pos: int = 4096, num_classes: int = 2,
+                 use_query_nodes: bool = True, task: str = "cycle_check",
+                 bos_id: int = 1, query_offsets: Tuple[int, int] = (2, 3),
+                 compute_dtype: str = "float32",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype!r}")
+        self.d_model = d_model
+        self.nlayers = nlayers
+        self.p_drop = p_drop  # kept for the training slice; serving is deterministic
+        self.task = task
+        self.use_query_nodes = use_query_nodes
+        self.bos_id = bos_id
+        self.query_offsets = tuple(query_offsets)
+        self.compute_dtype = compute_dtype
+        cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        self.embed = nn.Embedding(vocab_size, d_model)
+        self.pos = nn.Embedding(max_pos, d_model)
+        for i in range(nlayers):
+            self.add_module(f"layer_{i}",
+                            EncoderLayer(d_model, nhead, d_ff, cdtype))
+        self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        readout_width = 3 * d_model if use_query_nodes else d_model
+        self.cls = nn.Linear(readout_width, num_classes)
+        self.reset_parameters(generator)
+
+    def layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.nlayers)]
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _trunc_normal_(self.embed.weight, _TRUNC_STD, generator)
+        _trunc_normal_(self.pos.weight, _TRUNC_STD, generator)
+        for layer in self.layers():
+            layer.reset_parameters(generator)
+        nn.init.ones_(self.norm.weight)
+        nn.init.zeros_(self.norm.bias)
+        _trunc_normal_(self.cls.weight, _TRUNC_STD, generator)
+        nn.init.zeros_(self.cls.bias)
+
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                q_token_id: Optional[int] = None,
+                seg: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None,
+                pos_bos: Optional[torch.Tensor] = None,
+                pos_u: Optional[torch.Tensor] = None,
+                pos_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, L] int token ids, attn_mask [B, L] bool. Unpacked rows
+        (seg None) return [B, C] ([B] for zinc); packed rows (seg [B, L]
+        segment ids with within-segment ``pos`` and readout slots
+        ``pos_bos``/``pos_u``/``pos_v`` [B, K]) return [B, K, C]."""
+        h = transformer_embed(self.embed, self.pos, x, pos)
+        seg_ids = (attn_mask if seg is None else seg).to(torch.int32).contiguous()
+        for layer in self.layers():
+            h = layer(h, seg_ids)
+        return transformer_readout(
+            lambda t: _layer_norm(self.norm, t), self.cls, h, x, attn_mask,
+            task=self.task, use_query_nodes=self.use_query_nodes,
+            bos_id=self.bos_id, query_offsets=self.query_offsets,
+            q_token_id=q_token_id, seg=seg, pos_bos=pos_bos, pos_u=pos_u,
+            pos_v=pos_v)

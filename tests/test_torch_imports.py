@@ -1,0 +1,32 @@
+"""The port stands alone: no module of ``glearning_benchmark_tpu_torch``,
+and not ``chip_smoke.py``, imports jax, flax, optax or the JAX package."""
+
+import ast
+import pathlib
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FILES = sorted((REPO / "glearning_benchmark_tpu_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+BANNED = ("jax", "flax", "optax", "glearning_benchmark_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(REPO)) for p in FILES])
+def test_no_jax_imports(path):
+    for name in _imports(path):
+        root = name.split(".")[0]
+        assert root not in BANNED, f"{path.name} imports {name}"
+
+
+def test_package_is_covered():
+    assert len(FILES) > 20
