@@ -7,9 +7,10 @@ on one NVIDIA GPU: the quickest proof that the port still starts there.
 Phases; any failure exits non-zero before the last line is printed:
 
 1. Card: its name and power limit (``nvidia-smi``). No CUDA -> exit 1.
-2. Build the flash-attention kernel from ``glearning_benchmark_tpu_torch/
-   csrc/flash_attn_fwd.cu`` with nvcc for sm_90a.
-3. Kernel against its plain version on the card: the AGTT-ZINC shape
+2. Build the three flash-attention kernels (forward, dQ, dK/dV) from
+   ``glearning_benchmark_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
+   compiler per source, side by side.
+3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
    p = 0.1 (whose keep pattern is read back from the kernel and must equal
@@ -17,16 +18,44 @@ Phases; any failure exits non-zero before the last line is printed:
    builds them: q, k, v as strided views of one fused qkv output, with the
    key masks of the served stand-in ZINC ``val`` rows, at [512, 1024, 4, 16]
    (AGTT-ZINC, the largest request bucket) and [256, 1024, 4, 4]
-   (IBTT-ZINC). Then kernel, plain and ``scaled_dot_product_attention``
-   times and the kernel's bound at the served AGTT-ZINC rows, B = 256.
-4. Serving at full width: an ``agtt_zinc``-width model (the literal below,
+   (IBTT-ZINC). And the shapes the training path gives it, again on fused
+   qkv views: the first packed stand-in ``train`` rows at the trainer's row
+   batch ([49, 256, 4, 16] bf16) with p = 0.1, the first IBTT ``train``
+   batch ([128, 256, 4, 4]) with p = 0.1, and the first ``val`` batch of
+   each model with its key masks. Then kernel, plain and
+   ``scaled_dot_product_attention`` times and the kernel's bound at the
+   served AGTT-ZINC rows, B = 256. Every time is read twice; the lower
+   reading is kept and both are printed, with the device kernels that the
+   library call ran as.
+4. Backward kernels against their plain version on the card: the same
+   packed AGTT training rows, p = 0 and p = 0.1, q/k/v as strided views of
+   a fused qkv and a non-contiguous dO; the same IBTT training rows, bf16,
+   p = 0.1; f32; L = 600 (not a multiple of the tiles). Once
+   (dq, dk, dv) of the kernels against ``torch.autograd.grad`` through the
+   plain FORWARD in f32. Two runs of the dK/dV kernel must give equal bits.
+   Then each backward kernel's time at the AGTT training shape beside its
+   bound, the plain version and the backward of
+   ``scaled_dot_product_attention``.
+5. Serving at full width: an ``agtt_zinc``-width model (the literal below,
    random weights from ``--seed``, bf16 compute) is saved through the
    port's ``save_checkpoint``, restored by ``Predictor.from_checkpoint`` on
    cuda, warmed up and run on the 1,000 stand-in ZINC ``val`` graphs. The
-   kernel's launch counter must equal layers x forward batches; every
-   prediction must be finite; the first 32 must match the same checkpoint
-   served on the CPU. The same, briefly, at ``ibtt_zinc`` width.
-5. One JSON line of every kernel (name, launches, errors, times, bound),
+   forward kernel's launch counter must equal layers x forward batches;
+   every prediction must be finite; the first 32 must match the same
+   checkpoint served on the CPU. The same, briefly, at ``ibtt_zinc`` width.
+6. Training at full width: the port's ``train()`` on cuda with the
+   ``agtt_zinc`` config (literal below: packed rows, batch 128, dropout
+   0.1, bf16 compute, bf16 first moment) on the 10,000/1,000/1,000 stand-in
+   ZINC splits for 3 epochs. Losses must be finite and fall; the launch
+   counters must equal layers x forward batches (forward kernel) and
+   layers x train steps (each backward kernel); the best checkpoint must
+   serve, its predictions on the first 32 ``val`` graphs equal to the
+   trainer's own eval logits (1e-6); and the first 4 steps repeated on the
+   CPU (same seed, dropout on) must give the card's per-step losses within
+   2e-3. Then one
+   epoch at ``ibtt_zinc`` width on 2,000 graphs, and ``[time]`` lines for
+   steady AGTT train steps under ``torch.profiler``.
+7. One JSON line of every kernel (name, launches, errors, times, bound),
    then the result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -53,6 +82,12 @@ AGTT_ZINC_MODEL = {"use_flash": False, "d_model": 64, "nhead": 4,
 IBTT_ZINC_MODEL = {"use_flash": False, "d_model": 16, "nhead": 4,
                    "nlayers": 2, "d_ff": 128, "dropout": 0.1,
                    "max_pos": 1024}
+# the other blocks of configs/agtt_zinc.yaml (the same test holds them)
+ZINC_DATASET = {"task": "zinc", "subset": True, "max_len": 1024}
+ZINC_TRAIN = {"batch_size": 128, "lr": 0.001, "weight_decay": 1.0e-5, "seed": 0}
+TRAIN_EPOCHS = 3
+IBTT_TRAIN_LIMIT = 2000
+CPU_CHECK_STEPS = 4
 MAX_LEN = 1024            # configs' dataset.max_len: the served row width
 MAX_BATCH = 512           # Predictor default
 WARMUP_BUCKETS = (1, 64, 512)
@@ -64,9 +99,26 @@ CPU_CHECK_ROWS = 32
 O_RTOL = {torch.bfloat16: 4e-3, torch.float32: 1e-5}
 O_ATOL = 1e-5
 LSE_ATOL = 1e-4
+# gradients, kernel against plain version (same inputs, O and LSE from the
+# forward kernel): bf16 outputs within one bf16 rounding; f32 sums run over
+# up to 600 terms in another order, so 1e-4 relative
+G_RTOL = {torch.bfloat16: 4e-3, torch.float32: 1e-4}
+G_ATOL = 1e-5
+# kernels (O, LSE from the forward kernel) against autograd through the
+# plain forward in f32: two different routes to the same gradient
+AUTOGRAD_ATOL = 1e-4
+# per-step training loss, cuda against cpu, bf16 compute on both, over the
+# first steps of one run (losses lie around 1.5). The two round at different
+# places; the gap measured on an H100 is 5e-4, and a wrong dropout mask at
+# one site or a wrong gradient scale moves a step's loss by more than 2e-3
+STEP_LOSS_ATOL = 2e-3
 # served logits, cuda against cpu, both bf16 compute: they round at
 # different places (cuBLAS vs CPU bf16 GEMMs, kernel vs plain attention)
 LOGIT_ATOL = 5e-3
+# the trained checkpoint served on cuda against the trainer's own model on
+# cuda: the same weights through the same kernels at the same bf16 widths,
+# in batches of another size; the logits are f32 of magnitude about 1
+SERVED_LOGIT_ATOL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores; SFU exp2 16 per SM per clock
@@ -85,17 +137,53 @@ def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, readings: int = 2) -> list:
+    """Device ms per call of ``fn`` over ``iters`` back-to-back calls, read
+    ``readings`` times one after the other. The device first spins for some
+    20 ms, so the host has queued the calls before the first one starts:
+    the time is the device's, not the host's enqueue rate. The number kept
+    is the least reading; every reading is printed beside it."""
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
+    out = []
+    for _ in range(readings):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(t0.elapsed_time(t1) / iters)
+    return out
+
+
+def fmt_ms(readings: list) -> str:
+    return f"{min(readings):.4f} ms (readings {', '.join(f'{r:.4f}' for r in readings)})"
+
+
+def device_kernels(fn) -> str:
+    """Names of the device kernels one call of ``fn`` launches, from
+    torch.profiler: says which backend a library call chose."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [f"{e.key[:70]} x{e.count}" for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return "; ".join(names) if names else "not seen by the profiler"
+
+
+def sdpa_flags() -> str:
+    b = torch.backends.cuda
+    return (f"flash {b.flash_sdp_enabled()}, mem_efficient "
+            f"{b.mem_efficient_sdp_enabled()}, math {b.math_sdp_enabled()}, "
+            f"cudnn {b.cudnn_sdp_enabled()}")
 
 
 # ---------------------------------------------------------------------------
@@ -183,17 +271,22 @@ def dropout_pattern(fa, seed: int, p_drop: float) -> None:
         raise AssertionError("kernel dropout keep pattern differs")
 
 
+def allowed_pairs(seg: torch.Tensor, h: int) -> int:
+    """(query, key) pairs the mask allows, over all heads."""
+    pairs = 0
+    for row in seg.cpu():
+        counts = torch.bincount(row[row > 0])
+        pairs += int((counts.long() ** 2).sum())
+    return pairs * h
+
+
 def bound(q, seg) -> dict:
     """Least time the card could take for this call: bytes the data needs
     (q, k, v rows of valid tokens, seg, O and LSE) over HBM bandwidth, and
     the operations on the allowed (query, key) pairs: 4 D FLOPs (q.k and
     p.v) over the input type's peak, one exp over the SFU rate."""
     b, l, h, d = q.shape
-    pairs = 0
-    for row in seg.cpu():
-        counts = torch.bincount(row[row > 0])
-        pairs += int((counts.long() ** 2).sum())
-    pairs *= h
+    pairs = allowed_pairs(seg, h)
     valid = int((seg > 0).sum())
     isz = q.element_size()
     nbytes = 3 * valid * h * d * isz + b * l * 4 + b * l * h * d * isz + b * h * l * 4
@@ -214,20 +307,157 @@ def time_kernel(fa, q, k, v, seg, label: str) -> dict:
     allow = ((seg[:, None, :, None] == seg[:, None, None, :])
              & (seg[:, None, None, :] != 0))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=allow), 20)
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allow)
+
+    lib_ms = cuda_ms(sdpa, 20)
+    log(f"[kernel] sdpa forward ran as: {device_kernels(sdpa)} ({sdpa_flags()})")
     del allow
     bd = bound(q, seg)
     log(f"[kernel] time {label} {list(q.shape)} {str(q.dtype)[6:]}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{fmt_ms(ms)}, plain {fmt_ms(plain_ms)}, sdpa {fmt_ms(lib_ms)}, bound "
         f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
         f"{bd['parts_ms']['bytes']:.4f}, flops {bd['parts_ms']['flops']:.4f}, "
         f"exp {bd['parts_ms']['exp']:.4f} ms; {bd['pairs']} allowed pairs)")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bd}
+    return {"ms": min(ms), "plain_ms": min(plain_ms), "library_ms": min(lib_ms), **bd}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving
+# phase 4: the backward kernels against their plain version
+# ---------------------------------------------------------------------------
+
+def strided_do(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """A non-contiguous dO: the [B, L, H, D] view of a [B, H, L, D] tensor."""
+    b, l, h, d = shape
+    return torch.randn(b, h, l, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+
+
+def compare_bwd(name, fa, q, k, v, seg, do, p_drop=0.0, seed=0) -> dict:
+    """Both backward kernels against ``flash_attention_bwd_reference`` on
+    the same inputs (O and LSE from the forward kernel). Returns the max
+    abs error per kernel."""
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, seed)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, seed)
+    torch.cuda.synchronize()
+    rq, rk, rv = fa.flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), seg, o, lse, do.float(), p_drop, seed)
+    rdelta = fa.flash_attention_delta(o, do)
+    errs, ok = {}, True
+    for what, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        err = (got.float() - ref).abs()
+        errs[what] = err.max().item()
+        ok &= bool((err <= G_RTOL[q.dtype] * ref.abs() + G_ATOL).all())
+    err_delta = (delta - rdelta).abs().max().item()
+    pad = seg == 0
+    ok_pad = bool((dq[pad] == 0).all() and (dk[pad] == 0).all() and (dv[pad] == 0).all())
+    same_bits = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    layout = "contiguous" if q.is_contiguous() else f"strides {list(q.stride())}"
+    log(f"[kernel] bwd {name}: shape {list(q.shape)} {str(q.dtype)[6:]} {layout}, "
+        f"dO {'contiguous' if do.is_contiguous() else 'strided'}, p_drop {p_drop}: "
+        f"max|d dQ| {errs['dq']:.3e}, |d dK| {errs['dk']:.3e}, |d dV| {errs['dv']:.3e} "
+        f"(rtol {G_RTOL[q.dtype]:g}), |d delta| {err_delta:.3e} (atol {LSE_ATOL:g}), "
+        f"pad rows zero {ok_pad}, dK/dV bits equal on a second run {same_bits}")
+    if not (ok and ok_pad and same_bits and err_delta <= LSE_ATOL):
+        raise AssertionError(f"backward kernels disagree with their plain version: {name}")
+    return {"flash_attn_bwd_dq": errs["dq"],
+            "flash_attn_bwd_dkv": max(errs["dk"], errs["dv"])}
+
+
+def compare_bwd_autograd(fa, seg, gen: torch.Generator, p_drop: float, seed: int) -> None:
+    """(dq, dk, dv) of the kernels against torch.autograd.grad through the
+    plain FORWARD, f32: checks the plain backward's formulae too."""
+    b, l = seg.shape
+    q, k, v = (torch.randn(b, l, 4, 16, device="cuda", generator=gen).requires_grad_()
+               for _ in range(3))
+    do = torch.randn(b, l, 4, 16, device="cuda", generator=gen)
+    ro, _ = fa.flash_attention_reference(q, k, v, seg, p_drop, seed)
+    ref = torch.autograd.grad(ro, (q, k, v), do)
+    o, lse = fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(), seg, p_drop, seed)
+    got = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), seg, o, lse, do,
+                                 p_drop, seed)
+    plain = fa.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), seg,
+                                             o, lse, do, p_drop, seed)
+    torch.cuda.synchronize()
+    err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+    err_plain = max((g - r).abs().max().item() for g, r in zip(plain, ref))
+    log(f"[kernel] bwd against autograd through the plain forward, f32 {[b, l, 4, 16]} "
+        f"p_drop {p_drop}: kernels max|d| {err:.3e}, plain backward max|d| "
+        f"{err_plain:.3e} (atol {AUTOGRAD_ATOL:g})")
+    if err > AUTOGRAD_ATOL or err_plain > AUTOGRAD_ATOL:
+        raise AssertionError("backward disagrees with autograd through the plain forward")
+
+
+def bound_bwd(q, seg, which: str) -> dict:
+    """Least time the card could take for one backward kernel on these
+    inputs. Bytes: the rows of valid tokens of q, k, v, dO (and O for the dQ
+    kernel, whose prologue sums delta), LSE, delta and seg read, the
+    outputs written in full (dQ and delta, or dK and dV). Operations on the
+    allowed pairs: 6 D (dQ) or 8 D (dK/dV) FLOPs over the input type's
+    peak, one exp over the SFU rate."""
+    b, l, h, d = q.shape
+    pairs = allowed_pairs(seg, h)
+    valid = int((seg > 0).sum())
+    isz = q.element_size()
+    row_reads = 5 if which == "dq" else 4
+    small = b * h * l * 4
+    nbytes = (row_reads * valid * h * d * isz + b * l * 4 + 2 * small
+              + (1 if which == "dq" else 2) * b * l * h * d * isz)
+    flops_per_pair = (6 if which == "dq" else 8) * d
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    t = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+         "flops": flops_per_pair * pairs / PEAK_FLOPS[q.dtype] * 1e3,
+         "exp": pairs / (sms * SFU_PER_SM_CLK * clock_hz) * 1e3}
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "parts_ms": t, "pairs": pairs, "bytes": nbytes}
+
+
+def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict:
+    """Times of the two backward kernels, of the plain backward (one
+    function for dQ, dK and dV together) and of the backward of
+    ``scaled_dot_product_attention`` with the same boolean mask (also all
+    three gradients; no dropout, its stream could not match)."""
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed)
+    ms = {"flash_attn_bwd_dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(
+              q, k, v, seg, o, lse, do, p_drop, seed), 50),
+          "flash_attn_bwd_dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+              q, k, v, seg, o, lse, do, delta, p_drop, seed), 50)}
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, seed), 50)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, seg, o, lse, do, p_drop, seed), 5)
+    allow = ((seg[:, None, :, None] == seg[:, None, None, :])
+             & (seg[:, None, None, :] != 0))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow)
+    dot = do.transpose(1, 2)
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    lib_ms = cuda_ms(sdpa_bwd, 50)
+    log(f"[kernel] sdpa backward ran as: {device_kernels(sdpa_bwd)} ({sdpa_flags()})")
+    res = {}
+    for name, which in (("flash_attn_bwd_dq", "dq"), ("flash_attn_bwd_dkv", "dkv")):
+        bd = bound_bwd(q, seg, which)
+        log(f"[kernel] time {name} {label} {list(q.shape)} {str(q.dtype)[6:]} p_drop "
+            f"{p_drop}: kernel {fmt_ms(ms[name])}, plain backward (dQ, dK, dV together) "
+            f"{fmt_ms(plain_ms)}, sdpa backward (all three) {fmt_ms(lib_ms)}, bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
+            f"{bd['parts_ms']['bytes']:.4f}, flops {bd['parts_ms']['flops']:.4f}, "
+            f"exp {bd['parts_ms']['exp']:.4f} ms; {bd['pairs']} allowed pairs)")
+        res[name] = {"ms": min(ms[name]), "plain_ms": min(plain_ms),
+                     "library_ms": min(lib_ms), **bd}
+    log(f"[kernel] time flash_attn_fwd {label} {list(q.shape)} p_drop {p_drop}: "
+        f"kernel {fmt_ms(fwd_ms)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving
 # ---------------------------------------------------------------------------
 
 def serve_checkpoint(tmp: str, model_name: str, model_cfg: dict, graphs,
@@ -292,7 +522,7 @@ def serve_phase(fa, path, cpu, model_cfg, graphs, card) -> tuple:
     from glearning_benchmark_tpu_torch.serve import Predictor
 
     model_name = cpu.model_name
-    fa.LAUNCHES = 0
+    fa.reset_launches()
     t0 = time.perf_counter()
     pred = Predictor.from_checkpoint(path, max_batch=MAX_BATCH, device="cuda")
     warm = pred.warmup(WARMUP_BUCKETS)
@@ -300,7 +530,7 @@ def serve_phase(fa, path, cpu, model_cfg, graphs, card) -> tuple:
     out = pred.predict_graphs(graphs)["pred"]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = fa.LAUNCHES
+    launches = fa.LAUNCHES["flash_attn_fwd"]
     n_batches = len(warm) + math.ceil(len(graphs) / MAX_BATCH)
     nlayers = int(model_cfg["nlayers"])
     log(f"[serve] {model_name}-zinc d{model_cfg['d_model']} h{model_cfg['nhead']} "
@@ -353,6 +583,207 @@ def time_breakdown(pred, graphs) -> None:
         log(f"[time]   {us / 1e3:9.3f} ms  {name[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+def train_config(model_name: str, model_cfg: dict, zinc_root: str, out_dir: str,
+                 pack: bool, epochs: int, **train_extra) -> dict:
+    return {"dataset": {**ZINC_DATASET, "zinc_root": zinc_root, "pack": pack},
+            "model": dict(model_cfg),
+            "train": {**ZINC_TRAIN, "epochs": epochs, **train_extra},
+            "output": {"out_dir": out_dir, "run_name": f"{model_name}-zinc"},
+            "wandb": {"use": False}}
+
+
+def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
+    """``train()`` of the port on cuda; checks the losses and the launch
+    counters. Returns (result, launches)."""
+    from glearning_benchmark_tpu_torch.train.trainer import train, train_batch_size
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    res = train(config, model_name, limit=limit, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    bundle = res.bundle
+    tr = bundle.splits["train"]
+    nlayers = int(config["model"]["nlayers"])
+    bs = int(config["train"]["batch_size"])
+    steps = sum(len(l) for l in res.step_losses)
+    eval_batches = (len(res.history) * math.ceil(bundle.n("val") / bs)
+                    + math.ceil(bundle.n("test") / bs))
+    heads = int(config["model"]["nhead"])
+    row_bs = train_batch_size(bundle, bs)
+    shape = [row_bs, tr["ids"].shape[1], heads, int(config["model"]["d_model"]) // heads]
+    log(f"[train] {model_name}-zinc d{config['model']['d_model']} x{nlayers} layers, "
+        f"{'packed' if 'seg' in tr else 'unpacked'} rows: attention sees "
+        f"{shape} in training, [{bs}, {bundle.splits['val']['ids'].shape[1]}, ...] in eval; "
+        f"{bundle.meta['n_examples_train']} examples in {bundle.n('train')} rows, "
+        f"{len(res.step_losses[0])} steps an epoch; whole call {secs:.1f} s on {card}")
+    for h in res.history:
+        log(f"[train] {model_name} epoch {h['epoch']}: train loss {h['train/loss']:.4f}, "
+            f"val loss {h['val/loss']:.4f}, grad norm {h['train/grad_norm']:.3f}, "
+            f"{h['time/epoch_duration']:.2f} s, "
+            f"{h['throughput/graphs_per_sec']:.1f} examples/s")
+    log(f"[train] {model_name}: kernel launches {launches} (expected forward "
+        f"{nlayers} x ({steps} steps + {eval_batches} eval batches), backward "
+        f"{nlayers} x {steps} each)")
+    losses = [v for h in res.history for v in (h["train/loss"], h["val/loss"])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{model_name}: a training or validation loss is not finite")
+    if len(res.history) > 1 and not res.history[-1]["train/loss"] < res.history[0]["train/loss"]:
+        raise AssertionError(f"{model_name}: the training loss did not fall")
+    want = {"flash_attn_fwd": nlayers * (steps + eval_batches),
+            "flash_attn_bwd_dq": nlayers * steps, "flash_attn_bwd_dkv": nlayers * steps}
+    if launches != want:
+        raise AssertionError(f"{model_name}: kernel launches {launches}, expected {want}")
+    return res, launches
+
+
+def trained_checkpoint_serves(res, config: dict, graphs) -> None:
+    """The best checkpoint, restored by the Predictor on cuda, must predict
+    what the trainer's own model (the best epoch, reloaded) gives on the
+    first val rows."""
+    from glearning_benchmark_tpu_torch.serve import Predictor
+    from glearning_benchmark_tpu_torch.train.trainer import _apply_model
+
+    out = config["output"]
+    path = os.path.join(out["out_dir"], f"best_{out['run_name']}")
+    pred = Predictor.from_checkpoint(path, max_batch=MAX_BATCH, device="cuda")
+    served = pred.predict_graphs(graphs[:CPU_CHECK_ROWS])["pred"]
+    val = res.bundle.splits["val"]
+    batch = {k: torch.from_numpy(v[:CPU_CHECK_ROWS]).cuda() for k, v in val.items()}
+    res.model.eval()
+    with torch.no_grad():
+        own = _apply_model(res.model, batch, res.bundle).float().cpu().numpy()
+    err = float(abs(served - own).max())
+    log(f"[train] best checkpoint (val mae {res.best_val:.4f}) served on cuda: first "
+        f"{CPU_CHECK_ROWS} val predictions against the trainer's eval logits max|d| "
+        f"{err:.3e} (atol {SERVED_LOGIT_ATOL:g}); range [{served.min():.4f}, "
+        f"{served.max():.4f}]")
+    if not (err <= SERVED_LOGIT_ATOL and torch.isfinite(torch.from_numpy(served)).all()):
+        raise AssertionError("the trained checkpoint does not serve the trainer's logits")
+
+
+def first_epoch(bundle, config: dict, device: str, model=None) -> tuple:
+    """What ``train()`` holds when its first epoch starts, rebuilt from the
+    config's seed in the same order: the model (initial weights from the
+    seeded generator, unless ``model`` is given), the optimizer, the train
+    arrays, the first shuffle and the generator of the dropout seeds."""
+    import numpy as np
+
+    from glearning_benchmark_tpu_torch.train.optim import ClippedAdamW
+    from glearning_benchmark_tpu_torch.train.trainer import (
+        build_model, make_batches, train_batch_size)
+
+    tc = config["train"]
+    gen = torch.Generator().manual_seed(tc["seed"])
+    if model is None:
+        model = build_model("agtt", config, bundle, generator=gen).to(device)
+    named = dict(model.state_dict(keep_vars=True))
+    opt = ClippedAdamW(list(named), list(named.values()), tc["lr"],
+                       weight_decay=tc["weight_decay"])
+    arrays = {k: torch.from_numpy(v).to(device)
+              for k, v in bundle.splits["train"].items()}
+    n, bs = bundle.n("train"), train_batch_size(bundle, tc["batch_size"])
+    idx = make_batches(n, bs, np.random.default_rng(tc["seed"]))[0]
+    valid = make_batches(n, bs, None)[1]
+    return (model, opt, arrays, torch.from_numpy(idx).to(device),
+            torch.from_numpy(valid).to(device), gen)
+
+
+def first_steps_on_cpu(res, config: dict) -> None:
+    """The same run's first steps on the CPU (same seed, so the same
+    initial weights, batches and dropout masks) against the card's."""
+    from glearning_benchmark_tpu_torch.train.trainer import train_epoch
+
+    t0 = time.perf_counter()
+    model, opt, arrays, idx, valid, gen = first_epoch(res.bundle, config, "cpu")
+    _, losses = train_epoch(model, opt, arrays, idx, valid, res.bundle, gen,
+                            max_steps=CPU_CHECK_STEPS)
+    on_cpu = losses.numpy()
+    on_card = res.step_losses[0][:CPU_CHECK_STEPS]
+    err = float(abs(on_cpu - on_card).max())
+    log(f"[train] first {CPU_CHECK_STEPS} step losses, cuda {on_card.tolist()} against "
+        f"cpu {on_cpu.tolist()}: max|d| {err:.3e} (atol {STEP_LOSS_ATOL:g}), cpu run "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err <= STEP_LOSS_ATOL:
+        raise AssertionError("cuda and cpu disagree on the first training steps")
+
+
+# device kernels of a train step, grouped by what their names say
+KERNEL_GROUPS = (
+    ("attention fwd kernel", ("attn_fwd_kernel",)),
+    ("attention dQ kernel", ("attn_bwd_dq_kernel",)),
+    ("attention dK/dV kernel", ("attn_bwd_dkv_kernel",)),
+    ("LayerNorm backward", ("layer_norm_grad", "LayerNormBackward", "GammaBeta",
+                            "layer_norm_backward")),
+    ("LayerNorm forward", ("layer_norm", "LayerNorm")),
+    ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
+    ("optimizer (foreach)", ("multi_tensor",)),
+    ("dropout hash ops (int64)", ("Bitwise", "bitwise", "shift", "<long", "long>",
+                                  "long,")),
+)
+
+
+def train_step_breakdown(res, config: dict, steps: int = 10) -> None:
+    """Steady AGTT train steps under torch.profiler: wall ms per step,
+    device-busy share, device ms by kernel group, host ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from glearning_benchmark_tpu_torch.train.trainer import train_epoch
+
+    bundle = res.bundle
+    model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, "cuda", res.model)
+    bs = idx.shape[1]
+
+    def run(k):
+        return train_epoch(model, opt, arrays, idx, valid, bundle, gen, max_steps=k)
+
+    run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps)
+    t_host = time.perf_counter() - t0          # enqueue only
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    dev = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    total_us = sum(us for _, us, _ in dev)
+    log(f"[time] agtt train step [{bs}, {arrays['ids'].shape[1]}] rows: wall "
+        f"{t_wall / steps * 1e3:.2f} ms a step ({steps} steps, unprofiled), host enqueue "
+        f"{t_host / steps * 1e3:.2f} ms a step; profiled {t_prof / steps * 1e3:.2f} ms a "
+        f"step")
+    if not total_us:
+        log("[time] device time not measured (the profiler saw no device activity)")
+        return
+    log(f"[time] device kernels {total_us / steps / 1e3:.3f} ms a step = "
+        f"{total_us / 1e6 / t_wall:.3f} of the unprofiled wall time (device-busy share), "
+        f"{sum(c for _, _, c in dev) / steps:.0f} kernel launches a step")
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for key, us, _ in dev:
+        for name, pats in KERNEL_GROUPS:
+            if any(pat in key for pat in pats):
+                groups[name] += us
+                break
+        else:
+            groups["other"] += us
+    for name, us in groups.items():
+        log(f"[time]   {us / steps / 1e3:8.3f} ms a step  {name}")
+    for key, us, count in sorted(dev, key=lambda kv: -kv[1])[:10]:
+        log(f"[time]   top: {us / steps / 1e3:8.3f} ms a step, {count / steps:5.1f} "
+            f"launches  {key[:90]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -365,6 +796,8 @@ def main() -> int:
     from glearning_benchmark_tpu_torch.data.zinc import load_zinc_split
     from glearning_benchmark_tpu_torch.ops import flash_attention as fa
     from glearning_benchmark_tpu_torch.serve import Predictor
+    from glearning_benchmark_tpu_torch.train.datasets import build_dataset
+    from glearning_benchmark_tpu_torch.train.trainer import train_batch_size
 
     # phase 1: the card
     card = nvidia_smi("name,power.limit")
@@ -376,10 +809,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # phase 2: build
-    build_s = fa.build_seconds()
-    log(f"[build] flash_attn_fwd for sm_90a in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    for name, secs in fa.build_seconds().items():
+        log(f"[build] {name} for sm_90a: nvcc {secs:.1f} s")
+    log(f"[build] all kernels built side by side in {time.perf_counter() - t0:.1f} s")
 
-    # phase 3: the kernel against its plain version
+    # phase 3: the forward kernel against its plain version
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     cgen = torch.Generator().manual_seed(args.seed)
 
@@ -407,14 +842,88 @@ def main() -> int:
     graphs = load_zinc_split(split="val")   # stand-in unless ./data/ZINC has an export
     ibtt_graphs = graphs[:256]
     with tempfile.TemporaryDirectory() as tmp:
+        # the bundles of the training phases (cached under tmp, where
+        # train() finds them again): their rows give the kernels' training
+        # and eval shapes and masks
+        zinc_root = os.path.join(tmp, "ZINC")
+        agtt_cfg = train_config("agtt", AGTT_ZINC_MODEL, zinc_root,
+                                os.path.join(tmp, "runs_agtt"), True, TRAIN_EPOCHS)
+        ibtt_cfg = train_config("ibtt", IBTT_ZINC_MODEL, zinc_root,
+                                os.path.join(tmp, "runs_ibtt"), False, 1)
+        t0 = time.perf_counter()
+        bundle = build_dataset("agtt", agtt_cfg["dataset"], ZINC_TRAIN["seed"])
+        ibtt_bundle = build_dataset("ibtt", ibtt_cfg["dataset"], ZINC_TRAIN["seed"],
+                                    limit=IBTT_TRAIN_LIMIT)
+        train_seg = torch.from_numpy(bundle.splits["train"]["seg"]).cuda()
+        seg_lens = (train_seg > 0).sum(1)
+        bs = ZINC_TRAIN["batch_size"]
+        row_bs = train_batch_size(bundle, bs)     # as train() reckons it
+        l_train = train_seg.shape[1]
+        log(f"[data] agtt-zinc and ibtt-zinc bundles in {time.perf_counter() - t0:.1f} s: "
+            f"{bundle.meta['n_examples_train']} trails packed into {len(train_seg)} rows "
+            f"of {l_train}, {int(train_seg.max())} segments at most, "
+            f"{int(seg_lens.min())}-{int(seg_lens.max())} valid tokens a row "
+            f"(mean {seg_lens.float().mean().item():.1f}); row batch {row_bs}")
+
+        def first_masks(b, split):
+            """Key masks of the first batch of ``split`` as segment ids."""
+            return torch.from_numpy(b.splits[split]["mask"][:bs]).to(
+                device="cuda", dtype=torch.int32)
+
+        # the forward kernel at the shapes, layout and masks the training
+        # path gives it: packed train rows with dropout, eval rows without
+        seg_train = train_seg[:row_bs].contiguous()
+        errs.append(compare(
+            "agtt-zinc packed train rows", fa,
+            *qkv_views((row_bs, l_train, 4, 16), torch.bfloat16, gen), seg_train,
+            p_drop=0.1, seed=4321))
+        for name, b, d in (("agtt", bundle, 16), ("ibtt", ibtt_bundle, 4)):
+            seg = first_masks(b, "val")
+            errs.append(compare(
+                f"{name}-zinc eval rows", fa,
+                *qkv_views((len(seg), seg.shape[1], 4, d), torch.bfloat16, gen), seg))
+        ibtt_seg_train = first_masks(ibtt_bundle, "train")
+        ibtt_shape = (len(ibtt_seg_train), ibtt_seg_train.shape[1], 4, 4)
+        errs.append(compare(
+            "ibtt-zinc train rows", fa, *qkv_views(ibtt_shape, torch.bfloat16, gen),
+            ibtt_seg_train, p_drop=0.1, seed=7))
+
+        # phase 4: the backward kernels against their plain version, at the
+        # same training rows
+        berrs = []
+        for p_drop in (0.0, 0.1):
+            berrs.append(compare_bwd(
+                "agtt-zinc packed train rows", fa,
+                *qkv_views((row_bs, l_train, 4, 16), torch.bfloat16, gen), seg_train,
+                strided_do((row_bs, l_train, 4, 16), torch.bfloat16, gen), p_drop, 4321))
+        berrs.append(compare_bwd(
+            "ibtt-zinc train rows", fa, *qkv_views(ibtt_shape, torch.bfloat16, gen),
+            ibtt_seg_train,
+            torch.randn(ibtt_shape, device="cuda", generator=gen).bfloat16(), 0.1, 7))
+        berrs.append(compare_bwd(
+            "f32 packed train rows", fa, *rand((16, l_train, 4, 16), torch.float32),
+            train_seg[row_bs:row_bs + 16].contiguous(),
+            torch.randn(16, l_train, 4, 16, device="cuda", generator=gen), 0.1, 99))
+        berrs.append(compare_bwd(
+            "L600 packed", fa, *rand((8, 600, 4, 16), torch.bfloat16),
+            packed_seg(8, 600, cgen),
+            torch.randn(8, 600, 4, 16, device="cuda", generator=gen).bfloat16(), 0.1, 1234))
+        compare_bwd_autograd(fa, train_seg[row_bs + 16:row_bs + 20].contiguous(), gen,
+                             0.1, 5)
+        btiming = time_bwd(fa, *qkv_views((row_bs, l_train, 4, 16), torch.bfloat16, gen),
+                           seg_train,
+                           strided_do((row_bs, l_train, 4, 16), torch.bfloat16, gen),
+                           0.1, 4321, "agtt-zinc packed train rows")
+
         paths = {"agtt": serve_checkpoint(tmp, "agtt", AGTT_ZINC_MODEL, graphs, args.seed),
                  "ibtt": serve_checkpoint(tmp, "ibtt", IBTT_ZINC_MODEL, ibtt_graphs,
                                           args.seed)}
         cpu = {name: Predictor.from_checkpoint(path, max_batch=MAX_BATCH, device="cpu")
                for name, path in paths.items()}
 
-        # the kernel at the shapes, layout and masks the served path gives it:
-        # q, k, v as views of the fused qkv output; key masks of the served rows
+        # the forward kernel at the shapes, layout and masks the served path
+        # gives it: q, k, v as views of the fused qkv output; key masks of
+        # the served rows
         agtt_seg = served_seg(cpu["agtt"], graphs[:MAX_BATCH])
         ibtt_seg = served_seg(cpu["ibtt"], ibtt_graphs)
         for name, seg in (("agtt", agtt_seg), ("ibtt", ibtt_seg)):
@@ -435,23 +944,47 @@ def main() -> int:
         del q, k, v
         torch.cuda.empty_cache()
 
-        # phase 4: serving at full width (launch counts read per path)
-        agtt, launches = serve_phase(fa, paths["agtt"], cpu["agtt"], AGTT_ZINC_MODEL,
-                                     graphs, card)
+        # phase 5: serving at full width (launch counts read per path)
+        t0 = time.perf_counter()
+        agtt, serve_launches = serve_phase(fa, paths["agtt"], cpu["agtt"], AGTT_ZINC_MODEL,
+                                           graphs, card)
         ibtt, _ = serve_phase(fa, paths["ibtt"], cpu["ibtt"], IBTT_ZINC_MODEL,
                               ibtt_graphs, card)
         time_breakdown(agtt, graphs)
         time_breakdown(ibtt, ibtt_graphs)
+        log(f"[phase] serving {time.perf_counter() - t0:.1f} s")
+        del agtt, ibtt, cpu
 
-    # phase 5: the kernels line, then the result
+        # phase 6: training at full width (launch counts read per path)
+        t0 = time.perf_counter()
+        res, train_launches = train_phase(fa, "agtt", agtt_cfg, None, card)
+        trained_checkpoint_serves(res, agtt_cfg, graphs)
+        first_steps_on_cpu(res, agtt_cfg)
+        train_step_breakdown(res, agtt_cfg)
+        del res
+        train_phase(fa, "ibtt", ibtt_cfg, IBTT_TRAIN_LIMIT, card)
+        log(f"[phase] training {time.perf_counter() - t0:.1f} s")
+
+    # phase 7: the kernels line, then the result
+    src = "glearning_benchmark_tpu_torch/csrc/"
+    ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
     kernels = [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "glearning_benchmark_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "glearning_benchmark_tpu/ops/pallas_attention.py:114",
-        "launches": launches, "max_abs_err": max(errs),
+        "name": "flash_attn_fwd", "route": "cuda", "source": src + "flash_attn_fwd.cu",
+        "replaces": ref + "114",
+        "launches": train_launches["flash_attn_fwd"], "max_abs_err": max(errs),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]
+        "library_ms": timing["library_ms"],
+        "launches_by_path": {"serve_agtt": serve_launches,
+                             "train_agtt": train_launches["flash_attn_fwd"]}}]
+    for name, line in (("flash_attn_bwd_dq", "164"), ("flash_attn_bwd_dkv", "204")):
+        t = btiming[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + name + ".cu",
+            "replaces": ref + line, "launches": train_launches[name],
+            "max_abs_err": max(e[name] for e in berrs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

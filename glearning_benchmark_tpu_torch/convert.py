@@ -10,11 +10,21 @@ module names are the flax ones, so the mapping is mechanical:
 - ``Embed`` (modules ``embed`` and ``pos``): ``embedding`` <-> ``weight``.
 
 A flax path ``layer_0/qkv/kernel`` becomes the key ``layer_0.qkv.weight``.
+
+Optimizer state crosses too. The JAX trainer saves ``opt_state`` as the
+flat leaves of its optax chain state under the keys ``"000000"``,
+``"000001"``, ... and restores them by position: Adam's step count, the
+first moments of every parameter in the order ``jax.tree.leaves`` walks the
+flax tree (dict keys sorted at each level), the second moments in the same
+order, and, when a learning-rate schedule is set, the schedule's own step
+count. :func:`opt_state_from_torch` writes that layout from the port's
+optimizer and :func:`opt_state_to_torch` reads it back, so a checkpoint of
+either trainer resumes in the other.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -90,3 +100,46 @@ def load_flax_params(model: nn.Module, params: Dict[str, Any]) -> None:
                             f"parameter is {target.dtype}; refusing to cast "
                             "(was the checkpoint's .json sidecar lost?)")
     model.load_state_dict(state)
+
+
+def _flax_leaf_order(flat: Dict[str, Any]) -> List[str]:
+    """Paths of a flattened flax tree in ``jax.tree.leaves`` order."""
+    return sorted(flat, key=lambda path: path.split("/"))
+
+
+def opt_state_from_torch(state: Dict[str, Any], names: List[str],
+                         with_schedule: bool) -> Dict[str, torch.Tensor]:
+    """``ClippedAdamW.state()`` (moments listed like ``names``, the
+    parameters' ``state_dict`` keys) -> the JAX trainer's ``opt_state``
+    section: ``{"000000": count, mu leaves, nu leaves[, schedule count]}``."""
+    leaves = [torch.tensor(int(state["count"]), dtype=torch.int32)]
+    for moments in (state["mu"], state["nu"]):
+        flat = _flatten(params_to_flax(dict(zip(names, moments))))
+        leaves += [flat[path] for path in _flax_leaf_order(flat)]
+    if with_schedule:
+        leaves.append(torch.tensor(int(state["schedule_count"]),
+                                   dtype=torch.int32))
+    return {f"{i:06d}": leaf for i, leaf in enumerate(leaves)}
+
+
+def opt_state_to_torch(saved: Dict[str, Any], names: List[str],
+                       with_schedule: bool) -> Optional[Dict[str, Any]]:
+    """The inverse: a checkpoint's ``opt_state`` section -> a state for
+    ``ClippedAdamW.load_state`` with moments listed like ``names``. Returns
+    None when the number of leaves does not fit this optimizer (another
+    model, or a schedule on one side only); the caller then starts a fresh
+    optimizer state, as the JAX trainer does."""
+    leaves = [_as_tensor(saved[k]) for k in sorted(saved)]
+    n = len(names)
+    if len(leaves) != 1 + 2 * n + int(with_schedule):
+        return None
+    # the flax paths of these parameters, in leaf order
+    flat = _flatten(params_to_flax({k: torch.empty(0, 0) if k.endswith("weight")
+                                    else torch.empty(0) for k in names}))
+    paths = _flax_leaf_order(flat)
+    state: Dict[str, Any] = {"count": int(leaves[0]),
+                             "schedule_count": int(leaves[-1]) if with_schedule else 0}
+    for which, chunk in (("mu", leaves[1:1 + n]), ("nu", leaves[1 + n:1 + 2 * n])):
+        by_key = params_from_flax(_unflatten(dict(zip(paths, chunk))))
+        state[which] = [by_key[k] for k in names]
+    return state

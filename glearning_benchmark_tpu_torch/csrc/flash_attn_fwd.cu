@@ -42,17 +42,12 @@
 // (the likely limit, see PERF.md). Tensor-core products (mma/wgmma) over
 // several query rows per warp are the way down, in a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <climits>
+#include "flash_attn_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;  // constants, to_f32/from_f32, hash_u32
+
 constexpr int kBlockQ = 128;  // query rows per block, one per thread
 constexpr int kTileK = 64;    // keys per shared-memory tile
 constexpr int kChunk = 16;    // keys per online-softmax step
@@ -74,34 +69,6 @@ struct Params {
   uint32_t keep_thresh;
   float keep_scale;  // 1 / (1 - p_drop)
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// pallas_attention._hash_u32: triple32 finaliser over absolute indices.
-__device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t bh,
-                                             uint32_t row, uint32_t col) {
-  uint32_t x = bh * 0x9E3779B1u;
-  x ^= row * 0x85EBCA77u;
-  x ^= col * 0xC2B2AE3Du;
-  x += seed;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 template <typename T, int D, int TK, int MIN_BLOCKS>
 __global__ void __launch_bounds__(kBlockQ, MIN_BLOCKS)

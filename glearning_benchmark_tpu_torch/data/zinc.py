@@ -40,6 +40,9 @@ from .graphs import Graph, GraphCorpus
 
 ZINC_NUM_ATOM_TYPES = 9   # C N O F P S Cl Br I (reference zinc_vocab.py:20)
 ZINC_NUM_BOND_TYPES = 4   # single double triple aromatic (1-based ids)
+# bumped when the stand-in's molecules or targets change; keys the dataset
+# cache of train/datasets.py
+ZINC_STANDIN_VERSION = 2
 
 _ATOM_SYMBOLS = ["C", "N", "O", "F", "P", "S", "Cl", "Br", "I"]
 _BOND_NAMES = {1: "single", 2: "double", 3: "triple", 4: "aromatic"}

@@ -1,9 +1,8 @@
 """SimpleTransformer: the shared IBTT/AGTT sequence model, in PyTorch.
 
-Port of ``glearning_benchmark_tpu/models/transformer.py`` for inference:
-learned token + absolute positional embeddings, a post-LN encoder stack
-(self-attention -> add -> LayerNorm -> FFN(ReLU) -> add -> LayerNorm),
-<bos> pooling with a masked-mean fallback, the '<q> u v' query readout, and
+Port of ``glearning_benchmark_tpu/models/transformer.py``: learned token +
+absolute positional embeddings, a post-LN encoder stack (self-attention ->
+add -> LayerNorm -> FFN(ReLU) -> add -> LayerNorm), <bos> pooling with a masked-mean fallback, the '<q> u v' query readout, and
 the packed-row readout. Module and parameter names follow the flax ones
 (``embed``, ``pos``, ``layer_{i}/{qkv,out_proj,ff1,ff2,norm1,norm2}``,
 ``norm``, ``cls``) so ``convert.py`` maps checkpoints mechanically.
@@ -13,20 +12,30 @@ encoder and the attention compute in ``compute_dtype``; residual sums and
 LayerNorms (eps 1e-6, flax's default) run in f32; the readout runs in f32.
 Attention always goes through :func:`..ops.flash_attention.flash_attention`
 with the padding mask as segment ids (the JAX package's ``use_flash``
-path): on a CUDA tensor that is the hand-written kernel, on a CPU tensor
-its plain version. Pad query rows then carry zeros, which no readout
-reads. Dropout is not implemented: this slice serves only.
+path): on a CUDA tensor those are the hand-written kernels, forward and
+backward, on a CPU tensor their plain versions. Pad query rows then carry
+zeros, which no readout reads.
+
+Dropout runs only in ``train()`` mode, at the reference's four sites per
+layer: on the attention probabilities inside the attention kernels (an
+int32 seed per call), and by :func:`..ops.attention.cheap_dropout` after
+``out_proj``, after the ReLU and after ``ff2``. The seeds of a forward are
+drawn on the host from the ``torch.Generator`` the caller passes, before
+any layer runs, so a checkpointed (``remat``) layer sees the same masks
+when it is recomputed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import cheap_dropout
 from ..ops.flash_attention import flash_attention
 
 LN_EPS = 1e-6            # flax nn.LayerNorm default
@@ -59,16 +68,20 @@ def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 class EncoderLayer(nn.Module):
     """Post-LN encoder layer (torch ``TransformerEncoderLayer`` semantics:
-    norm_first=False, ReLU)."""
+    norm_first=False, ReLU). ``p_attn`` drops attention probabilities,
+    ``p_res`` the two [B, L, d] residual branches, ``p_ffn`` the
+    [B, L, d_ff] activation."""
 
     def __init__(self, d_model: int, nhead: int, d_ff: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, p_attn: float = 0.0,
+                 p_res: float = 0.0, p_ffn: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} is not a multiple of "
                              f"nhead {nhead}")
         self.nhead = nhead
         self.dtype = dtype
+        self.p_attn, self.p_res, self.p_ffn = p_attn, p_res, p_ffn
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -83,20 +96,32 @@ class EncoderLayer(nn.Module):
             nn.init.ones_(norm.weight)
             nn.init.zeros_(norm.bias)
 
-    def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-        """x [B, L, d] f32, seg [B, L] int32 (0 = pad) -> [B, L, d] f32."""
+    def forward(self, x: torch.Tensor, seg: torch.Tensor,
+                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """x [B, L, d] f32, seg [B, L] int32 (0 = pad) -> [B, L, d] f32.
+        ``seeds`` (attention, out_proj, ReLU, ff2) turns dropout on; None
+        is the deterministic forward."""
         b, l, d = x.shape
         h = self.nhead
+        s_attn, s_out, s_relu, s_ff2 = seeds if seeds is not None else (None,) * 4
         # q|k|v along the last axis (jnp.split order); each stays a strided
-        # view of qkv, which the kernel reads in place
+        # view of qkv, which the kernels read in place
         q, k, v = _dense(self.qkv, x, self.dtype).split(d, dim=-1)
         attn = flash_attention(q.unflatten(-1, (h, d // h)),
                                k.unflatten(-1, (h, d // h)),
-                               v.unflatten(-1, (h, d // h)), seg=seg)
+                               v.unflatten(-1, (h, d // h)), seg=seg,
+                               p_drop=self.p_attn if seeds is not None else 0.0,
+                               seed=s_attn)
         attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
+        if seeds is not None:
+            attn = cheap_dropout(s_out, attn, self.p_res)
         x = _layer_norm(self.norm1, x + attn.float())
         y = F.relu(_dense(self.ff1, x, self.dtype))
+        if seeds is not None:
+            y = cheap_dropout(s_relu, y, self.p_ffn)
         y = _dense(self.ff2, y, self.dtype)
+        if seeds is not None:
+            y = cheap_dropout(s_ff2, y, self.p_res)
         return _layer_norm(self.norm2, x + y.float())
 
 
@@ -167,14 +192,25 @@ class SimpleTransformer(nn.Module):
     ``generator`` seeds the initial parameters, which follow flax's inits
     in distribution: truncated normal (std 0.02, cut at 2 std) for
     ``embed``, ``pos`` and the ``cls`` kernel; lecun-normal for the other
-    ``Dense`` kernels; zero biases; LayerNorm scale 1, bias 0."""
+    ``Dense`` kernels; zero biases; LayerNorm scale 1, bias 0.
+
+    ``p_drop`` is the rate of all four dropout sites of a layer;
+    ``attn_p_drop`` / ``mlp_p_drop`` split the attention-probability site
+    from the other three, ``resid_p_drop`` / ``ffn_p_drop`` split those
+    into the two residual sites and the FFN-inner site (None: inherit).
+    ``remat`` recomputes each encoder layer in the backward pass instead of
+    keeping its activations."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, nhead: int = 8,
                  nlayers: int = 4, d_ff: int = 512, p_drop: float = 0.1,
                  max_pos: int = 4096, num_classes: int = 2,
                  use_query_nodes: bool = True, task: str = "cycle_check",
                  bos_id: int = 1, query_offsets: Tuple[int, int] = (2, 3),
-                 compute_dtype: str = "float32",
+                 compute_dtype: str = "float32", remat: bool = False,
+                 attn_p_drop: Optional[float] = None,
+                 mlp_p_drop: Optional[float] = None,
+                 resid_p_drop: Optional[float] = None,
+                 ffn_p_drop: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if compute_dtype not in ("float32", "bfloat16"):
@@ -182,7 +218,8 @@ class SimpleTransformer(nn.Module):
                              f"got {compute_dtype!r}")
         self.d_model = d_model
         self.nlayers = nlayers
-        self.p_drop = p_drop  # kept for the training slice; serving is deterministic
+        self.p_drop = p_drop
+        self.remat = remat
         self.task = task
         self.use_query_nodes = use_query_nodes
         self.bos_id = bos_id
@@ -191,9 +228,15 @@ class SimpleTransformer(nn.Module):
         cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos = nn.Embedding(max_pos, d_model)
+        p_attn = p_drop if attn_p_drop is None else attn_p_drop
+        p_mlp = p_drop if mlp_p_drop is None else mlp_p_drop
+        p_res = p_mlp if resid_p_drop is None else resid_p_drop
+        p_ffn = p_mlp if ffn_p_drop is None else ffn_p_drop
+        self.has_dropout = max(p_attn, p_res, p_ffn) > 0.0
         for i in range(nlayers):
             self.add_module(f"layer_{i}",
-                            EncoderLayer(d_model, nhead, d_ff, cdtype))
+                            EncoderLayer(d_model, nhead, d_ff, cdtype,
+                                         p_attn, p_res, p_ffn))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         readout_width = 3 * d_model if use_query_nodes else d_model
         self.cls = nn.Linear(readout_width, num_classes)
@@ -219,15 +262,32 @@ class SimpleTransformer(nn.Module):
                 pos: Optional[torch.Tensor] = None,
                 pos_bos: Optional[torch.Tensor] = None,
                 pos_u: Optional[torch.Tensor] = None,
-                pos_v: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_v: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, L] int token ids, attn_mask [B, L] bool. Unpacked rows
         (seg None) return [B, C] ([B] for zinc); packed rows (seg [B, L]
         segment ids with within-segment ``pos`` and readout slots
-        ``pos_bos``/``pos_u``/``pos_v`` [B, K]) return [B, K, C]."""
+        ``pos_bos``/``pos_u``/``pos_v`` [B, K]) return [B, K, C].
+        In ``train()`` mode with a non-zero dropout rate, ``generator`` (a
+        CPU generator) gives the forward's dropout seeds."""
         h = transformer_embed(self.embed, self.pos, x, pos)
         seg_ids = (attn_mask if seg is None else seg).to(torch.int32).contiguous()
-        for layer in self.layers():
-            h = layer(h, seg_ids)
+        seeds = [None] * self.nlayers
+        if self.training and self.has_dropout:
+            if generator is None:
+                raise ValueError("a training forward with dropout needs the "
+                                 "generator its seeds are drawn from")
+            # one host draw for the whole forward: (attention, out_proj,
+            # ReLU, ff2) per layer, int32-ranged like the reference's
+            # randint(0, int32 max)
+            seeds = torch.randint(0, 2**31 - 1, (self.nlayers, 4),
+                                  generator=generator).tolist()
+        for layer, layer_seeds in zip(self.layers(), seeds):
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(layer, h, seg_ids, layer_seeds,
+                               use_reentrant=False)
+            else:
+                h = layer(h, seg_ids, layer_seeds)
         return transformer_readout(
             lambda t: _layer_norm(self.norm, t), self.cls, h, x, attn_mask,
             task=self.task, use_query_nodes=self.use_query_nodes,

@@ -1,22 +1,27 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+and their plain versions.
 
-Port of ``glearning_benchmark_tpu/ops/pallas_attention.py`` (forward only:
-``flash_attention`` / ``_flash_fwd`` / ``_attn_kernel`` and the dropout
-stream ``_hash_u32`` / ``dropout_keep_reference``). The kernel source is
-``csrc/flash_attn_fwd.cu``; its header note gives the design and what
-bounds it on an H100.
+Port of ``glearning_benchmark_tpu/ops/pallas_attention.py``:
+``flash_attention`` with its custom gradient (``_flash_fwd`` / ``_flash_bwd``),
+the three kernels ``_attn_kernel``, ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``, and the dropout stream ``_hash_u32`` /
+``dropout_keep_reference``. The kernel sources are ``csrc/flash_attn_fwd.cu``,
+``csrc/flash_attn_bwd_dq.cu`` and ``csrc/flash_attn_bwd_dkv.cu`` (shared
+pieces in ``csrc/flash_attn_common.cuh``); each source's header note gives
+its design and what bounds it on an H100.
 
-- :func:`flash_attention_fwd` is the wrapper. A CUDA tensor goes to the
-  kernel (or the call raises); a CPU tensor goes to
-  :func:`flash_attention_reference`, the plain version. Nothing falls back.
-- :data:`LAUNCHES` counts kernel launches, so a run can show that its path
-  went through the kernel.
-- The kernel is compiled with ``nvcc`` for ``sm_90a`` from the package's own
-  source at first use, into ``_build/`` beside the package, and bound with
-  ``ctypes``.
-
-The backward kernels (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) are not
-ported yet; this module serves inference only.
+- :func:`flash_attention` is differentiable: :class:`FlashAttentionFunction`
+  runs the forward kernel and, in its backward, the dQ and the dK/dV kernel.
+- :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq` and
+  :func:`flash_attention_bwd_dkv` are the wrappers, one per kernel. A CUDA
+  tensor goes to the kernel (or the call raises); a CPU tensor goes to the
+  plain version, :func:`flash_attention_reference` or
+  :func:`flash_attention_bwd_reference`. Nothing falls back.
+- :data:`LAUNCHES` counts launches per kernel, so a run can show that its
+  path went through each of them.
+- The kernels are compiled with ``nvcc`` for ``sm_90a`` from the package's
+  own sources at first use (one ``nvcc`` per source, all started together),
+  into ``_build/`` beside the package, and bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -28,23 +33,33 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 32, 64)
 _U32 = 0xFFFFFFFF
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_attn_fwd.cu"
+_CSRC = _PKG / "csrc"
+# one shared library per source, named like its source and its C entry point
+SOURCES = {name: _CSRC / f"{name}.cu"
+           for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                        "flash_attn_bwd_dkv")}
+HEADERS = (_CSRC / "flash_attn_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 
-# kernel launches since import (or since the caller last set it to 0)
-LAUNCHES = 0
+# kernel launches since import (or since :func:`reset_launches`), by kernel
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
-_lib = None
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +144,84 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
 
 
+def _allow_mask(seg: torch.Tensor) -> torch.Tensor:
+    """[B, 1, L, L] bool: query i may attend key j."""
+    return ((seg[:, None, :, None] == seg[:, None, None, :])
+            & (seg[:, None, None, :] != 0))
+
+
+def flash_attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) over the stored O, summed in f32: [B, H, L]."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, seg: torch.Tensor,
+                                  o: torch.Tensor, lse: torch.Tensor,
+                                  do: torch.Tensor, p_drop: float = 0.0,
+                                  seed: int = 0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The two backward kernels' formulae (``_bwd_dq_kernel``,
+    ``_bwd_dkv_kernel``), dense in f32: P recomputed from LSE, dP = dO.v
+    (times keep/(1-p)), dS = P (dP - delta) with delta from the stored O;
+    dQ = scale dS k, dK = scale dS^T q, dV = (P keep/(1-p))^T dO.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, l, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    allow = _allow_mask(seg)
+    logits = torch.einsum("blhd,bshd->bhls", qf, kf) * scale
+    logits = torch.where(allow, logits, NEG_INF)
+    p = torch.exp(logits - lse[..., None]) * allow
+    dp = torch.einsum("blhd,bshd->bhls", dof, vf)
+    delta = flash_attention_delta(o, do)[..., None]
+    if p_drop > 0.0:
+        keep = dropout_keep_reference(seed, b * h, l, l, p_drop,
+                                      device=q.device).view(b, h, l, l)
+        keepf = keep * (1.0 / (1.0 - p_drop))
+        pd = p * keepf
+        dp = dp * keepf
+    else:
+        pd = p
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhls,bshd->blhd", ds, kf) * scale
+    dk = torch.einsum("bhls,blhd->bshd", ds, qf) * scale
+    dv = torch.einsum("bhls,blhd->bshd", pd, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # build and bind
 # ---------------------------------------------------------------------------
+
+class _BwdParams(ctypes.Structure):
+    """``flash::BwdParams`` of csrc/flash_attn_common.cuh, field by field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("q", "k", "v", "o", "dout", "seg", "lse", "delta",
+                  "dq", "dk", "dv")]
+                + [(f"{t}_s{a}", ctypes.c_int64)
+                   for t in ("q", "k", "v", "do") for a in "blh"]
+                + [("B", ctypes.c_int), ("L", ctypes.c_int), ("H", ctypes.c_int),
+                   ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float),
+                   ("dropout", ctypes.c_int), ("seed", ctypes.c_uint32),
+                   ("keep_thresh", ctypes.c_uint32),
+                   ("keep_scale", ctypes.c_float)])
+
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_BWD_ARGTYPES = [ctypes.POINTER(_BwdParams), _I32, _I32, _PTR]
+_ARGTYPES = {
+    "flash_attn_fwd": ([_PTR] * 6 + [_I64] * 9 + [_I32] * 5
+                       + [ctypes.c_float, _I32, ctypes.c_uint32,
+                          ctypes.c_uint32, ctypes.c_float, _PTR]),
+    "flash_attn_bwd_dq": _BWD_ARGTYPES,
+    "flash_attn_bwd_dkv": _BWD_ARGTYPES,
+}
+
+_fns: Dict[str, object] = {}
+_build_seconds: Dict[str, float] = {}
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -141,57 +231,67 @@ def _nvcc() -> str:
     path = os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.isfile(path):
         raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the "
-                           "flash-attention kernel cannot be built")
+                           "flash-attention kernels cannot be built")
     return path
 
 
-def build() -> Path:
-    """Compile ``csrc/flash_attn_fwd.cu`` for sm_90a into a shared library
-    named by the source's hash (a rebuilt source gets a new library), and
-    return its path. A library already built from the same source is
-    reused."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libflash_attn_fwd_{digest}.so"
-    if lib.is_file():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile(name: str, lib: Path) -> float:
+    t0 = time.perf_counter()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(SOURCE)]
+           "-o", tmp, str(SOURCES[name])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
+                           f"({proc.returncode}):\n{proc.stderr}")
     (BUILD_DIR / f"{lib.stem}.ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, lib)
-    return lib
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.flash_attn_fwd
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        fn.argtypes = ([ptr] * 6 + [i64] * 9 + [i32] * 5
-                       + [ctypes.c_float, i32, ctypes.c_uint32,
-                          ctypes.c_uint32, ctypes.c_float, ptr])
-        fn.restype = i32
-        _lib = lib
-    return _lib
-
-
-def build_seconds() -> float:
-    """Build (or find) the kernel library and bind it; seconds taken."""
-    t0 = time.perf_counter()
-    _library()
     return time.perf_counter() - t0
 
 
+def build() -> Dict[str, Path]:
+    """Compile every kernel source for sm_90a into a shared library of its
+    own, named by the hash of the source and the shared header (a changed
+    source gets a new library), and return {name: path}. The compilers run
+    side by side; a library already built from the same text is reused."""
+    shared = b"".join(h.read_bytes() for h in HEADERS)
+    libs = {}
+    for name, src in SOURCES.items():
+        digest = hashlib.sha256(src.read_bytes() + shared).hexdigest()[:16]
+        libs[name] = BUILD_DIR / f"lib{name}_{digest}.so"
+    todo = [name for name, lib in libs.items() if not lib.is_file()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(len(todo)) as pool:
+            for name, secs in zip(todo, pool.map(
+                    lambda n: _compile(n, libs[n]), todo)):
+                _build_seconds[name] = secs
+    return libs
+
+
+def _kernel(name: str):
+    """The C entry point ``name``, building every library at first use."""
+    if name not in _fns:
+        fn = getattr(ctypes.CDLL(str(build()[name])), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I32
+        _fns[name] = fn
+    return _fns[name]
+
+
+def build_seconds() -> Dict[str, float]:
+    """Build (or find) and bind every kernel library; nvcc seconds per
+    source, 0.0 for one that was already built."""
+    for name in SOURCES:
+        _kernel(name)
+    return {name: _build_seconds.get(name, 0.0) for name in SOURCES}
+
+
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
 
 def _check(q, k, v, seg):
@@ -213,6 +313,27 @@ def _check(q, k, v, seg):
         raise ValueError(f"q, k, v, seg lie on different devices: {devices}")
 
 
+def _check_p_drop(p_drop) -> float:
+    p_drop = float(p_drop)
+    if not 0.0 <= p_drop < 1.0:
+        raise ValueError(f"p_drop must lie in [0, 1), got {p_drop}")
+    return p_drop
+
+
+def _check_cuda(q, k, v, seg):
+    """What the kernels need beyond :func:`_check` of a CUDA tensor."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention path for device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a contiguous last dim")
+    if not seg.is_contiguous():
+        raise ValueError("seg must be contiguous")
+    b, l, h, _ = q.shape
+    if b * h >= 2**31 or -(-l // 128) > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seg: torch.Tensor, p_drop: float = 0.0,
                         seed: Optional[int] = None
@@ -221,30 +342,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     optional in-kernel dropout. Returns (O [B, L, H, D] in q's dtype,
     LSE [B, H, L] f32). CUDA tensors run the kernel; CPU tensors run
     :func:`flash_attention_reference`."""
-    global LAUNCHES
     _check(q, k, v, seg)
-    p_drop = float(p_drop)
-    if not 0.0 <= p_drop < 1.0:
-        raise ValueError(f"p_drop must lie in [0, 1), got {p_drop}")
+    p_drop = _check_p_drop(p_drop)
     seed = 0 if seed is None else int(seed)
     seed_u32 = _seed_u32(seed)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, seg, p_drop, seed)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention path for device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must have a contiguous last dim")
-    if not seg.is_contiguous():
-        raise ValueError("seg must be contiguous")
+    _check_cuda(q, k, v, seg)
     b, l, h, d = q.shape
-    if b * h >= 2**31 or -(-l // 128) > 65535:
-        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    fn = _library().flash_attn_fwd
+    fn = _kernel("flash_attn_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
@@ -257,20 +367,147 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    LAUNCHES["flash_attn_fwd"] += 1
     return o, lse
+
+
+def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
+                p_drop: float, seed: int) -> None:
+    """Fill ``flash::BwdParams`` and launch backward kernel ``name``."""
+    _check_cuda(q, k, v, seg)
+    b, l, h, d = q.shape
+    for what, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (b, h, l), torch.float32),
+                                  ("delta", delta, (b, h, l), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{what} must be {dtype} {tuple(shape)} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    for what, t in (("o", o), ("lse", lse), ("delta", delta)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    if do.stride(-1) != 1:
+        raise ValueError("do must have a contiguous last dim")
+    ptr = {"q": q, "k": k, "v": v, "o": o, "dout": do, "seg": seg,
+           "lse": lse, "delta": delta, **outs}
+    params = _BwdParams(
+        **{name_: (t.data_ptr() if t is not None else None)
+           for name_, t in ptr.items()},
+        **{f"{n}_s{a}": t.stride(i) for n, t in
+           (("q", q), ("k", k), ("v", v), ("do", do))
+           for i, a in enumerate("blh")},
+        B=b, L=l, H=h, scale=1.0 / d ** 0.5, scale_log2=0.0,
+        dropout=int(p_drop > 0.0), seed=_seed_u32(seed),
+        keep_thresh=_keep_threshold(p_drop), keep_scale=1.0 / (1.0 - p_drop))
+    fn = _kernel(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(ctypes.byref(params), d, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           seg: torch.Tensor, o: torch.Tensor,
+                           lse: torch.Tensor, do: torch.Tensor,
+                           p_drop: float = 0.0, seed: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dQ of attention, and delta = rowsum(dO * O) [B, H, L] f32 for
+    :func:`flash_attention_bwd_dkv`. ``o`` and ``lse`` are the forward's
+    outputs for the same inputs, ``p_drop`` and ``seed``. CUDA tensors run
+    the dQ kernel; CPU tensors the plain version."""
+    _check(q, k, v, seg)
+    p_drop = _check_p_drop(p_drop)
+    seed = 0 if seed is None else int(seed)
+    if q.device.type == "cpu":
+        dq = flash_attention_bwd_reference(q, k, v, seg, o, lse, do,
+                                           p_drop, seed)[0]
+        return dq, flash_attention_delta(o, do)
+    b, l, h, d = q.shape
+    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    if dq.numel():
+        _launch_bwd("flash_attn_bwd_dq", q, k, v, seg, o, lse, do, delta,
+                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed)
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            seg: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            delta: torch.Tensor, p_drop: float = 0.0,
+                            seed: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of attention, from the forward's ``o``/``lse`` and the
+    ``delta`` that :func:`flash_attention_bwd_dq` returned. CUDA tensors run
+    the dK/dV kernel; CPU tensors the plain version."""
+    _check(q, k, v, seg)
+    p_drop = _check_p_drop(p_drop)
+    seed = 0 if seed is None else int(seed)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, seg, o, lse, do,
+                                             p_drop, seed)[1:]
+    b, l, h, d = q.shape
+    dk = torch.empty((b, l, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, l, h, d), dtype=v.dtype, device=q.device)
+    if dk.numel():
+        _launch_bwd("flash_attn_bwd_dkv", q, k, v, seg, o, lse, do, delta,
+                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed)
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, seg, o, lse, do, p_drop: float = 0.0,
+                        seed: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on the same stream
+    (CPU tensors: one pass of :func:`flash_attention_bwd_reference`)."""
+    if q.device.type == "cpu":
+        _check(q, k, v, seg)
+        return flash_attention_bwd_reference(
+            q, k, v, seg, o, lse, do, _check_p_drop(p_drop),
+            0 if seed is None else int(seed))
+    dq, delta = flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta,
+                                     p_drop, seed)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``_flash_core`` with its custom gradient: forward kernel, and in the
+    backward the dQ and dK/dV kernels on the saved q, k, v, O, LSE, seg and
+    seed (the dropout masks are regenerated, never stored)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, p_drop, seed):
+        o, lse = flash_attention_fwd(q, k, v, seg, p_drop, seed)
+        ctx.save_for_backward(q, k, v, seg, o, lse)
+        ctx.p_drop, ctx.seed = p_drop, seed
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, seg, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, seg, o, lse, do,
+                                         ctx.p_drop, ctx.seed)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: Optional[torch.Tensor] = None, *,
                     seg: Optional[torch.Tensor] = None, p_drop: float = 0.0,
                     seed: Optional[int] = None) -> torch.Tensor:
-    """The JAX package's ``flash_attention`` signature, forward only: pass
-    ``key_mask`` [B, L] bool (True = attend) or ``seg`` [B, L] segment ids
-    (0 = pad). Returns O [B, L, H, D]."""
+    """The JAX package's ``flash_attention`` signature, differentiable in
+    q, k, v: pass ``key_mask`` [B, L] bool (True = attend) or ``seg``
+    [B, L] segment ids (0 = pad). ``p_drop`` > 0 drops attention
+    probabilities inside the kernels by the counter hash of ``seed`` (an
+    int32). Returns O [B, L, H, D]."""
     if seg is None:
         if key_mask is None:
             raise ValueError("flash_attention needs key_mask or seg")
         seg = key_mask
-    return flash_attention_fwd(q, k, v, seg.to(torch.int32).contiguous(),
-                               p_drop=p_drop, seed=seed)[0]
+    return FlashAttentionFunction.apply(
+        q, k, v, seg.to(torch.int32).contiguous(), float(p_drop),
+        0 if seed is None else int(seed))

@@ -34,15 +34,7 @@ from .tokenization.vocab import build_fixed_zinc_vocab
 from .train.checkpoint import load_checkpoint
 from .train.datasets import QUERY_TASKS, SPLITS, DatasetBundle
 from .train.trainer import build_model
-
-
-def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
-    """``None`` means ``cuda``. Asking for CUDA without a GPU raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "run on the CPU")
-    return dev
+from .utils.device import resolve_device
 
 
 def _next_pow2(n: int, cap: int) -> int:
@@ -92,11 +84,22 @@ class Predictor:
         ckpt = load_checkpoint(path)
         if ckpt is None:
             raise FileNotFoundError(f"no checkpoint at {path!r}")
+        config = ckpt.get("config") or {}
         serve = ckpt.get("serve")
         if serve is None:
-            raise ValueError("checkpoint has no serve block; rebuilding it "
-                             "from the training corpus is not ported yet")
-        return cls(model_name or serve["model_name"], ckpt.get("config") or {},
+            # a checkpoint from before the serve block: rebuild the bundle
+            # from the stored config (ZINC only; needs the corpus)
+            from .train.checkpoint import serving_meta
+            from .train.datasets import build_dataset
+            if model_name is None:
+                raise ValueError("old checkpoint without serve metadata: "
+                                 "pass model_name=")
+            seed = int(config.get("train", {}).get("seed", 0))
+            bundle = build_dataset(model_name, config["dataset"], seed)
+            serve = serving_meta(model_name, bundle)
+            if ckpt.get("vocab") is None:
+                ckpt["vocab"] = bundle.vocab
+        return cls(model_name or serve["model_name"], config,
                    ckpt["params"], ckpt.get("vocab"), serve,
                    max_batch=max_batch, device=device)
 

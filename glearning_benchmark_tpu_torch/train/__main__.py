@@ -1,0 +1,68 @@
+"""CLI entry point of the port's trainer.
+
+    python -m glearning_benchmark_tpu_torch.train --model {ibtt,agtt}
+        --config configs/X.yaml [--epochs N] [--limit N] [--resume]
+        [--eval-only] [--checkpoint P] [--device cuda|cpu]
+
+The flags of the JAX package's root ``train.py``, plus ``--device``. The
+run is on the GPU unless ``--device cpu`` is given; without a GPU the
+default raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+MODEL_DEFAULT_CONFIGS = {
+    "ibtt": "configs/ibtt_zinc.yaml",
+    "agtt": "configs/agtt_zinc.yaml",
+}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        prog="python -m glearning_benchmark_tpu_torch.train",
+        description="Train the token transformers (PyTorch/CUDA port)")
+    ap.add_argument("--model", required=True, choices=sorted(MODEL_DEFAULT_CONFIGS))
+    ap.add_argument("--config", default=None, help="YAML config path")
+    ap.add_argument("--epochs", type=int, default=None, help="override train.epochs")
+    ap.add_argument("--limit", type=int, default=None,
+                    help="cap examples per split (smoke runs)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the best checkpoint (params + optimizer "
+                         "state + schedule step)")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="no training: load the best checkpoint and score "
+                         "the val and test splits")
+    ap.add_argument("--checkpoint", default=None,
+                    help="explicit checkpoint path for --resume/--eval-only "
+                         "(default: <output.dir>/best_<run_name>)")
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="default: cuda (raises without a GPU)")
+    args = ap.parse_args(argv)
+
+    config_path = args.config or MODEL_DEFAULT_CONFIGS[args.model]
+    if not os.path.isfile(config_path):
+        raise SystemExit(f"config not found: {config_path}")
+
+    from ..utils.config import load_config, normalize_config
+    config = normalize_config(load_config(config_path))
+    if args.epochs is not None:
+        config["train"]["epochs"] = args.epochs
+    if args.resume or args.eval_only:
+        config["train"]["resume"] = True
+    if args.eval_only:
+        config["train"]["epochs"] = 0
+    if args.checkpoint:
+        config["train"]["resume_path"] = args.checkpoint
+
+    print(f"Loaded config from: {config_path}")
+    print(f"Task: {config['dataset']['task']} | Model: {args.model}")
+
+    from .trainer import train
+    train(config, args.model, limit=args.limit, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,17 +1,39 @@
-"""Dataset bundle type and the query-task tables.
+"""Dataset assembly: configs -> fixed-shape arrays, one pass at startup.
 
-Port of ``glearning_benchmark_tpu/train/datasets.py``: ``DatasetBundle``,
-``SPLITS``, ``QUERY_TASKS`` and ``QUERY_OFFSETS`` (copied). Building
-bundles from corpora comes with the training slice; serving rebuilds a
-bundle from a checkpoint's ``serve`` block.
+Port of ``glearning_benchmark_tpu/train/datasets.py`` for the token models
+on ``task: zinc``: ``DatasetBundle``, the query-task tables, the packed
+train split, the content-addressed bundle cache, ``build_ibtt_dataset``,
+``build_agtt_dataset`` and the ``build_dataset`` dispatcher (numpy, copied;
+the tests hold the arrays equal to the JAX package's). Trails come from the
+Python ``TrailTokenizer``. The synthetic corpora (``data/generator.py`` and
+the rest of ``data/loader.py``) and the graph-native bundles are not ported
+yet and raise ``NotImplementedError``.
+
+Array layouts of a token split: ids [N, L] i32, mask [N, L] bool, y [N];
+a packed train split: ids/seg/pos [R, L] i32, pos_bos/pos_u/pos_v [R, K]
+i32, ex_valid [R, K] bool, y [R, K].
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
+
+from ..data.zinc import (ZINC_NUM_ATOM_TYPES, ZINC_NUM_BOND_TYPES,
+                         ZINC_STANDIN_VERSION, load_zinc_split)
+from ..tokenization.ibtt import encode_texts, tokenize_zinc_molecule
+from ..tokenization.pack import pack_examples, pad_sequences, round_up_to_bucket
+from ..tokenization.sent import TrailTokenizer
+from ..tokenization.vocab import (build_fixed_zinc_vocab, collect_dynamic_tokens,
+                                  extend_vocab_with_dynamic_tokens)
+from ..utils.hashing import stable_hash
+
+# bumped when the bundles this module emits change
+_CACHE_FORMAT = 1
 
 SPLITS = ("train", "val", "test")
 
@@ -41,3 +63,244 @@ class DatasetBundle:
 
     def n(self, split: str) -> int:
         return len(self.splits[split]["y"])
+
+
+def _pack_train_split(seqs, labels, bucket, pad_id, q_id, offsets):
+    """Replace an unpacked train split with packed rows (SURVEY §7 2d):
+    multiple sequences per attention row behind a block-diagonal mask,
+    segment-relative positions, host-precomputed readout slots. Eval splits
+    stay unpacked (the reference collate contract is the eval surface)."""
+    pk = pack_examples(seqs, bucket=bucket, pad_id=pad_id,
+                       q_token_id=q_id, query_offsets=offsets)
+    y = np.asarray(labels)
+    y_ex = np.where(pk["ex_valid"], y[pk["ex_index"]], 0).astype(y.dtype)
+    return {"ids": pk["ids"], "seg": pk["seg"], "pos": pk["pos"],
+            "pos_bos": pk["pos_bos"], "pos_u": pk["pos_u"],
+            "pos_v": pk["pos_v"], "ex_valid": pk["ex_valid"], "y": y_ex}
+
+
+# ---------------------------------------------------------------------------
+# content-addressed bundle cache under <root>/processed/, keyed by a stable
+# hash of the full build configuration; its own key space, so it never
+# reads a bundle the JAX package cached
+# ---------------------------------------------------------------------------
+
+def _cache_path(model_name: str, dataset_cfg: dict, seed: int, limit) -> Optional[str]:
+    root = dataset_cfg.get("graph_token_root") or dataset_cfg.get("zinc_root")
+    if not root:
+        return None
+    key_src = json.dumps({"model": model_name, "cfg": dataset_cfg,
+                          "seed": seed, "limit": limit, "port": "torch",
+                          "format": _CACHE_FORMAT,
+                          "zinc": ZINC_STANDIN_VERSION},
+                         sort_keys=True, default=str)
+    return os.path.join(root, "processed",
+                        f"torch_{model_name}_{dataset_cfg.get('task')}_"
+                        f"{stable_hash(key_src):016x}")
+
+
+def _save_bundle(path: str, bundle: DatasetBundle) -> None:
+    os.makedirs(path, exist_ok=True)
+    arrays = {f"{s}__{k}": v for s, arr in bundle.splits.items()
+              for k, v in arr.items()}
+    np.savez_compressed(os.path.join(path, "data.npz"), **arrays)
+    meta = {"task": bundle.task, "kind": bundle.kind,
+            "num_classes": bundle.num_classes, "vocab": bundle.vocab,
+            "vocab_size": bundle.vocab_size, "q_token_id": bundle.q_token_id,
+            "in_dim": bundle.in_dim, "meta": bundle.meta}
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def _load_bundle(path: str) -> Optional[DatasetBundle]:
+    """The cached bundle at ``path``, or None when there is none or it
+    cannot be read (it is then rebuilt)."""
+    npz_path = os.path.join(path, "data.npz")
+    meta_path = os.path.join(path, "meta.json")
+    if not (os.path.isfile(npz_path) and os.path.isfile(meta_path)):
+        return None
+    try:
+        with np.load(npz_path) as z:
+            splits: Dict[str, Dict[str, np.ndarray]] = {s: {} for s in SPLITS}
+            for key in z.files:
+                s, k = key.split("__", 1)
+                splits[s][k] = z[key]
+        with open(meta_path) as f:
+            meta = json.load(f)
+        return DatasetBundle(task=meta["task"], kind=meta["kind"], splits=splits,
+                             num_classes=meta["num_classes"], vocab=meta["vocab"],
+                             vocab_size=meta["vocab_size"],
+                             q_token_id=meta["q_token_id"], in_dim=meta["in_dim"],
+                             meta=meta["meta"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def _synthetic_not_ported(task: str):
+    raise NotImplementedError(
+        f"task {task!r} needs the synthetic corpora (data/generator.py and "
+        "the multi-algorithm loaders), which are not ported yet (ROADMAP "
+        "queue A, item 3); the port trains on task 'zinc'")
+
+
+def _zinc_graphs(dataset_cfg: dict, limit: Optional[int]):
+    return {s: load_zinc_split(dataset_cfg.get("zinc_root", "./data/ZINC"), s,
+                               subset=dataset_cfg.get("subset", True), limit=limit,
+                               target_weights=dataset_cfg.get("zinc_target_weights"))
+            for s in SPLITS}
+
+
+# ---------------------------------------------------------------------------
+# IBTT (token) datasets
+# ---------------------------------------------------------------------------
+
+def build_ibtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None) -> DatasetBundle:
+    task = dataset_cfg["task"]
+    max_len = int(dataset_cfg.get("max_len", 600))
+    if task != "zinc":
+        _synthetic_not_ported(task)
+
+    mols = _zinc_graphs(dataset_cfg, limit)
+    texts = {s: [tokenize_zinc_molecule(m, max_len=max_len) for m in mols[s]]
+             for s in SPLITS}
+    labels = {s: np.array([m.y for m in mols[s]], dtype=np.float32) for s in SPLITS}
+    # fixed vocab + dynamic tokens over all splits, pinned order
+    fixed, _ = build_fixed_zinc_vocab()
+    dyn = collect_dynamic_tokens(
+        (t for s in SPLITS for t in texts[s]), fixed)
+    vocab = extend_vocab_with_dynamic_tokens(fixed, dyn)
+    num_classes = 1
+
+    pad_id = vocab["<pad>"]
+    packed = {s: encode_texts(texts[s], vocab, max_len=max_len) for s in SPLITS}
+    # per-split buckets: the train split pads only to ITS max (the OOD test
+    # algorithm often has far longer serializations — e.g. er test graphs at
+    # ~600 tokens vs path train graphs at ~200 — and attention cost is L²);
+    # val and test share one bucket because they share a compiled eval fn
+    train_bucket = round_up_to_bucket(max(packed["train"][0].shape[1], 1))
+    eval_bucket = round_up_to_bucket(max(
+        max(packed[s][0].shape[1] if packed[s][0].size else 1 for s in ("val", "test")), 1))
+    splits = {}
+    for s in SPLITS:
+        bucket = train_bucket if s == "train" else eval_bucket
+        ids, lens = packed[s]
+        n, l = ids.shape if ids.size else (0, 0)
+        out = np.full((n, bucket), pad_id, dtype=np.int32)
+        if ids.size:
+            out[:, :l] = ids
+        mask = np.arange(bucket)[None, :] < lens[:, None]
+        splits[s] = {"ids": out, "mask": mask, "y": labels[s]}
+
+    q_id = vocab.get("<q>") if task in QUERY_TASKS else None
+
+    n_examples_train = len(labels["train"])
+    if bool(dataset_cfg.get("pack", False)) and n_examples_train:
+        ids_t, lens_t = packed["train"]
+        seqs = [ids_t[i, : lens_t[i]] for i in range(len(lens_t))]
+        splits["train"] = _pack_train_split(
+            seqs, labels["train"], train_bucket, pad_id, q_id,
+            QUERY_OFFSETS.get(task, (1, 2)))
+
+    return DatasetBundle(task=task, kind="tokens", splits=splits,
+                         num_classes=num_classes, vocab=vocab,
+                         vocab_size=len(vocab), q_token_id=q_id,
+                         meta={"max_len": max(train_bucket, eval_bucket),
+                               "pad_id": pad_id,
+                               "n_examples_train": n_examples_train})
+
+
+# ---------------------------------------------------------------------------
+# AGTT (trail token) datasets
+# ---------------------------------------------------------------------------
+
+def build_agtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None) -> DatasetBundle:
+    task = dataset_cfg["task"]
+    max_len = int(dataset_cfg.get("max_len", 600))
+    if task != "zinc":
+        _synthetic_not_ported(task)
+    graphs = _zinc_graphs(dataset_cfg, limit)
+
+    tok = TrailTokenizer(max_length=max_len, truncation_length=max_len,
+                         labeled_graph=True, undirected=True)
+    # position table sized over ALL splits, so no eval graph is dropped
+    max_nodes_train = max(g.num_nodes for g in graphs["train"])
+    max_nodes = max(g.num_nodes for s in SPLITS for g in graphs[s])
+    if max_nodes > max_nodes_train:
+        print(f"[agtt] eval graphs exceed the train max ({max_nodes} > "
+              f"{max_nodes_train} nodes); position table sized globally so "
+              f"none are dropped")
+    tok.set_num_nodes(max_nodes)
+    tok.set_num_node_and_edge_types(ZINC_NUM_ATOM_TYPES, ZINC_NUM_BOND_TYPES)
+    fixed, _ = build_fixed_zinc_vocab()
+    # fixed vocab size + node positions remapped to 22+
+    vocab_size = len(fixed) + max_nodes + 100
+    pad_id = fixed["<pad>"]
+    bos_like = fixed["<bos>"]
+
+    seqs_by_split = {
+        s: [(tok.remap_zinc_tokens(tok(g), fixed), g.y) for g in graphs[s]]
+        for s in SPLITS}
+    splits = {}
+
+    def split_bucket(names):
+        m = max((len(t) for s in names for t, _ in seqs_by_split[s]), default=1)
+        return round_up_to_bucket(min(m, max_len + 3))
+
+    # per-split buckets (see build_ibtt_dataset): train tight, val/test shared
+    buckets = {"train": split_bucket(["train"]),
+               "val": split_bucket(["val", "test"]),
+               "test": split_bucket(["val", "test"])}
+    for s in SPLITS:
+        bucket = buckets[s]
+        seqs = [t for t, _ in seqs_by_split[s]]
+        ys = [y for _, y in seqs_by_split[s]]
+        ids, mask = pad_sequences(seqs, pad_id=pad_id, max_len=bucket)
+        n, l = ids.shape
+        out = np.full((n, bucket), pad_id, dtype=np.int32)
+        outm = np.zeros((n, bucket), dtype=bool)
+        out[:, :l] = ids
+        outm[:, :l] = mask
+        y = np.array(ys, dtype=np.float32)
+        splits[s] = {"ids": out, "mask": outm, "y": y}
+    bucket = max(buckets.values())
+
+    n_examples_train = len(seqs_by_split["train"])
+    if bool(dataset_cfg.get("pack", False)) and n_examples_train:
+        splits["train"] = _pack_train_split(
+            [t for t, _ in seqs_by_split["train"]],
+            np.array([y for _, y in seqs_by_split["train"]], dtype=np.float32),
+            buckets["train"], pad_id, None, (1, 2))
+
+    return DatasetBundle(task=task, kind="tokens", splits=splits,
+                         num_classes=1, vocab=None,
+                         vocab_size=vocab_size, q_token_id=None,
+                         meta={"max_len": bucket, "pad_id": pad_id,
+                               "idx_offset": tok.idx_offset,
+                               "bos_id": bos_like, "max_nodes": max_nodes,
+                               "n_examples_train": n_examples_train})
+
+
+def build_dataset(model_name: str, dataset_cfg: dict, seed: int,
+                  limit: Optional[int] = None) -> DatasetBundle:
+    """The bundle of ``model_name`` for ``dataset_cfg``, from the cache when
+    ``dataset.cache`` (default true) finds it there, else built and cached."""
+    if model_name in ("mpnn", "ggps"):
+        raise NotImplementedError(
+            f"{model_name} consumes graph bundles, which are not ported yet "
+            "(ROADMAP queue A, item 5)")
+    if model_name not in ("ibtt", "agtt"):
+        raise ValueError(f"unknown model {model_name!r}")
+    cache = bool(dataset_cfg.get("cache", True))
+    path = _cache_path(model_name, dataset_cfg, seed, limit) if cache else None
+    if path is not None:
+        cached = _load_bundle(path)
+        if cached is not None:
+            return cached
+    build = build_ibtt_dataset if model_name == "ibtt" else build_agtt_dataset
+    bundle = build(dataset_cfg, seed, limit=limit)
+    if path is not None:
+        try:
+            _save_bundle(path, bundle)
+        except OSError as e:   # a read-only data root: train uncached
+            print(f"[warn] dataset cache not written: {e}")
+    return bundle

@@ -102,7 +102,7 @@ def test_wrapper_cpu_route_and_checks():
     shape = (2, 70, 4, 16)
     q, k, v = (torch.from_numpy(a) for a in _qkv(shape, seed=3))
     seg = torch.from_numpy(_ragged_seg(2, 70, seed=3))
-    before = fa.LAUNCHES
+    before = dict(fa.LAUNCHES)
     o, lse = fa.flash_attention_fwd(q, k, v, seg)
     ref_o, ref_lse = fa.flash_attention_reference(q, k, v, seg)
     assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)

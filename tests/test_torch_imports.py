@@ -2,6 +2,7 @@
 and not ``chip_smoke.py``, imports jax, flax, optax or the JAX package."""
 
 import ast
+import importlib
 import pathlib
 
 import pytest
@@ -30,3 +31,14 @@ def test_no_jax_imports(path):
 
 def test_package_is_covered():
     assert len(FILES) > 20
+
+
+MODULES = [".".join(p.relative_to(REPO).with_suffix("").parts)
+           for p in FILES[:-1] if p.name != "__main__.py"]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_without_a_gpu_toolchain(module):
+    """Every module imports where there is no nvcc, no triton and no GPU:
+    kernels are built inside the call that launches them."""
+    importlib.import_module(module)

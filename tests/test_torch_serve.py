@@ -251,4 +251,11 @@ def test_chip_smoke_model_literals_match_configs():
     for name, literal in (("agtt_zinc", mod.AGTT_ZINC_MODEL),
                           ("ibtt_zinc", mod.IBTT_ZINC_MODEL)):
         with open(os.path.join(REPO, "configs", f"{name}.yaml")) as f:
-            assert literal == yaml.safe_load(f)["model"], name
+            cfg = yaml.safe_load(f)
+        assert literal == cfg["model"], name
+        # the training literals hold for both configs (zinc_root, pack,
+        # epochs and the output names are set by the script)
+        assert mod.ZINC_DATASET.items() <= cfg["dataset"].items(), name
+        assert mod.ZINC_TRAIN.items() <= cfg["train"].items(), name
+    with open(os.path.join(REPO, "configs", "agtt_zinc.yaml")) as f:
+        assert yaml.safe_load(f)["dataset"]["pack"] is True

@@ -111,3 +111,104 @@ def test_text_records_parse_identically():
                 assert (a.num_nodes, a.y, a.query_u, a.query_v) == \
                     (b.num_nodes, b.y, b.query_u, b.query_v)
                 assert a.edges.tobytes() == b.edges.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# packing and the dataset bundles (the training path)
+# ---------------------------------------------------------------------------
+
+def _same_arrays(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], np.ndarray):
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            assert a[k].tobytes() == b[k].tobytes(), k
+        else:
+            assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("q_id", [None, 30])
+def test_pack_examples_is_byte_identical(graphs, q_id):
+    """pack_examples on stand-in ZINC trails (one cut by the bucket)."""
+    from glearning_benchmark_tpu.tokenization import pack as jax_pack
+    from glearning_benchmark_tpu_torch.tokenization import pack
+
+    tok = jax_sent.TrailTokenizer(max_length=1024, truncation_length=1024,
+                                  labeled_graph=True, undirected=True)
+    tok.set_num_nodes(max(g.num_nodes for g in graphs[1]))
+    tok.set_num_node_and_edge_types(jax_zinc.ZINC_NUM_ATOM_TYPES,
+                                    jax_zinc.ZINC_NUM_BOND_TYPES)
+    seqs = [np.asarray(tok(g)) for g in graphs[1]]
+    bucket = 128                      # shorter than the longest trail
+    assert max(len(s) for s in seqs) > bucket
+    ref = jax_pack.pack_examples(seqs, bucket=bucket, pad_id=2, q_token_id=q_id,
+                                 query_offsets=(1, 2))
+    got = pack.pack_examples(seqs, bucket=bucket, pad_id=2, q_token_id=q_id,
+                             query_offsets=(1, 2))
+    _same_arrays(got, ref)
+    for n in (1, 64, 65, 600, 641, 5000):
+        assert pack.round_up_to_bucket(n) == jax_pack.round_up_to_bucket(n)
+
+
+@pytest.mark.parametrize("model_name,pack", [("agtt", True), ("agtt", False),
+                                             ("ibtt", True), ("ibtt", False)])
+def test_zinc_bundles_are_identical(tmp_path, model_name, pack):
+    """build_ibtt_dataset / build_agtt_dataset for task zinc: every array,
+    the vocab and the meta equal the JAX package's."""
+    from glearning_benchmark_tpu.train import datasets as jax_ds
+    from glearning_benchmark_tpu_torch.train import datasets as ds
+
+    cfg = {"task": "zinc", "zinc_root": str(tmp_path / "nozinc"),
+           "subset": True, "max_len": 1024, "pack": pack}
+    build = f"build_{model_name}_dataset"
+    ref = getattr(jax_ds, build)(cfg, 0, limit=120)
+    got = getattr(ds, build)(cfg, 0, limit=120)
+    for split in ds.SPLITS:
+        _same_arrays(got.splits[split], ref.splits[split])
+    for field in ("task", "kind", "num_classes", "vocab", "vocab_size",
+                  "q_token_id", "in_dim", "meta"):
+        assert getattr(got, field) == getattr(ref, field), field
+    assert ("seg" in got.splits["train"]) == pack
+
+
+def test_build_dataset_caches_and_refuses_what_is_not_ported(tmp_path):
+    from glearning_benchmark_tpu_torch.train import datasets as ds
+
+    cfg = {"task": "zinc", "zinc_root": str(tmp_path / "z"), "subset": True,
+           "max_len": 1024, "pack": True}
+    first = ds.build_dataset("agtt", cfg, 0, limit=40)
+    path = ds._cache_path("agtt", cfg, 0, 40)
+    assert (tmp_path / "z" / "processed").is_dir() and path.startswith(str(tmp_path))
+    again = ds.build_dataset("agtt", cfg, 0, limit=40)     # from the cache
+    for split in ds.SPLITS:
+        _same_arrays(again.splits[split], first.splits[split])
+    assert again.meta == first.meta
+    with pytest.raises(NotImplementedError, match="synthetic"):
+        ds.build_dataset("ibtt", {"task": "cycle_check"}, 0)
+    with pytest.raises(NotImplementedError, match="graph bundles"):
+        ds.build_dataset("mpnn", cfg, 0)
+    with pytest.raises(ValueError):
+        ds.build_dataset("nope", cfg, 0)
+
+
+def test_config_and_metrics_copies_match(tmp_path):
+    from glearning_benchmark_tpu.train import metrics as jax_metrics
+    from glearning_benchmark_tpu.utils import config as jax_config
+    from glearning_benchmark_tpu_torch.train import metrics
+    from glearning_benchmark_tpu_torch.utils import config
+
+    for name in ("agtt_zinc", "ibtt_zinc", "gps_graph_token"):
+        path = f"configs/{name}.yaml"
+        assert config.normalize_config(config.load_config(path)) == \
+            jax_config.normalize_config(jax_config.load_config(path))
+    cm = np.random.default_rng(0).integers(0, 9, size=(4, 4))
+    for task in ("cycle_check", "shortest_path", "node_degree"):
+        a = metrics.classification_metrics_from_cm(cm, task, 3.0, 50.0)
+        b = jax_metrics.classification_metrics_from_cm(cm, task, 3.0, 50.0)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+        assert metrics.format_confusion_matrix(cm, task) == \
+            jax_metrics.format_confusion_matrix(cm, task)
+    assert metrics.regression_metrics_from_sums(1.5, 2.5, 1.5, 10.0) == \
+        jax_metrics.regression_metrics_from_sums(1.5, 2.5, 1.5, 10.0)

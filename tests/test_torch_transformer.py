@@ -178,3 +178,127 @@ def test_port_init_matches_flax_in_distribution():
     again = SimpleTransformer(**kw, generator=torch.Generator().manual_seed(0))
     for k, v in model.state_dict().items():
         assert torch.equal(v, again.state_dict()[k]), k
+
+
+# ---------------------------------------------------------------------------
+# gradients and dropout (the training slice)
+# ---------------------------------------------------------------------------
+
+# gradients of sum(logits * w) with respect to every parameter, dropout off.
+# f32: summation order only, 1e-4 absolute on gradients that reach about 20.
+# bf16 compute: the two backward passes round at other places (flax's XLA
+# softmax runs in bf16, the port's attention in f32 over bf16 inputs), so
+# each tensor is held to a relative L2 error of 0.1. Measured against the
+# f32 gradient, both sides are off by up to 0.08 (flax) and 0.07 (port),
+# and by up to 0.08 from each other (layer_0/qkv/bias, where flax is the
+# less accurate side).
+GRAD_ATOL = 1e-4
+GRAD_REL_L2_BF16 = 0.1
+
+
+def _flax_grads(fmodel, params, w, *args, **kwargs):
+    def loss(p):
+        out = fmodel.apply({"params": p}, *args, deterministic=True, **kwargs)
+        return jnp.sum(out * w)
+
+    grads = jax.jit(jax.grad(loss))(params)
+    return jax.tree_util.tree_map(np.asarray, jax.block_until_ready(grads))
+
+
+def _port_grads(model, w, *args, **kwargs):
+    named = dict(model.state_dict(keep_vars=True))
+    out = model(*args, **kwargs)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                                list(named.values()))
+    return params_to_flax(dict(zip(named, grads)))
+
+
+def _assert_tree_close(got, ref, compute_dtype):
+    from glearning_benchmark_tpu_torch.train.checkpoint import _flatten
+    got, ref = _flatten(got), _flatten(ref)
+    assert got.keys() == ref.keys()
+    for path, r in ref.items():
+        g = got[path].numpy()
+        if compute_dtype == "float32":
+            np.testing.assert_allclose(g, r, atol=GRAD_ATOL, rtol=0, err_msg=path)
+        else:
+            rel = np.linalg.norm(g - r) / max(np.linalg.norm(r), 1e-6)
+            assert rel <= GRAD_REL_L2_BF16, (path, rel)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("packed", [False, True], ids=["unpacked", "packed"])
+def test_gradients_match_flax(packed, compute_dtype):
+    name, style, q_id = STYLES[1]
+    kw = _kwargs(style, compute_dtype)
+    fmodel, params = _flax_params(kw, seed=2)
+    ids, mask = _batch(5, kw["bos_id"], q_id, n=7)
+    rng = np.random.default_rng(0)
+    if packed:
+        seqs = [ids[i, :mask[i].sum()] for i in range(len(ids))]
+        pk = pack_examples(seqs, bucket=128, pad_id=2, q_token_id=q_id,
+                           query_offsets=kw["query_offsets"])
+        extra = {k: pk[k] for k in ("seg", "pos", "pos_bos", "pos_u", "pos_v")}
+        ids, mask = pk["ids"], pk["seg"] > 0
+        w = rng.normal(size=pk["ex_valid"].shape + (3,)).astype(np.float32)
+        w *= pk["ex_valid"][..., None]
+    else:
+        extra = {}
+        w = rng.normal(size=(len(ids), 3)).astype(np.float32)
+    ref = _flax_grads(fmodel, params, w, ids, mask, q_token_id=q_id, **extra)
+    port = _port(kw, params).train()          # dropout rates are 0.1 ...
+    for layer in port.layers():
+        layer.p_attn = layer.p_res = layer.p_ffn = 0.0
+    port.has_dropout = False                  # ... and switched off here
+    got = _port_grads(port, w, torch.from_numpy(ids), torch.from_numpy(mask),
+                      q_token_id=q_id,
+                      **{k: torch.from_numpy(v) for k, v in extra.items()})
+    _assert_tree_close(got, ref, compute_dtype)
+
+
+def test_remat_gives_the_same_gradients_with_dropout_on():
+    """A checkpointed layer is recomputed with the seeds drawn before it
+    ran, so remat on and off agree bit for bit, dropout included."""
+    name, style, q_id = STYLES[2]
+    kw = _kwargs(style, "float32")
+    _, params = _flax_params(kw, seed=4)
+    ids, mask = _batch(6, kw["bos_id"], q_id)
+    w = np.random.default_rng(1).normal(size=(len(ids),)).astype(np.float32)
+    grads = []
+    for remat in (False, True):
+        model = SimpleTransformer(**kw, remat=remat)
+        load_flax_params(model, params)
+        model.train()
+        grads.append(_port_grads(model, w, torch.from_numpy(ids),
+                                 torch.from_numpy(mask),
+                                 generator=torch.Generator().manual_seed(3)))
+    from glearning_benchmark_tpu_torch.train.checkpoint import _flatten
+    a, b = (_flatten(g) for g in grads)
+    for path in a:
+        assert torch.equal(a[path], b[path]), path
+
+
+def test_dropout_is_seeded_and_only_in_training():
+    name, style, q_id = STYLES[2]
+    kw = _kwargs(style, "float32")
+    _, params = _flax_params(kw, seed=5)
+    ids, mask = (torch.from_numpy(a) for a in _batch(7, kw["bos_id"], q_id))
+    model = _port(kw, params)
+    with torch.no_grad():
+        plain = model(ids, mask)
+        assert torch.equal(plain, model(ids, mask))       # eval: deterministic
+        model.train()
+        with pytest.raises(ValueError, match="generator"):
+            model(ids, mask)
+        a = model(ids, mask, generator=torch.Generator().manual_seed(1))
+        b = model(ids, mask, generator=torch.Generator().manual_seed(1))
+        c = model(ids, mask, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, plain)
+    # the rate split of the reference: attention only, or the other sites only
+    only_attn = SimpleTransformer(**kw, mlp_p_drop=0.0)
+    assert [(l.p_attn, l.p_res, l.p_ffn) for l in only_attn.layers()] == \
+        [(0.1, 0.0, 0.0)] * 2
+    split = SimpleTransformer(**kw, attn_p_drop=0.0, resid_p_drop=0.2, ffn_p_drop=0.3)
+    assert [(l.p_attn, l.p_res, l.p_ffn) for l in split.layers()] == \
+        [(0.0, 0.2, 0.3)] * 2
