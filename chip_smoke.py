@@ -9,7 +9,8 @@ Phases; any failure exits non-zero before the last line is printed:
 1. Card: its name and power limit (``nvidia-smi``). No CUDA -> exit 1.
 2. Build the three flash-attention kernels (forward, dQ, dK/dV) from
    ``glearning_benchmark_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   compiler per source, side by side.
+   compiler per source, side by side; the backward libraries' SASS must
+   hold HMMA (tensor-core) instructions.
 3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
@@ -33,9 +34,11 @@ Phases; any failure exits non-zero before the last line is printed:
    p = 0.1; f32; L = 600 (not a multiple of the tiles). Once
    (dq, dk, dv) of the kernels against ``torch.autograd.grad`` through the
    plain FORWARD in f32. Two runs of the dK/dV kernel must give equal bits.
-   Then each backward kernel's time at the AGTT training shape beside its
-   bound, the plain version and the backward of
-   ``scaled_dot_product_attention``.
+   Then each backward kernel's time at the AGTT and at the IBTT training
+   rows beside its bound, the plain version and the backward of
+   ``scaled_dot_product_attention``, and the forward kernel's time there
+   beside SDPA's forward; and the backward kernels' times on rows that
+   split the cost (p 0 against 0.1, all pad, one segment a row).
 5. Serving at full width: an ``agtt_zinc``-width model (the literal below,
    random weights from ``--seed``, bf16 compute) is saved through the
    port's ``save_checkpoint``, restored by ``Predictor.from_checkpoint`` on
@@ -139,17 +142,23 @@ def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
 
 def cuda_ms(fn, iters: int, readings: int = 2) -> list:
     """Device ms per call of ``fn`` over ``iters`` back-to-back calls, read
-    ``readings`` times one after the other. The device first spins for some
-    20 ms, so the host has queued the calls before the first one starts:
-    the time is the device's, not the host's enqueue rate. The number kept
-    is the least reading; every reading is printed beside it."""
+    ``readings`` times one after the other. The device first spins for at
+    least 20 ms and for three times the host's own time to enqueue the
+    calls (timed on one call), so the host has queued them before the first
+    one starts: the time is the device's, not the host's enqueue rate. The
+    number kept is the least reading; every reading is printed beside it."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_cycles = int(max(40e6, 3 * host_s * iters * 2e9))   # 2e9: above the SM clock
     out = []
     for _ in range(readings):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)
+        torch.cuda._sleep(spin_cycles)
         t0.record()
         for _ in range(iters):
             fn()
@@ -184,6 +193,22 @@ def sdpa_flags() -> str:
     return (f"flash {b.flash_sdp_enabled()}, mem_efficient "
             f"{b.mem_efficient_sdp_enabled()}, math {b.math_sdp_enabled()}, "
             f"cudnn {b.cudnn_sdp_enabled()}")
+
+
+def tensor_core_sass(fa) -> None:
+    """The backward kernels' bf16 route runs on the tensor cores: their
+    libraries' machine code (``cuobjdump -sass``) holds HMMA instructions."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        log("[build] cuobjdump not found: tensor-core instructions not checked")
+        return
+    for name, lib in fa.build().items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              check=True, timeout=120).stdout
+        n = sum("HMMA" in line for line in sass.splitlines())
+        log(f"[build] {name}: {n} HMMA instructions in its SASS")
+        if name != "flash_attn_fwd" and n == 0:
+            raise AssertionError(f"{name}: no tensor-core (HMMA) instruction in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +458,9 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict
     allow = ((seg[:, None, :, None] == seg[:, None, None, :])
              & (seg[:, None, None, :] != 0))
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allow), 50)
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow)
     dot = do.transpose(1, 2)
     def sdpa_bwd():
@@ -452,8 +480,38 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict
         res[name] = {"ms": min(ms[name]), "plain_ms": min(plain_ms),
                      "library_ms": min(lib_ms), **bd}
     log(f"[kernel] time flash_attn_fwd {label} {list(q.shape)} p_drop {p_drop}: "
-        f"kernel {fmt_ms(fwd_ms)}")
+        f"kernel {fmt_ms(fwd_ms)}, sdpa forward (same mask, no dropout) "
+        f"{fmt_ms(lib_fwd_ms)}")
     return res
+
+
+def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator) -> None:
+    """Where the backward kernels' time goes at the AGTT training shape: the
+    packed train rows with p 0 and 0.1 (the dropout hash), every token pad
+    (launch and prologue only: no pair is computed), one segment a row
+    (every pair computed); and one launch of a one-element add (the floor
+    of a launch)."""
+    b, l = seg_train.shape
+    shape = (b, l, 4, 16)
+    q, k, v = qkv_views(shape, torch.bfloat16, gen)
+    do = strided_do(shape, torch.bfloat16, gen)
+    segs = {"packed train rows": seg_train,
+            "all pad": torch.zeros(b, l, dtype=torch.int32, device="cuda"),
+            "one segment": torch.ones(b, l, dtype=torch.int32, device="cuda")}
+    for name, seg in segs.items():
+        for p_drop in ((0.1,) if name == "all pad" else (0.0, 0.1)):
+            o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, 3)
+            _, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, 3)
+            t_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, seg, o, lse, do, p_drop, 3), 50)
+            t_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, seg, o, lse, do, delta, p_drop, 3), 50)
+            log(f"[kernel] bwd breakdown {list(shape)} bfloat16 {name} p_drop {p_drop}: "
+                f"dQ {fmt_ms(t_dq)}, dK/dV {fmt_ms(t_dkv)}; "
+                f"{allowed_pairs(seg, shape[2])} allowed pairs")
+    one = torch.zeros(1, device="cuda")
+    log(f"[kernel] bwd breakdown: one launch of a one-element add "
+        f"{fmt_ms(cuda_ms(lambda: one.add_(1), 50))}")
 
 
 # ---------------------------------------------------------------------------
@@ -813,6 +871,7 @@ def main() -> int:
     for name, secs in fa.build_seconds().items():
         log(f"[build] {name} for sm_90a: nvcc {secs:.1f} s")
     log(f"[build] all kernels built side by side in {time.perf_counter() - t0:.1f} s")
+    tensor_core_sass(fa)
 
     # phase 3: the forward kernel against its plain version
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -914,6 +973,9 @@ def main() -> int:
                            seg_train,
                            strided_do((row_bs, l_train, 4, 16), torch.bfloat16, gen),
                            0.1, 4321, "agtt-zinc packed train rows")
+        time_bwd(fa, *qkv_views(ibtt_shape, torch.bfloat16, gen), ibtt_seg_train,
+                 strided_do(ibtt_shape, torch.bfloat16, gen), 0.1, 7, "ibtt-zinc train rows")
+        bwd_breakdown(fa, seg_train, gen)
 
         paths = {"agtt": serve_checkpoint(tmp, "agtt", AGTT_ZINC_MODEL, graphs, args.seed),
                  "ibtt": serve_checkpoint(tmp, "ibtt", IBTT_ZINC_MODEL, ibtt_graphs,

@@ -330,7 +330,7 @@ def _check_cuda(q, k, v, seg):
     if not seg.is_contiguous():
         raise ValueError("seg must be contiguous")
     b, l, h, _ = q.shape
-    if b * h >= 2**31 or -(-l // 128) > 65535:
+    if b * h >= 2**31 or -(-l // 64) > 65535:   # grid (B*H, row tiles of 64 or 128)
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 

@@ -7,6 +7,8 @@
   4, packed segments with a pad tail, dropout with the same seed), f32,
   atol 1e-5; and against ``torch.autograd.grad`` through the plain forward.
 - The wrappers' CPU route, and that no kernel is launched there.
+- The bf16 kernels' hi + lo split of their second products, emulated in
+  plain torch (no JAX call), against the tolerance the card holds them to.
 
 Every interpret-mode Pallas call is followed by ``jax.block_until_ready``
 before any other JAX op is dispatched.
@@ -146,31 +148,127 @@ def test_seg_p_drop_and_seed_take_no_gradient():
     assert not torch.equal(o, fa.flash_attention(q, k, v, seg=seg))
 
 
+def _edge_segs(b, l):
+    """Row 0 packed (3 segments, pad tail); row 1 all pad; row 2 a
+    one-token segment, a segment across the 64-row tile border, another
+    one-token segment, a long segment, a pad tail."""
+    seg = np.zeros((b, l), np.int32)
+    seg[0] = _packed(1, l)[0]
+    cut = min(100, l - 20)
+    seg[2, 0] = 1
+    seg[2, 1:cut] = 2
+    seg[2, cut] = 3
+    seg[2, cut + 1:l - 5] = 4
+    return seg
+
+
+# hi + lo bf16 rounding of the kernels' second products, emulated on the
+# CPU (bf16 inputs; S, P and dS in f32; the tolerances of the cuda twin and
+# of chip_smoke.py's G_RTOL/G_ATOL at bf16)
+BF16_RTOL, G_ATOL = 4e-3, 1e-5
+
+
+def _hi_lo(x):
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def _emulated_tensor_core_bwd(q, k, v, seg, o, lse, do, p_drop, seed,
+                              split=True):
+    """The bf16 route of the dQ and dK/dV kernels in plain torch: the first
+    products (S, dP) in f32 from bf16 inputs, P, dS and P keep/(1-p) in f32
+    and then rounded to bf16 hi + lo (``split``; else to bf16 alone) before
+    the second products (f32 sums); outputs rounded to bf16 once."""
+    b, l, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    allow = fa._allow_mask(seg)
+    s = torch.einsum("blhd,bshd->bhls", qf, kf)
+    p = torch.where(allow, torch.exp2(s * (scale * 1.4426950408889634)
+                                      - lse[..., None] * 1.4426950408889634), 0.0)
+    dp = torch.einsum("blhd,bshd->bhls", dof, vf)
+    keepf = torch.ones_like(p)
+    if p_drop > 0.0:
+        keep = fa.dropout_keep_reference(seed, b * h, l, l, p_drop).view(b, h, l, l)
+        keepf = keep * (1.0 / (1.0 - p_drop))
+    delta = fa.flash_attention_delta(o, do)[..., None]
+    rnd = _hi_lo if split else (lambda x: x.bfloat16().float())
+    ds = rnd(p * (dp * keepf - delta))
+    pd = rnd(p * keepf)
+    dq = torch.einsum("bhls,bshd->blhd", ds, kf) * scale
+    dk = torch.einsum("bhls,blhd->bshd", ds, qf) * scale
+    dv = torch.einsum("bhls,blhd->bshd", pd, dof)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("d", [4, 16])
+def test_hi_lo_rounding_holds_the_bf16_tolerance(d, p_drop):
+    """The kernels' bf16 hi + lo split of P keep/(1-p) and dS, emulated in
+    plain torch on packed bf16 rows with edge segments, stays within the
+    elementwise tolerance the card holds the kernels to against the f32
+    plain backward; pad rows stay exactly zero. Rounded to bf16 alone, the
+    same products break that tolerance."""
+    b, l, h = 3, 130, 2
+    rng = np.random.default_rng(100 + d)
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs((b, l, h, d), d))
+    seg = torch.from_numpy(_edge_segs(b, l))
+    o, lse = fa.flash_attention_reference(q, k, v, seg, p_drop, 21)
+    do = do * torch.from_numpy(rng.uniform(0.5, 2.0, size=(1, l, 1, 1))
+                               .astype(np.float32)).bfloat16()
+    got = _emulated_tensor_core_bwd(q, k, v, seg, o, lse, do, p_drop, 21)
+    ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
+                                           o, lse, do.float(), p_drop, 21)
+    pad = seg == 0
+    for name, g, r in zip("qkv", got, ref):
+        err = (g.float() - r).abs()
+        assert (err <= BF16_RTOL * r.abs() + G_ATOL).all(), \
+            f"d{name}: worst excess {(err - BF16_RTOL * r.abs()).max().item():.3e}"
+        assert (g[pad] == 0).all()
+    single = _emulated_tensor_core_bwd(q, k, v, seg, o, lse, do, p_drop, 21,
+                                       split=False)
+    assert any(((g.float() - r).abs() > BF16_RTOL * r.abs() + G_ATOL).any()
+               for g, r in zip(single, ref))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["fused", "odd"])
+@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("l", [300, 130])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-def test_backward_kernels_match_plain(d, dtype):
-    """The dQ and dK/dV kernels against the plain backward on the card, on
-    strided qkv views, packed segments, dropout on: within one bf16 rounding
-    (bf16) or 1e-4 relative (f32); pad rows exactly zero; dK/dV bit-equal
-    on two runs."""
+def test_backward_kernels_match_plain(d, dtype, l, p_drop, layout):
+    """The dQ and dK/dV kernels against the plain backward on the card:
+    row 0 packed, row 1 all pad, row 2 one-token segments and a segment
+    across the 64-row tile border; L not a multiple of 64. ``fused``: q, k,
+    v strided views of one qkv output and a transposed dO; ``odd``: every
+    operand a view with an odd row stride and offset (no cp.async piece
+    fits, so the bf16 kernels stage it by plain loads). Within one bf16
+    rounding (bf16) or 1e-4 relative (f32); pad rows exactly zero; dK/dV
+    bit-equal on two runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dt = getattr(torch, dtype)
-    b, l, h = 3, 300, 2
-    rng = np.random.default_rng(d)
-    qkv = torch.from_numpy(rng.normal(size=(b, l, 3 * h * d)).astype(np.float32)
-                           ).to("cuda", dt)
-    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
-    do = torch.from_numpy(rng.normal(size=(b, h, l, d)).astype(np.float32)
-                          ).to("cuda", dt).transpose(1, 2)
-    seg = torch.from_numpy(_packed(b, l)).cuda()
-    o, lse = fa.flash_attention_fwd(q, k, v, seg, 0.1, 99)
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, 0.1, 99)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, 0.1, 99)
-    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, 0.1, 99)
+    b, h = 3, 2
+    rng = np.random.default_rng(d + l)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to("cuda", dt)
+
+    if layout == "fused":
+        q, k, v = (t.unflatten(-1, (h, d))
+                   for t in normal(b, l, 3 * h * d).split(h * d, dim=-1))
+        do = normal(b, h, l, d).transpose(1, 2)
+    else:
+        q, k, v, do = (normal(b, l, h, d + 1)[..., 1:] for _ in range(4))
+    seg = torch.from_numpy(_edge_segs(b, l)).cuda()
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, 99)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, 99)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, 99)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, 99)
     ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
-                                           o, lse, do.float(), 0.1, 99)
+                                           o, lse, do.float(), p_drop, 99)
     torch.cuda.synchronize()
     rel = 4e-3 if dtype == "bfloat16" else 1e-4
     pad = seg == 0
@@ -178,6 +276,7 @@ def test_backward_kernels_match_plain(d, dtype):
         assert ((g.float() - r).abs() <= rel * r.abs() + 1e-5).all()
         assert (g[pad] == 0).all()
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert (delta - fa.flash_attention_delta(o, do)).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
