@@ -9,13 +9,14 @@ Phases; any failure exits non-zero before the last line is printed:
 1. Card: its name and power limit (``nvidia-smi``). No CUDA -> exit 1.
 2. Build the three flash-attention kernels (forward, dQ, dK/dV) from
    ``glearning_benchmark_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   compiler per source, side by side; the backward libraries' SASS must
-   hold HMMA (tensor-core) instructions.
+   compiler per source, side by side; each library's SASS must hold HMMA
+   (tensor-core) instructions.
 3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
-   p = 0.1 (whose keep pattern is read back from the kernel and must equal
-   the plain version's bit for bit). Then the served shapes as the model
+   p = 0.1 (whose keep pattern is read back from the kernel, through the
+   f32 route and the bf16 tensor-core route at head dims 64, 16 and 4, and
+   must equal the plain version's bit for bit). Then the served shapes as the model
    builds them: q, k, v as strided views of one fused qkv output, with the
    key masks of the served stand-in ZINC ``val`` rows, at [512, 1024, 4, 16]
    (AGTT-ZINC, the largest request bucket) and [256, 1024, 4, 4]
@@ -25,7 +26,8 @@ Phases; any failure exits non-zero before the last line is printed:
    batch ([128, 256, 4, 4]) with p = 0.1, and the first ``val`` batch of
    each model with its key masks. Then kernel, plain and
    ``scaled_dot_product_attention`` times and the kernel's bound at the
-   served AGTT-ZINC rows, B = 256. Every time is read twice; the lower
+   served AGTT-ZINC rows, B = 256, at the served IBTT-ZINC rows and dense;
+   and the forward breakdown (below). Every time is read twice; the lower
    reading is kept and both are printed, with the device kernels that the
    library call ran as.
 4. Backward kernels against their plain version on the card: the same
@@ -37,8 +39,11 @@ Phases; any failure exits non-zero before the last line is printed:
    Then each backward kernel's time at the AGTT and at the IBTT training
    rows beside its bound, the plain version and the backward of
    ``scaled_dot_product_attention``, and the forward kernel's time there
-   beside SDPA's forward; and the backward kernels' times on rows that
-   split the cost (p 0 against 0.1, all pad, one segment a row).
+   beside its bound, its plain version and SDPA's forward; and the
+   backward kernels' times on rows that split the cost (p 0 against 0.1,
+   all pad, one segment a row). The forward kernel's breakdown splits its
+   time the same way, at the packed train rows and at the served AGTT
+   rows.
 5. Serving at full width: an ``agtt_zinc``-width model (the literal below,
    random weights from ``--seed``, bf16 compute) is saved through the
    port's ``save_checkpoint``, restored by ``Predictor.from_checkpoint`` on
@@ -196,8 +201,8 @@ def sdpa_flags() -> str:
 
 
 def tensor_core_sass(fa) -> None:
-    """The backward kernels' bf16 route runs on the tensor cores: their
-    libraries' machine code (``cuobjdump -sass``) holds HMMA instructions."""
+    """The kernels' bf16 route runs on the tensor cores: every kernel
+    library's machine code (``cuobjdump -sass``) holds HMMA instructions."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
         log("[build] cuobjdump not found: tensor-core instructions not checked")
@@ -207,7 +212,7 @@ def tensor_core_sass(fa) -> None:
                               check=True, timeout=120).stdout
         n = sum("HMMA" in line for line in sass.splitlines())
         log(f"[build] {name}: {n} HMMA instructions in its SASS")
-        if name != "flash_attn_fwd" and n == 0:
+        if n == 0:
             raise AssertionError(f"{name}: no tensor-core (HMMA) instruction in its SASS")
 
 
@@ -271,29 +276,35 @@ def compare(name, fa, q, k, v, seg, p_drop=0.0, seed=0, chunk=64):
 
 
 def dropout_pattern(fa, seed: int, p_drop: float) -> None:
-    """Read the kernel's keep pattern back: with q = k = 0 every allowed
-    key gets the same probability, and a one-hot v maps key j to output
-    column j - 64w of window w; so O > 0 exactly where (row, key) is kept."""
-    b, l, h, d = 2, 256, 2, 64
+    """Read the kernel's keep pattern back, through the f32 route and the
+    bf16 tensor-core route: with q = k = 0 every allowed key gets p = 1, and
+    a one-hot v maps key j to output column j - D w of window w; so O > 0
+    exactly where (row, key) is kept. L = 300 ends in a partial key tile."""
+    b, l, h = 2, 300, 2
     seg = torch.ones(b, l, dtype=torch.int32, device="cuda")
     seg[1, 200:] = 0
-    zeros = torch.zeros(b, l, h, d, device="cuda")
-    kept = torch.zeros(b, h, l, l, dtype=torch.bool, device="cuda")
-    for w in range(l // d):
-        v = torch.zeros(b, l, h, d, device="cuda")
-        v[:, w * d:(w + 1) * d] = torch.eye(d, device="cuda")[:, None, :]
-        o, _ = fa.flash_attention_fwd(zeros, zeros, v, seg, p_drop, seed)
-        kept[..., w * d:(w + 1) * d] = (o > 0).permute(0, 2, 1, 3)
-    torch.cuda.synchronize()
     ref = fa.dropout_keep_reference(seed, b * h, l, l, p_drop,
                                     device="cuda").view(b, h, l, l)
     allowed = ((seg[:, None, :, None] != 0)
                & (seg[:, None, None, :] != 0)).expand(b, h, l, l)
-    same = torch.equal(kept, ref & allowed)
-    log(f"[kernel] dropout keep pattern (seed {seed}, p {p_drop}) equals the "
-        f"plain version's: {same} (kept share {kept[allowed].float().mean().item():.4f})")
-    if not same:
-        raise AssertionError("kernel dropout keep pattern differs")
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64),
+                     (torch.bfloat16, 16), (torch.bfloat16, 4)):
+        zeros = torch.zeros(b, l, h, d, device="cuda", dtype=dtype)
+        eye = torch.eye(d, device="cuda", dtype=dtype)[:, None, :]
+        kept = torch.zeros(b, h, l, l, dtype=torch.bool, device="cuda")
+        for j0 in range(0, l, d):
+            n = min(d, l - j0)
+            v = torch.zeros_like(zeros)
+            v[:, j0:j0 + n] = eye[:n]
+            o, _ = fa.flash_attention_fwd(zeros, zeros, v, seg, p_drop, seed)
+            kept[..., j0:j0 + n] = (o[..., :n] > 0).permute(0, 2, 1, 3)
+        torch.cuda.synchronize()
+        same = torch.equal(kept, ref & allowed)
+        log(f"[kernel] dropout keep pattern {str(dtype)[6:]} D {d} (seed {seed}, "
+            f"p {p_drop}) equals the plain version's: {same} "
+            f"(kept share {kept[allowed].float().mean().item():.4f})")
+        if not same:
+            raise AssertionError(f"kernel dropout keep pattern differs: {dtype} D {d}")
 
 
 def allowed_pairs(seg: torch.Tensor, h: int) -> int:
@@ -325,6 +336,12 @@ def bound(q, seg) -> dict:
             "parts_ms": t, "pairs": pairs, "bytes": nbytes}
 
 
+def fmt_bound(bd: dict) -> str:
+    return (f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
+            f"{bd['parts_ms']['bytes']:.4f}, flops {bd['parts_ms']['flops']:.4f}, "
+            f"exp {bd['parts_ms']['exp']:.4f} ms; {bd['pairs']} allowed pairs)")
+
+
 def time_kernel(fa, q, k, v, seg, label: str) -> dict:
     ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg), 20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seg), 3)
@@ -341,10 +358,8 @@ def time_kernel(fa, q, k, v, seg, label: str) -> dict:
     del allow
     bd = bound(q, seg)
     log(f"[kernel] time {label} {list(q.shape)} {str(q.dtype)[6:]}: kernel "
-        f"{fmt_ms(ms)}, plain {fmt_ms(plain_ms)}, sdpa {fmt_ms(lib_ms)}, bound "
-        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
-        f"{bd['parts_ms']['bytes']:.4f}, flops {bd['parts_ms']['flops']:.4f}, "
-        f"exp {bd['parts_ms']['exp']:.4f} ms; {bd['pairs']} allowed pairs)")
+        f"{fmt_ms(ms)}, plain {fmt_ms(plain_ms)}, sdpa {fmt_ms(lib_ms)}, "
+        f"{fmt_bound(bd)}")
     return {"ms": min(ms), "plain_ms": min(plain_ms), "library_ms": min(lib_ms), **bd}
 
 
@@ -453,6 +468,7 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict
           "flash_attn_bwd_dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv(
               q, k, v, seg, o, lse, do, delta, p_drop, seed), 50)}
     fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, seed), 50)
+    fwd_plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seg, p_drop, seed), 5)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
         q, k, v, seg, o, lse, do, p_drop, seed), 5)
     allow = ((seg[:, None, :, None] == seg[:, None, None, :])
@@ -473,15 +489,16 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict
         bd = bound_bwd(q, seg, which)
         log(f"[kernel] time {name} {label} {list(q.shape)} {str(q.dtype)[6:]} p_drop "
             f"{p_drop}: kernel {fmt_ms(ms[name])}, plain backward (dQ, dK, dV together) "
-            f"{fmt_ms(plain_ms)}, sdpa backward (all three) {fmt_ms(lib_ms)}, bound "
-            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
-            f"{bd['parts_ms']['bytes']:.4f}, flops {bd['parts_ms']['flops']:.4f}, "
-            f"exp {bd['parts_ms']['exp']:.4f} ms; {bd['pairs']} allowed pairs)")
+            f"{fmt_ms(plain_ms)}, sdpa backward (all three) {fmt_ms(lib_ms)}, "
+            f"{fmt_bound(bd)}")
         res[name] = {"ms": min(ms[name]), "plain_ms": min(plain_ms),
                      "library_ms": min(lib_ms), **bd}
-    log(f"[kernel] time flash_attn_fwd {label} {list(q.shape)} p_drop {p_drop}: "
-        f"kernel {fmt_ms(fwd_ms)}, sdpa forward (same mask, no dropout) "
-        f"{fmt_ms(lib_fwd_ms)}")
+    bd = bound(q, seg)
+    log(f"[kernel] time flash_attn_fwd {label} {list(q.shape)} {str(q.dtype)[6:]} p_drop "
+        f"{p_drop}: kernel {fmt_ms(fwd_ms)}, plain {fmt_ms(fwd_plain_ms)}, sdpa forward "
+        f"(same mask, no dropout) {fmt_ms(lib_fwd_ms)}, {fmt_bound(bd)}")
+    res["flash_attn_fwd"] = {"ms": min(fwd_ms), "plain_ms": min(fwd_plain_ms),
+                             "library_ms": min(lib_fwd_ms), **bd}
     return res
 
 
@@ -512,6 +529,27 @@ def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator) -> None:
     one = torch.zeros(1, device="cuda")
     log(f"[kernel] bwd breakdown: one launch of a one-element add "
         f"{fmt_ms(cuda_ms(lambda: one.add_(1), 50))}")
+
+
+def fwd_breakdown(fa, rows: dict, gen: torch.Generator) -> None:
+    """Where the forward kernel's time goes, bf16 at head dim 16 on fused
+    qkv views, for each ``rows`` entry (its name and the [B, L] segment ids
+    of its real rows): the real rows at p 0 and 0.1 (the dropout hash),
+    every token pad (launch and empty-tile exit only: no pair is computed),
+    one segment a row (every pair computed)."""
+    for where, seg_real in rows.items():
+        b, l = seg_real.shape
+        shape = (b, l, 4, 16)
+        q, k, v = qkv_views(shape, torch.bfloat16, gen)
+        segs = {"real rows": seg_real,
+                "all pad": torch.zeros(b, l, dtype=torch.int32, device="cuda"),
+                "one segment": torch.ones(b, l, dtype=torch.int32, device="cuda")}
+        for name, seg in segs.items():
+            for p_drop in ((0.1,) if name == "all pad" else (0.0, 0.1)):
+                t = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, 3), 30)
+                log(f"[kernel] fwd breakdown {where} {list(shape)} bfloat16 {name} "
+                    f"p_drop {p_drop}: {fmt_ms(t)}; {allowed_pairs(seg, shape[2])} "
+                    f"allowed pairs")
 
 
 # ---------------------------------------------------------------------------
@@ -871,10 +909,10 @@ def main() -> int:
     for name, secs in fa.build_seconds().items():
         log(f"[build] {name} for sm_90a: nvcc {secs:.1f} s")
     log(f"[build] all kernels built side by side in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     tensor_core_sass(fa)
 
     # phase 3: the forward kernel against its plain version
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     cgen = torch.Generator().manual_seed(args.seed)
 
     def rand(shape, dtype):
@@ -973,8 +1011,9 @@ def main() -> int:
                            seg_train,
                            strided_do((row_bs, l_train, 4, 16), torch.bfloat16, gen),
                            0.1, 4321, "agtt-zinc packed train rows")
-        time_bwd(fa, *qkv_views(ibtt_shape, torch.bfloat16, gen), ibtt_seg_train,
-                 strided_do(ibtt_shape, torch.bfloat16, gen), 0.1, 7, "ibtt-zinc train rows")
+        ibtt_btiming = time_bwd(fa, *qkv_views(ibtt_shape, torch.bfloat16, gen),
+                                ibtt_seg_train, strided_do(ibtt_shape, torch.bfloat16, gen),
+                                0.1, 7, "ibtt-zinc train rows")
         bwd_breakdown(fa, seg_train, gen)
 
         paths = {"agtt": serve_checkpoint(tmp, "agtt", AGTT_ZINC_MODEL, graphs, args.seed),
@@ -1001,10 +1040,16 @@ def main() -> int:
 
         q, k, v = qkv_views((256, MAX_LEN, 4, 16), torch.bfloat16, gen)
         timing = time_kernel(fa, q, k, v, agtt_seg[:256].contiguous(), "agtt-zinc served")
-        time_kernel(fa, q, k, v, torch.ones(256, MAX_LEN, dtype=torch.int32, device="cuda"),
-                    "agtt-zinc dense")
+        dense_timing = time_kernel(
+            fa, q, k, v, torch.ones(256, MAX_LEN, dtype=torch.int32, device="cuda"),
+            "agtt-zinc dense")
         del q, k, v
+        ibtt_timing = time_kernel(
+            fa, *qkv_views((len(ibtt_graphs), MAX_LEN, 4, 4), torch.bfloat16, gen),
+            ibtt_seg, "ibtt-zinc served")
         torch.cuda.empty_cache()
+        fwd_breakdown(fa, {"packed train rows": seg_train,
+                           "served rows": agtt_seg[:256].contiguous()}, gen)
 
         # phase 5: serving at full width (launch counts read per path)
         t0 = time.perf_counter()
@@ -1030,6 +1075,7 @@ def main() -> int:
     # phase 7: the kernels line, then the result
     src = "glearning_benchmark_tpu_torch/csrc/"
     ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "flash_attn_fwd", "route": "cuda", "source": src + "flash_attn_fwd.cu",
         "replaces": ref + "114",
@@ -1038,7 +1084,11 @@ def main() -> int:
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "launches_by_path": {"serve_agtt": serve_launches,
-                             "train_agtt": train_launches["flash_attn_fwd"]}}]
+                             "train_agtt": train_launches["flash_attn_fwd"]},
+        "by_shape": {name: {key: t[key] for key in keys} for name, t in (
+            ("agtt_train_rows_p0.1", btiming["flash_attn_fwd"]),
+            ("ibtt_train_rows_p0.1", ibtt_btiming["flash_attn_fwd"]),
+            ("ibtt_served", ibtt_timing), ("agtt_dense", dense_timing))}}]
     for name, line in (("flash_attn_bwd_dq", "164"), ("flash_attn_bwd_dkv", "204")):
         t = btiming[name]
         kernels.append({

@@ -283,18 +283,18 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // The f32 route (see the header note): one key per thread.
 template <int D, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
+__global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
     attn_bwd_dkv_kernel_f32(const BwdParams p) {
-  __shared__ __align__(16) float qs[kBwdTile][D];
-  __shared__ __align__(16) float dos[kBwdTile][D];
-  __shared__ float lse2s[kBwdTile];
-  __shared__ float deltas[kBwdTile];
-  __shared__ int32_t segs[kBwdTile];
+  __shared__ __align__(16) float qs[kF32Tile][D];
+  __shared__ __align__(16) float dos[kF32Tile][D];
+  __shared__ float lse2s[kF32Tile];
+  __shared__ float deltas[kF32Tile];
+  __shared__ int32_t segs[kF32Tile];
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int col = blockIdx.y * kBwdRows + threadIdx.x;
+  const int col = blockIdx.y * kF32Rows + threadIdx.x;
   const bool in_range = col < p.L;
   const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
   const int32_t sk = in_range ? seg_b[col] : 0;
@@ -330,17 +330,17 @@ __global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
   const float* gp = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
   const float* delta_bh = p.delta + static_cast<int64_t>(bh) * p.L;
-  for (int l0 = q_first; l0 < qend; l0 += kBwdTile) {
-    for (int i = threadIdx.x; i < kBwdTile; i += kBwdRows)
+  for (int l0 = q_first; l0 < qend; l0 += kF32Tile) {
+    for (int i = threadIdx.x; i < kF32Tile; i += kF32Rows)
       segs[i] = (l0 + i < qend) ? seg_b[l0 + i] : 0;
     __syncthreads();
     bool mine = false;
     if (sk != 0) {
 #pragma unroll
-      for (int i = 0; i < kBwdTile; ++i) mine |= (segs[i] == sk);
+      for (int i = 0; i < kF32Tile; ++i) mine |= (segs[i] == sk);
     }
     if (__syncthreads_or(mine)) {
-      for (int e = threadIdx.x; e < kBwdTile * D; e += kBwdRows) {
+      for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Rows) {
         const int i = e / D;
         const int d = e - i * D;
         const bool ok = l0 + i < qend;
@@ -348,7 +348,7 @@ __global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
         qs[i][d] = ok ? qp[r * p.q_sl + d] : 0.f;
         dos[i][d] = ok ? gp[r * p.do_sl + d] : 0.f;
       }
-      for (int i = threadIdx.x; i < kBwdTile; i += kBwdRows) {
+      for (int i = threadIdx.x; i < kF32Tile; i += kF32Rows) {
         const bool ok = l0 + i < qend;
         lse2s[i] = ok ? lse_bh[l0 + i] * kLog2e : 0.f;
         deltas[i] = ok ? delta_bh[l0 + i] : 0.f;
@@ -356,7 +356,7 @@ __global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
       __syncthreads();
       if (mine) {
 #pragma unroll 2
-        for (int i = 0; i < kBwdTile; ++i) {
+        for (int i = 0; i < kF32Tile; ++i) {
           if (segs[i] != sk) continue;  // sk != 0, so a pad query never matches
           float dot = 0.f;
           float dp = 0.f;
@@ -411,8 +411,8 @@ void launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
   } else {
     // head dims up to 16 fit four blocks (16 warps) per SM in registers
     constexpr int kMinBlocks = D <= 16 ? 4 : 1;
-    const dim3 grid(p.B * p.H, (p.L + kBwdRows - 1) / kBwdRows);
-    attn_bwd_dkv_kernel_f32<D, kMinBlocks><<<grid, kBwdRows, 0, stream>>>(p);
+    const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
+    attn_bwd_dkv_kernel_f32<D, kMinBlocks><<<grid, kF32Rows, 0, stream>>>(p);
   }
 }
 

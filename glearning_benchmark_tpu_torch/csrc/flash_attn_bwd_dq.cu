@@ -282,16 +282,16 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // The f32 route (see the header note): one query row per thread.
 template <int D, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
+__global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
     attn_bwd_dq_kernel_f32(const BwdParams p) {
-  __shared__ __align__(16) float ks[kBwdTile][D];
-  __shared__ __align__(16) float vs[kBwdTile][D];
-  __shared__ int32_t segs[kBwdTile];
+  __shared__ __align__(16) float ks[kF32Tile][D];
+  __shared__ __align__(16) float vs[kF32Tile][D];
+  __shared__ int32_t segs[kF32Tile];
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int row = blockIdx.y * kBwdRows + threadIdx.x;
+  const int row = blockIdx.y * kF32Rows + threadIdx.x;
   const bool in_range = row < p.L;
   const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
   const int32_t sq = in_range ? seg_b[row] : 0;
@@ -333,17 +333,17 @@ __global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
 
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  for (int s0 = k_first; s0 < kend; s0 += kBwdTile) {
-    for (int j = threadIdx.x; j < kBwdTile; j += kBwdRows)
+  for (int s0 = k_first; s0 < kend; s0 += kF32Tile) {
+    for (int j = threadIdx.x; j < kF32Tile; j += kF32Rows)
       segs[j] = (s0 + j < kend) ? seg_b[s0 + j] : 0;
     __syncthreads();
     bool mine = false;
     if (sq != 0) {
 #pragma unroll
-      for (int j = 0; j < kBwdTile; ++j) mine |= (segs[j] == sq);
+      for (int j = 0; j < kF32Tile; ++j) mine |= (segs[j] == sq);
     }
     if (__syncthreads_or(mine)) {
-      for (int e = threadIdx.x; e < kBwdTile * D; e += kBwdRows) {
+      for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Rows) {
         const int j = e / D;
         const int d = e - j * D;
         const bool ok = s0 + j < kend;
@@ -354,7 +354,7 @@ __global__ void __launch_bounds__(kBwdRows, MIN_BLOCKS)
       __syncthreads();
       if (mine) {
 #pragma unroll 2
-        for (int j = 0; j < kBwdTile; ++j) {
+        for (int j = 0; j < kF32Tile; ++j) {
           if (segs[j] != sq) continue;  // sq != 0, so a pad key never matches
           float dot = 0.f;
           float dp = 0.f;
@@ -399,8 +399,8 @@ void launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
   } else {
     // head dims up to 16 fit four blocks (16 warps) per SM in registers
     constexpr int kMinBlocks = D <= 16 ? 4 : 1;
-    const dim3 grid(p.B * p.H, (p.L + kBwdRows - 1) / kBwdRows);
-    attn_bwd_dq_kernel_f32<D, kMinBlocks><<<grid, kBwdRows, 0, stream>>>(p);
+    const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
+    attn_bwd_dq_kernel_f32<D, kMinBlocks><<<grid, kF32Rows, 0, stream>>>(p);
   }
 }
 

@@ -1,8 +1,8 @@
 // Shared by the flash-attention kernels (forward, dQ, dK/dV): constants,
-// type conversion, the dropout counter hash, and what the two backward
-// kernels have in common: their parameter block, the segment-range scans,
-// and the tensor-core building blocks of their bf16 route (mma.sync,
-// ldmatrix, cp.async, the hi + lo bf16 split).
+// type conversion, the dropout counter hash, the segment-range scans, the
+// backward kernels' parameter block, and the tensor-core building blocks of
+// the three kernels' bf16 route (mma.sync, ldmatrix, cp.async, the hi + lo
+// bf16 split).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,7 +56,7 @@ __device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t bh,
 }
 
 // 2^x by the SFU alone (ex2.approx, about 2^-22 relative; subnormal results
-// flush to zero): the probabilities of the backward kernels.
+// flush to zero): the probabilities of the bf16 route.
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -64,21 +64,21 @@ __device__ __forceinline__ float ex2_approx(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// the backward kernels
+// block shapes of the two routes; the backward kernels' parameters
 // ---------------------------------------------------------------------------
 
 // bf16 inputs take the tensor-core route (mma.sync, see the header notes of
-// flash_attn_bwd_dq.cu and flash_attn_bwd_dkv.cu): a block of 4 warps owns
-// kMmaRows rows of its own axis, 16 a warp (the M of m16n8k16), and loops
-// over tiles of kMmaTile rows of the other axis, double-buffered in shared
-// memory. f32 inputs take the FP32-pipe route (tensor cores take no f32, and
-// TF32 would not hold f32 accuracy): a block owns kBwdRows rows, one per
-// thread, and loops over tiles of kBwdTile rows staged as f32.
+// the three sources): a block of 4 warps owns kMmaRows rows of its own
+// axis, 16 a warp (the M of m16n8k16), and loops over tiles of kMmaTile rows
+// of the other axis, double-buffered in shared memory. f32 inputs take the
+// FP32-pipe route (tensor cores take no f32, and TF32 would not hold f32
+// accuracy): a block owns kF32Rows rows, one per thread, and loops over
+// tiles of kF32Tile rows staged as f32.
 constexpr int kMmaRows = 64;   // rows of the block's own axis, 16 per warp
 constexpr int kMmaTile = 64;   // rows of the other axis per shared-memory tile
 constexpr int kMmaThreads = 128;
-constexpr int kBwdRows = 128;  // f32 route: rows of the block's own axis, one per thread
-constexpr int kBwdTile = 64;   // f32 route: rows of the other axis per tile
+constexpr int kF32Rows = 128;  // f32 route: rows of the block's own axis, one per thread
+constexpr int kF32Tile = 64;   // f32 route: rows of the other axis per tile
 
 // Mirrored field by field by `_BwdParams` (a ctypes.Structure) in
 // ops/flash_attention.py. q, k, v, dout are [B, L, H, D] with a contiguous
