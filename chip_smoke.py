@@ -63,7 +63,25 @@ Phases; any failure exits non-zero before the last line is printed:
    2e-3. Then one
    epoch at ``ibtt_zinc`` width on 2,000 graphs, and ``[time]`` lines for
    steady AGTT train steps under ``torch.profiler``.
-7. One JSON line of every kernel (name, launches, errors, times, bound),
+7. The graph-token slice (``configs/*_graph_token.yaml``, ``gps_zinc.yaml``):
+   ``ensure_corpus`` writes the configs' corpus (cycle_check and
+   shortest_path on ba, sbm and sfn, 500 train graphs each) into a temp
+   root, timed, and its sha256 must be the expected one. The three kernels
+   against their plain versions at the first packed train row batch of
+   agtt_graph_token (head dim 8) and of ibtt_graph_token (head dim 4), p
+   0.1, and at ibtt_graph_token's test batch with the most tokens, each
+   timed beside its bound and SDPA. Then 3 epochs on cuda of ibtt and agtt
+   on cycle_check, agtt and mpnn on shortest_path, mpnn and GPS on
+   cycle_check and GPS on the stand-in ZINC, the configs' full widths:
+   losses finite and falling, the attention kernels' launch counters equal
+   to layers x batches (zero for the graph models), the first four step
+   losses within 2e-3 of the CPU's (the graph models: the first step at
+   their bf16 compute, and four steps at f32 compute on both sides; see
+   ``first_steps_on_cpu``), examples/s, seconds an epoch, launches a step
+   and the device's busy share of steady steps. The trained MPNN and GPS
+   checkpoints serve the sfn test graphs with the trainer's own eval logits
+   (1e-6) and within 5e-3 of the CPU on the first rows.
+8. One JSON line of every kernel (name, launches, errors, times, bound),
    then the result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -94,6 +112,61 @@ IBTT_ZINC_MODEL = {"use_flash": False, "d_model": 16, "nhead": 4,
 ZINC_DATASET = {"task": "zinc", "subset": True, "max_len": 1024}
 ZINC_TRAIN = {"batch_size": 128, "lr": 0.001, "weight_decay": 1.0e-5, "seed": 0}
 TRAIN_EPOCHS = 3
+# the configs/*_graph_token.yaml and configs/gps_zinc.yaml blocks as train()
+# reads them (after utils.config.normalize_config; the same test holds them).
+# The script sets graph_token_root / zinc_root, the task, the epochs and the
+# output names.
+GRAPH_TOKEN_DATASET = {"graph_token_root": "data/graph-token", "task": "cycle_check",
+                       "train_algorithms": ["ba", "sbm"], "test_algorithm": "sfn",
+                       "use_split_tasks_dirs": True, "num_graphs": 100,
+                       "num_pairs_per_graph": 10, "generate_num_graphs": 500}
+GT_BLOCK = {"layer_type": "GIN+Transformer", "layers": 4, "n_heads": 4, "dim_hidden": 32,
+            "dropout": 0.0, "attn_dropout": 0.1, "layer_norm": False, "batch_norm": True}
+GPS_TRAIN = {"batch_size": 128, "seed": 0, "lr": 0.001, "weight_decay": 1e-05,
+             "epochs": 100, "scheduler": "cosine_with_warmup", "num_warmup_epochs": 5}
+GRAPH_CONFIGS = {
+    "ibtt_graph_token": {
+        "dataset": {**GRAPH_TOKEN_DATASET, "pack": True, "num_graphs": 500,
+                    "max_len": 600, "max_vocab": 600},
+        "model": {"d_model": 16, "nhead": 4, "nlayers": 2, "d_ff": 128, "dropout": 0.1,
+                  "max_pos": 600},
+        "train": {"batch_size": 128, "epochs": 100, "lr": 0.001, "weight_decay": 0.0001,
+                  "seed": 0}},
+    "agtt_graph_token": {
+        "dataset": {**GRAPH_TOKEN_DATASET, "pack": True, "max_len": 600},
+        "model": {"d_model": 32, "nhead": 4, "nlayers": 4, "d_ff": 128, "dropout": 0.1,
+                  "max_pos": 600},
+        "train": {"batch_size": 128, "epochs": 100, "lr": 0.001, "weight_decay": 0.0001,
+                  "seed": 0}},
+    "mpnn_graph_token": {
+        "dataset": dict(GRAPH_TOKEN_DATASET),
+        "model": {"in_dim": 1, "hidden_dim": 64, "num_layers": 5, "dropout": 0.1,
+                  "pooling": "mean"},
+        "train": {"batch_size": 128, "epochs": 100, "lr": 0.001, "weight_decay": 1e-05,
+                  "seed": 0}},
+    "gps_graph_token": {
+        "dataset": dict(GRAPH_TOKEN_DATASET), "model": {"graph_pooling": "mean"},
+        "gt": dict(GT_BLOCK), "train": dict(GPS_TRAIN)},
+    "gps_zinc": {
+        "dataset": {"task": "zinc", "zinc_root": "./data/ZINC", "subset": True},
+        "model": {"graph_pooling": "mean"}, "gt": {**GT_BLOCK, "attn_dropout": 0.5},
+        "train": dict(GPS_TRAIN)},
+}
+# the runs of the graph-token phase: (model, config, task), 3 epochs each
+GRAPH_RUNS = (("ibtt", "ibtt_graph_token", "cycle_check"),
+              ("agtt", "agtt_graph_token", "cycle_check"),
+              ("agtt", "agtt_graph_token", "shortest_path"),
+              ("mpnn", "mpnn_graph_token", "shortest_path"),
+              ("mpnn", "mpnn_graph_token", "cycle_check"),
+              ("ggps", "gps_graph_token", "cycle_check"),
+              ("ggps", "gps_zinc", "zinc"))
+GRAPH_EPOCHS = 3
+CORPUS_TASKS = ("cycle_check", "shortest_path")
+CORPUS_ALGORITHMS = ("ba", "sbm", "sfn")
+# sha256 over the sorted relative paths and bytes of the corpus the configs
+# generate (both tasks, ba/sbm/sfn, 500 train graphs each, seed 1234): the
+# generator is byte-stable, so every run on every host writes this corpus
+CORPUS_SHA256 = "c02147248dc59f93f3e93addeb5396f9412fea4601a8789a4ca90992dff1a792"
 IBTT_TRAIN_LIMIT = 2000
 CPU_CHECK_STEPS = 4
 MAX_LEN = 1024            # configs' dataset.max_len: the served row width
@@ -694,7 +767,8 @@ def train_config(model_name: str, model_cfg: dict, zinc_root: str, out_dir: str,
 
 def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
     """``train()`` of the port on cuda; checks the losses and the launch
-    counters. Returns (result, launches)."""
+    counters (a graph model launches no attention kernel). Returns
+    (result, launches)."""
     from glearning_benchmark_tpu_torch.train.trainer import train, train_batch_size
 
     fa.reset_launches()
@@ -705,34 +779,46 @@ def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
     launches = dict(fa.LAUNCHES)
     bundle = res.bundle
     tr = bundle.splits["train"]
-    nlayers = int(config["model"]["nlayers"])
+    task = config["dataset"]["task"]
     bs = int(config["train"]["batch_size"])
     steps = sum(len(l) for l in res.step_losses)
     eval_batches = (len(res.history) * math.ceil(bundle.n("val") / bs)
                     + math.ceil(bundle.n("test") / bs))
-    heads = int(config["model"]["nhead"])
-    row_bs = train_batch_size(bundle, bs)
-    shape = [row_bs, tr["ids"].shape[1], heads, int(config["model"]["d_model"]) // heads]
-    log(f"[train] {model_name}-zinc d{config['model']['d_model']} x{nlayers} layers, "
-        f"{'packed' if 'seg' in tr else 'unpacked'} rows: attention sees "
-        f"{shape} in training, [{bs}, {bundle.splits['val']['ids'].shape[1]}, ...] in eval; "
-        f"{bundle.meta['n_examples_train']} examples in {bundle.n('train')} rows, "
-        f"{len(res.step_losses[0])} steps an epoch; whole call {secs:.1f} s on {card}")
+    if bundle.kind == "tokens":
+        nlayers = int(config["model"]["nlayers"])
+        heads = int(config["model"]["nhead"])
+        row_bs = train_batch_size(bundle, bs)
+        shape = [row_bs, tr["ids"].shape[1], heads,
+                 int(config["model"]["d_model"]) // heads]
+        log(f"[train] {model_name}-{task} d{config['model']['d_model']} x{nlayers} layers, "
+            f"{'packed' if 'seg' in tr else 'unpacked'} rows: attention sees "
+            f"{shape} in training, [{bs}, {bundle.splits['val']['ids'].shape[1]}, ...] in "
+            f"eval; {bundle.meta['n_examples_train']} examples in {bundle.n('train')} "
+            f"rows, {len(res.step_losses[0])} steps an epoch; whole call {secs:.1f} s on "
+            f"{card}")
+        want = {"flash_attn_fwd": nlayers * (steps + eval_batches),
+                "flash_attn_bwd_dq": nlayers * steps, "flash_attn_bwd_dkv": nlayers * steps}
+        expect = (f"forward {nlayers} x ({steps} steps + {eval_batches} eval batches), "
+                  f"backward {nlayers} x {steps} each")
+    else:
+        log(f"[train] {model_name}-{task}: graphs [{bs}, {tr['adj'].shape[1]} nodes, "
+            f"{bundle.in_dim} features], {bundle.n('train')} train graphs, "
+            f"{len(res.step_losses[0])} steps an epoch; whole call {secs:.1f} s on {card}")
+        want = {name: 0 for name in launches}
+        expect = "none: the graph models use no hand-written kernel"
+    metric = "train/mae" if task == "zinc" else "train/acc"
     for h in res.history:
-        log(f"[train] {model_name} epoch {h['epoch']}: train loss {h['train/loss']:.4f}, "
-            f"val loss {h['val/loss']:.4f}, grad norm {h['train/grad_norm']:.3f}, "
+        log(f"[train] {model_name}-{task} epoch {h['epoch']}: train loss "
+            f"{h['train/loss']:.4f}, val loss {h['val/loss']:.4f}, {metric} "
+            f"{h[metric]:.4f}, grad norm {h['train/grad_norm']:.3f}, "
             f"{h['time/epoch_duration']:.2f} s, "
             f"{h['throughput/graphs_per_sec']:.1f} examples/s")
-    log(f"[train] {model_name}: kernel launches {launches} (expected forward "
-        f"{nlayers} x ({steps} steps + {eval_batches} eval batches), backward "
-        f"{nlayers} x {steps} each)")
+    log(f"[train] {model_name}-{task}: kernel launches {launches} (expected {expect})")
     losses = [v for h in res.history for v in (h["train/loss"], h["val/loss"])]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{model_name}: a training or validation loss is not finite")
     if len(res.history) > 1 and not res.history[-1]["train/loss"] < res.history[0]["train/loss"]:
         raise AssertionError(f"{model_name}: the training loss did not fall")
-    want = {"flash_attn_fwd": nlayers * (steps + eval_batches),
-            "flash_attn_bwd_dq": nlayers * steps, "flash_attn_bwd_dkv": nlayers * steps}
     if launches != want:
         raise AssertionError(f"{model_name}: kernel launches {launches}, expected {want}")
     return res, launches
@@ -763,50 +849,83 @@ def trained_checkpoint_serves(res, config: dict, graphs) -> None:
         raise AssertionError("the trained checkpoint does not serve the trainer's logits")
 
 
-def first_epoch(bundle, config: dict, device: str, model=None) -> tuple:
+def first_epoch(bundle, config: dict, device: str, model=None,
+                model_name: str = "agtt") -> tuple:
     """What ``train()`` holds when its first epoch starts, rebuilt from the
     config's seed in the same order: the model (initial weights from the
     seeded generator, unless ``model`` is given), the optimizer, the train
     arrays, the first shuffle and the generator of the dropout seeds."""
     import numpy as np
 
-    from glearning_benchmark_tpu_torch.train.optim import ClippedAdamW
     from glearning_benchmark_tpu_torch.train.trainer import (
-        build_model, make_batches, train_batch_size)
+        build_model, build_optimizer, make_batches, train_batch_size)
 
     tc = config["train"]
     gen = torch.Generator().manual_seed(tc["seed"])
     if model is None:
-        model = build_model("agtt", config, bundle, generator=gen).to(device)
-    named = dict(model.state_dict(keep_vars=True))
-    opt = ClippedAdamW(list(named), list(named.values()), tc["lr"],
-                       weight_decay=tc["weight_decay"])
+        model = build_model(model_name, config, bundle, generator=gen).to(device)
+    n, bs = bundle.n("train"), train_batch_size(bundle, tc["batch_size"])
+    opt, _ = build_optimizer(model, tc, max(1, (n + bs - 1) // bs))
     arrays = {k: torch.from_numpy(v).to(device)
               for k, v in bundle.splits["train"].items()}
-    n, bs = bundle.n("train"), train_batch_size(bundle, tc["batch_size"])
     idx = make_batches(n, bs, np.random.default_rng(tc["seed"]))[0]
     valid = make_batches(n, bs, None)[1]
     return (model, opt, arrays, torch.from_numpy(idx).to(device),
             torch.from_numpy(valid).to(device), gen)
 
 
-def first_steps_on_cpu(res, config: dict) -> None:
-    """The same run's first steps on the CPU (same seed, so the same
-    initial weights, batches and dropout masks) against the card's."""
+def first_steps(bundle, config: dict, model_name: str, device: str):
+    """Step losses of the first steps (at most ``CPU_CHECK_STEPS``) of the
+    run ``config`` describes, rebuilt from its seed on ``device``."""
     from glearning_benchmark_tpu_torch.train.trainer import train_epoch
 
-    t0 = time.perf_counter()
-    model, opt, arrays, idx, valid, gen = first_epoch(res.bundle, config, "cpu")
-    _, losses = train_epoch(model, opt, arrays, idx, valid, res.bundle, gen,
+    model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, device,
+                                                      model_name=model_name)
+    _, losses = train_epoch(model, opt, arrays, idx, valid, bundle, gen,
                             max_steps=CPU_CHECK_STEPS)
-    on_cpu = losses.numpy()
-    on_card = res.step_losses[0][:CPU_CHECK_STEPS]
-    err = float(abs(on_cpu - on_card).max())
-    log(f"[train] first {CPU_CHECK_STEPS} step losses, cuda {on_card.tolist()} against "
-        f"cpu {on_cpu.tolist()}: max|d| {err:.3e} (atol {STEP_LOSS_ATOL:g}), cpu run "
-        f"{time.perf_counter() - t0:.1f} s")
+    return losses.cpu().numpy()
+
+
+def first_steps_on_cpu(res, config: dict, model_name: str = "agtt") -> float:
+    """The same run's first steps on the CPU (same seed, so the same
+    initial weights, batches and dropout masks) against the card's. Returns
+    the largest gap.
+
+    The graph models at bf16 compute are held on their first step only:
+    cuBLAS and the CPU round bf16 products at different places, and in
+    these models (BatchNorm after every layer, near-constant node features)
+    AdamW turns the difference of gradient elements that are zero or nearly
+    so into steps of the learning rate, so the two trajectories part after
+    the first update (measured on an H100: MPNN's step losses 1.1e-2
+    apart by step 3). Their first steps are then held at f32 compute, card
+    against CPU, where the two agree (measured: within 8.1e-6 over four
+    steps)."""
+    t0 = time.perf_counter()
+    name = f"{model_name}-{config['dataset']['task']}"
+    on_cpu = first_steps(res.bundle, config, model_name, "cpu")
+    on_card = res.step_losses[0][:len(on_cpu)]
+    gaps = abs(on_cpu - on_card)
+    held = gaps if model_name in ("ibtt", "agtt") else gaps[:1]
+    log(f"[train] {name}: first {len(on_cpu)} step losses, cuda {on_card.tolist()} against "
+        f"cpu {on_cpu.tolist()}: |d| {[float(f'{g:.3e}') for g in gaps]}, held "
+        f"{'all' if len(held) == len(gaps) else 'the first (bf16, see first_steps_on_cpu)'} "
+        f"(atol {STEP_LOSS_ATOL:g}), cpu run {time.perf_counter() - t0:.1f} s")
+    err = float(held.max())
+    if model_name in ("mpnn", "ggps"):
+        import copy
+
+        f32 = copy.deepcopy(config)
+        f32["model"]["compute_dtype"] = "float32"
+        card32 = first_steps(res.bundle, f32, model_name, "cuda")
+        cpu32 = first_steps(res.bundle, f32, model_name, "cpu")
+        err32 = float(abs(card32 - cpu32).max())
+        log(f"[train] {name} at f32 compute: first {len(cpu32)} step losses, cuda "
+            f"{card32.tolist()} against cpu {cpu32.tolist()}: max|d| {err32:.3e} "
+            f"(atol {STEP_LOSS_ATOL:g})")
+        err = max(err, err32)
     if not err <= STEP_LOSS_ATOL:
         raise AssertionError("cuda and cpu disagree on the first training steps")
+    return err
 
 
 # device kernels of a train step, grouped by what their names say
@@ -824,22 +943,25 @@ KERNEL_GROUPS = (
 )
 
 
-def train_step_breakdown(res, config: dict, steps: int = 10) -> None:
-    """Steady AGTT train steps under torch.profiler: wall ms per step,
-    device-busy share, device ms by kernel group, host ms per step."""
+def train_step_breakdown(res, config: dict, model_name: str = "agtt",
+                         steps: int = 10) -> dict:
+    """Steady train steps under torch.profiler: wall ms per step,
+    device-busy share, launches a step, device ms by kernel group, host ms
+    per step. Returns the step's numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from glearning_benchmark_tpu_torch.train.trainer import train_epoch
 
     bundle = res.bundle
-    model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, "cuda", res.model)
-    bs = idx.shape[1]
+    model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, "cuda", res.model,
+                                                      model_name=model_name)
+    steps = min(steps, idx.shape[0])
 
     def run(k):
         return train_epoch(model, opt, arrays, idx, valid, bundle, gen, max_steps=k)
 
-    run(3)
+    run(min(3, steps))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run(steps)
@@ -854,30 +976,238 @@ def train_step_breakdown(res, config: dict, steps: int = 10) -> None:
     dev = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total_us = sum(us for _, us, _ in dev)
-    log(f"[time] agtt train step [{bs}, {arrays['ids'].shape[1]}] rows: wall "
-        f"{t_wall / steps * 1e3:.2f} ms a step ({steps} steps, unprofiled), host enqueue "
-        f"{t_host / steps * 1e3:.2f} ms a step; profiled {t_prof / steps * 1e3:.2f} ms a "
-        f"step")
+    what = (f"[{idx.shape[1]}, {arrays['ids'].shape[1]}] rows" if "ids" in arrays
+            else f"[{idx.shape[1]}, {arrays['adj'].shape[1]}] graphs")
+    name = f"{model_name}-{config['dataset']['task']}"
+    log(f"[time] {name} train step {what}: wall {t_wall / steps * 1e3:.2f} ms a step "
+        f"({steps} steps, unprofiled), host enqueue {t_host / steps * 1e3:.2f} ms a step; "
+        f"profiled {t_prof / steps * 1e3:.2f} ms a step")
+    out = {"wall_ms": t_wall / steps * 1e3, "device_ms": None, "busy": None,
+           "launches": None}
     if not total_us:
         log("[time] device time not measured (the profiler saw no device activity)")
-        return
-    log(f"[time] device kernels {total_us / steps / 1e3:.3f} ms a step = "
-        f"{total_us / 1e6 / t_wall:.3f} of the unprofiled wall time (device-busy share), "
-        f"{sum(c for _, _, c in dev) / steps:.0f} kernel launches a step")
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+        return out
+    out.update(device_ms=total_us / steps / 1e3, busy=total_us / 1e6 / t_wall,
+               launches=sum(c for _, _, c in dev) / steps)
+    log(f"[time] {name} device kernels {out['device_ms']:.3f} ms a step = "
+        f"{out['busy']:.3f} of the unprofiled wall time (device-busy share), "
+        f"{out['launches']:.0f} kernel launches a step")
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
     for key, us, _ in dev:
-        for name, pats in KERNEL_GROUPS:
+        for g, pats in KERNEL_GROUPS:
             if any(pat in key for pat in pats):
-                groups[name] += us
+                groups[g] += us
                 break
         else:
             groups["other"] += us
-    for name, us in groups.items():
-        log(f"[time]   {us / steps / 1e3:8.3f} ms a step  {name}")
+    for g, us in groups.items():
+        if us:
+            log(f"[time]   {us / steps / 1e3:8.3f} ms a step  {g}")
     for key, us, count in sorted(dev, key=lambda kv: -kv[1])[:10]:
         log(f"[time]   top: {us / steps / 1e3:8.3f} ms a step, {count / steps:5.1f} "
             f"launches  {key[:90]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the graph-token phases: corpus, kernels at its rows, training, serving
+# ---------------------------------------------------------------------------
+
+def corpus_digest(root: str) -> tuple:
+    """(files, bytes, sha256) over the corpus under ``root``: every file's
+    relative path and bytes, in sorted order (the bundle cache left out)."""
+    import hashlib
+
+    paths = []
+    for top, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "processed"]
+        paths += [os.path.join(top, f) for f in files]
+    h = hashlib.sha256()
+    nbytes = 0
+    for path in sorted(os.path.relpath(p, root) for p in paths):
+        with open(os.path.join(root, path), "rb") as f:
+            data = f.read()
+        h.update(path.encode() + b"\0" + data)
+        nbytes += len(data)
+    return len(paths), nbytes, h.hexdigest()
+
+
+def corpus_phase(root: str) -> None:
+    """``ensure_corpus`` with the configs' arguments (``generate_num_graphs:
+    500``, seed 1234) for both tasks on ba, sbm and sfn, timed; its digest
+    must be the one this script expects."""
+    from glearning_benchmark_tpu_torch.data.generator import ensure_corpus
+
+    t0 = time.perf_counter()
+    ensure_corpus(root, tasks=CORPUS_TASKS, algorithms=CORPUS_ALGORITHMS,
+                  number_of_graphs=GRAPH_TOKEN_DATASET["generate_num_graphs"], seed=1234)
+    secs = time.perf_counter() - t0
+    files, nbytes, digest = corpus_digest(root)
+    log(f"[corpus] {'+'.join(CORPUS_TASKS)} on {'/'.join(CORPUS_ALGORITHMS)}, 500 train + "
+        f"100 val + 100 test graphs each: {files} files, {nbytes / 1e6:.1f} MB in "
+        f"{secs:.1f} s; sha256 {digest} (expected {CORPUS_SHA256})")
+    if digest != CORPUS_SHA256:
+        raise AssertionError("the generated corpus is not the expected one")
+
+
+def graph_config(name: str, task: str, root: str, out_dir: str, epochs: int) -> dict:
+    import copy
+
+    cfg = copy.deepcopy(GRAPH_CONFIGS[name])
+    ds = cfg["dataset"]
+    ds["task"] = task
+    ds["zinc_root" if task == "zinc" else "graph_token_root"] = root
+    cfg["train"]["epochs"] = epochs
+    cfg["output"] = {"out_dir": out_dir, "run_name": f"{name}-{task}"}
+    cfg["wandb"] = {"use": False}
+    return cfg
+
+
+def graph_token_rows(fa, bundles: dict, gen: torch.Generator) -> tuple:
+    """The three kernels against their plain versions at the graph-token
+    rows: the first packed train row batch of agtt_graph_token (head dim 8)
+    and of ibtt_graph_token (head dim 4), p 0.1, and ibtt_graph_token's test
+    batch with the most tokens (p 0 forward, p 0.1 backward); then their
+    times beside the bounds and SDPA. Returns (forward errors, backward
+    errors, timings by shape)."""
+    from glearning_benchmark_tpu_torch.train.trainer import make_batches, train_batch_size
+
+    errs, berrs, timing = [], [], {}
+    for name, d in (("agtt_graph_token", 8), ("ibtt_graph_token", 4)):
+        b = bundles[name]
+        seg_all = b.splits["train"]["seg"]
+        row_bs = train_batch_size(b, GRAPH_CONFIGS[name]["train"]["batch_size"])
+        seg = torch.from_numpy(seg_all[:row_bs]).cuda().contiguous()
+        shape = (row_bs, seg.shape[1], 4, d)
+        lens = (seg > 0).sum(1)
+        log(f"[kernel] {name} packed train rows: {b.meta['n_examples_train']} examples in "
+            f"{len(seg_all)} rows of {seg.shape[1]}, row batch {row_bs}, "
+            f"{int(lens.min())}-{int(lens.max())} valid tokens a row")
+        label = f"{name} packed train rows"
+        errs.append(compare(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg,
+                            p_drop=0.1, seed=11))
+        berrs.append(compare_bwd(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg,
+                                 strided_do(shape, torch.bfloat16, gen), 0.1, 11))
+        timing[f"{name}_train_rows_p0.1"] = time_bwd(
+            fa, *qkv_views(shape, torch.bfloat16, gen), seg,
+            strided_do(shape, torch.bfloat16, gen), 0.1, 11, label)
+    b = bundles["ibtt_graph_token"]
+    mask = b.splits["test"]["mask"]
+    idx, valid = make_batches(len(mask), GRAPH_CONFIGS["ibtt_graph_token"]["train"]["batch_size"],
+                              None)
+    tokens = [int(mask[i[v]].sum()) for i, v in zip(idx, valid)]
+    rows = idx[tokens.index(max(tokens))]
+    seg = torch.from_numpy(mask[rows]).to(device="cuda", dtype=torch.int32)
+    shape = (len(rows), seg.shape[1], 4, 4)
+    lens = seg.sum(1)
+    label = "ibtt_graph_token test rows"
+    log(f"[kernel] {label} (sfn, the batch with the most tokens): {list(shape)}, "
+        f"{int(lens.min())}-{int(lens.max())} valid tokens a row")
+    errs.append(compare(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg))
+    berrs.append(compare_bwd(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg,
+                             strided_do(shape, torch.bfloat16, gen), 0.1, 13))
+    timing["ibtt_graph_token_test_rows"] = time_kernel(
+        fa, *qkv_views(shape, torch.bfloat16, gen), seg, label)
+    return errs, berrs, timing
+
+
+def serve_graph_phase(res, config: dict, model_name: str, card: str) -> dict:
+    """The best checkpoint of a graph-model run served with
+    ``predict_graphs`` on the test (sfn) graphs: the logits must equal the
+    trainer's eval forward on the same rows in the same batches (the
+    Predictor's power-of-two buckets, pad rows copies of a chunk's first)
+    and, for the first rows, the same checkpoint served on the CPU."""
+    import numpy as np
+
+    from glearning_benchmark_tpu_torch.data.loader import load_graphs_multi_algorithm
+    from glearning_benchmark_tpu_torch.serve import Predictor, _next_pow2
+    from glearning_benchmark_tpu_torch.train.trainer import _apply_model
+
+    out = config["output"]
+    path = os.path.join(out["out_dir"], f"best_{out['run_name']}")
+    ds = config["dataset"]
+    # the test split's graphs as the dataset builder loads them
+    graphs = load_graphs_multi_algorithm(
+        ds["graph_token_root"], ds["task"], [ds["test_algorithm"]], "test",
+        use_split_tasks_dirs=ds["use_split_tasks_dirs"], seed=int(config["train"]["seed"]),
+        num_graphs=ds["num_graphs"], num_pairs_per_graph=ds["num_pairs_per_graph"])
+    test = res.bundle.splits["test"]
+    if len(graphs) != len(test["y"]):
+        raise AssertionError("the test graphs are not the bundle's test split")
+    bs = int(config["train"]["batch_size"])
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(path, max_batch=bs, device="cuda")
+    warm = pred.warmup()
+    t1 = time.perf_counter()
+    served = pred.predict_graphs(graphs)["logits"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    own, i = [], 0
+    res.model.eval()
+    with torch.no_grad():
+        while i < len(graphs):
+            take = min(bs, len(graphs) - i)
+            rows = np.arange(i, i + take)
+            rows = np.concatenate([rows, np.full(_next_pow2(take, bs) - take, i)])
+            batch = {k: torch.from_numpy(v[rows]).cuda() for k, v in test.items()}
+            own.append(_apply_model(res.model, batch, res.bundle).float().cpu().numpy()[:take])
+            i += take
+    own = np.concatenate(own)
+    err = float(abs(served - own).max())
+    cpu = Predictor.from_checkpoint(path, max_batch=bs, device="cpu")
+    on_cpu = cpu.predict_graphs(graphs[:CPU_CHECK_ROWS])["logits"]
+    # the graph models' eval logits are not of order 1 after a few epochs
+    # (running statistics still near their initial values): the tolerance
+    # scales with the largest logit
+    scale = max(1.0, float(abs(on_cpu).max()))
+    err_cpu = float(abs(served[:CPU_CHECK_ROWS] - on_cpu).max())
+    name = f"{model_name}-{config['dataset']['task']}"
+    log(f"[serve] {name} best checkpoint: {len(graphs)} test graphs in {t2 - t1:.3f} s = "
+        f"{len(graphs) / (t2 - t1):.1f} graphs/s on {card} (load + warmup {t1 - t0:.3f} s, "
+        f"buckets {warm}); logits against the trainer's eval forward max|d| {err:.3e} "
+        f"(atol {SERVED_LOGIT_ATOL:g}), first {CPU_CHECK_ROWS} against the CPU max|d| "
+        f"{err_cpu:.3e} (atol {LOGIT_ATOL:g} x {scale:.3g}); logits range "
+        f"[{served.min():.3f}, {served.max():.3f}]")
+    if not np.isfinite(served).all() or served.shape != own.shape:
+        raise AssertionError(f"{name}: served logits not finite / wrong shape")
+    if err > SERVED_LOGIT_ATOL or err_cpu > LOGIT_ATOL * scale:
+        raise AssertionError(f"{name}: served logits disagree")
+    return {"graphs_per_s": len(graphs) / (t2 - t1), "err": err, "err_cpu": err_cpu}
+
+
+def graph_token_phase(fa, root: str, tmp: str, card: str) -> dict:
+    """Train each of ``GRAPH_RUNS`` on cuda (launch counters set to 0 just
+    before each run and read just after), repeat its first steps on the
+    CPU, profile steady steps, and serve the graph models' checkpoints.
+    Returns the launches of each run."""
+    from glearning_benchmark_tpu_torch.train.datasets import build_dataset
+
+    zinc_root = os.path.join(tmp, "ZINC")
+    launches = {}
+    for model_name, name, task in GRAPH_RUNS:
+        t0 = time.perf_counter()
+        cfg = graph_config(name, task, zinc_root if task == "zinc" else root,
+                           os.path.join(tmp, f"runs_{name}_{task}"), GRAPH_EPOCHS)
+        build_dataset(model_name, cfg["dataset"], int(cfg["train"]["seed"]))
+        log(f"[data] {model_name}-{task} ({name}) bundle in "
+            f"{time.perf_counter() - t0:.1f} s (train() reads it from the cache)")
+        res, launches[f"train_{name}_{task}"] = train_phase(fa, model_name, cfg, None, card)
+        first_steps_on_cpu(res, cfg, model_name)
+        if model_name in ("mpnn", "ggps") and task != "zinc":
+            serve_graph_phase(res, cfg, model_name, card)
+        # steps more on the trained model: after the serving check
+        step = train_step_breakdown(res, cfg, model_name)
+        h = res.history
+        log(f"[graph] {model_name}-{task} ({name}): "
+            f"{sum(x['throughput/graphs_per_sec'] for x in h) / len(h):.1f} examples/s, "
+            f"{sum(x['time/epoch_duration'] for x in h) / len(h):.3f} s an epoch (mean of "
+            f"{len(h)}), {step['launches']} launches a step, device busy share "
+            f"{step['busy']} of a steady step, attention kernel launches "
+            f"{launches[f'train_{name}_{task}']} on {card}")
+        log(f"[phase] {model_name}-{task} {time.perf_counter() - t0:.1f} s")
+        del res
+    return launches
 
 
 def main() -> int:
@@ -1072,7 +1402,25 @@ def main() -> int:
         train_phase(fa, "ibtt", ibtt_cfg, IBTT_TRAIN_LIMIT, card)
         log(f"[phase] training {time.perf_counter() - t0:.1f} s")
 
-    # phase 7: the kernels line, then the result
+        # phase 7: the graph-token corpus, the kernels at its rows, the four
+        # families' training and the graph models' serving
+        t0 = time.perf_counter()
+        gt_root = os.path.join(tmp, "graph-token")
+        corpus_phase(gt_root)
+        t1 = time.perf_counter()
+        bundles = {name: build_dataset(model_name, graph_config(
+            name, "cycle_check", gt_root, "", 1)["dataset"], 0)
+            for model_name, name in (("ibtt", "ibtt_graph_token"),
+                                     ("agtt", "agtt_graph_token"))}
+        log(f"[data] ibtt_graph_token and agtt_graph_token cycle_check bundles in "
+            f"{time.perf_counter() - t1:.1f} s")
+        gerrs, gberrs, gtiming = graph_token_rows(fa, bundles, gen)
+        errs += gerrs
+        berrs += gberrs
+        graph_launches = graph_token_phase(fa, gt_root, tmp, card)
+        log(f"[phase] graph-token {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: the kernels line, then the result
     src = "glearning_benchmark_tpu_torch/csrc/"
     ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1084,11 +1432,16 @@ def main() -> int:
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "launches_by_path": {"serve_agtt": serve_launches,
-                             "train_agtt": train_launches["flash_attn_fwd"]},
+                             "train_agtt": train_launches["flash_attn_fwd"],
+                             **{path: n["flash_attn_fwd"]
+                                for path, n in graph_launches.items()}},
         "by_shape": {name: {key: t[key] for key in keys} for name, t in (
             ("agtt_train_rows_p0.1", btiming["flash_attn_fwd"]),
             ("ibtt_train_rows_p0.1", ibtt_btiming["flash_attn_fwd"]),
-            ("ibtt_served", ibtt_timing), ("agtt_dense", dense_timing))}}]
+            ("ibtt_served", ibtt_timing), ("agtt_dense", dense_timing),
+            *((f"{rows}", t["flash_attn_fwd"]) for rows, t in gtiming.items()
+              if "flash_attn_fwd" in t),
+            ("ibtt_graph_token_test_rows", gtiming["ibtt_graph_token_test_rows"]))}}]
     for name, line in (("flash_attn_bwd_dq", "164"), ("flash_attn_bwd_dkv", "204")):
         t = btiming[name]
         kernels.append({
@@ -1096,7 +1449,12 @@ def main() -> int:
             "replaces": ref + line, "launches": train_launches[name],
             "max_abs_err": max(e[name] for e in berrs),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "launches_by_path": {"train_agtt": train_launches[name],
+                                 **{path: n[name] for path, n in graph_launches.items()}},
+            "by_shape": {rows: {key: bt[name][key] for key in keys} for rows, bt in (
+                ("ibtt_train_rows_p0.1", ibtt_btiming),
+                *((rows, bt) for rows, bt in gtiming.items() if name in bt))}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -6,10 +6,17 @@ module names are the flax ones, so the mapping is mechanical:
 
 - ``Dense``: ``kernel`` [in, out] <-> ``Linear.weight`` [out, in]; ``bias``
   stays ``bias``;
-- ``LayerNorm`` (modules named ``norm*``): ``scale`` <-> ``weight``;
-- ``Embed`` (modules ``embed`` and ``pos``): ``embedding`` <-> ``weight``.
+- ``LayerNorm`` (modules named ``norm*``) and the graph models'
+  ``MaskedBatchNorm`` (modules named ``bn*`` and ``mlp_bn``): ``scale`` <->
+  ``weight``;
+- ``Embed`` (modules ``embed`` and ``pos``): ``embedding`` <-> ``weight``;
+- GIN's scalar ``eps`` and GINE's ``edge_emb`` [types, F] keep their names
+  and layout.
 
 A flax path ``layer_0/qkv/kernel`` becomes the key ``layer_0.qkv.weight``.
+The ``batch_stats`` collection (a BatchNorm's running ``mean`` and ``var``)
+maps to the registered buffers ``running_mean`` and ``running_var``:
+``bn_0/mean`` <-> ``bn_0.running_mean``.
 
 Optimizer state crosses too. The JAX trainer saves ``opt_state`` as the
 flat leaves of its optax chain state under the keys ``"000000"``,
@@ -33,6 +40,14 @@ from torch import nn
 from .train.checkpoint import _flatten, _unflatten
 
 _EMBEDS = ("embed", "pos")
+# parameters stored under the same name and layout in both packages
+_AS_IS = ("eps", "edge_emb")
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _is_norm(module: str) -> bool:
+    """LayerNorm (``norm*``) or MaskedBatchNorm (``bn*``, ``mlp_bn``)."""
+    return module.startswith(("norm", "bn")) or module == "mlp_bn"
 
 
 def _as_tensor(leaf) -> torch.Tensor:
@@ -52,7 +67,7 @@ def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             name, t = "weight", t.transpose(0, 1)
         elif name in ("scale", "embedding"):
             name = "weight"
-        elif name != "bias":
+        elif name not in ("bias",) + _AS_IS:
             raise ValueError(f"unknown flax parameter {path!r}")
         out[".".join(mod + [name])] = t.contiguous()
     return out
@@ -60,31 +75,64 @@ def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """torch ``state_dict`` -> nested flax ``params`` tree of CPU tensors
-    (``train.checkpoint.save_checkpoint`` writes it)."""
+    (``train.checkpoint.save_checkpoint`` writes it). BatchNorm running
+    statistics are left out: :func:`batch_stats_to_flax` takes them."""
     flat = {}
     for key, t in state_dict.items():
         *mod, name = key.split(".")
         t = t.detach().cpu()
+        if name in _STATS.values():
+            continue
         if name == "weight":
             if mod[-1] in _EMBEDS:
                 name = "embedding"
-            elif mod[-1].startswith("norm"):
+            elif _is_norm(mod[-1]):
                 name = "scale"
             else:
                 name, t = "kernel", t.transpose(0, 1)
-        elif name != "bias":
+        elif name not in ("bias",) + _AS_IS:
             raise ValueError(f"unknown torch parameter {key!r}")
         flat["/".join(mod + [name])] = t.contiguous()
     return _unflatten(flat)
 
 
-def load_flax_params(model: nn.Module, params: Dict[str, Any]) -> None:
-    """Load a flax ``params`` tree into ``model``. Every parameter must be
-    present with its shape, and no extra one may be; a floating parameter
-    takes only a floating leaf (a uint leaf whose dtype sidecar was lost is
-    refused, never cast)."""
+def batch_stats_to_flax(state_dict: Dict[str, torch.Tensor]) -> Optional[Dict[str, Any]]:
+    """The running statistics of a torch ``state_dict`` -> the flax
+    ``batch_stats`` tree of CPU tensors, or None when there are none."""
+    names = {v: k for k, v in _STATS.items()}
+    flat = {}
+    for key, t in state_dict.items():
+        *mod, name = key.split(".")
+        if name in names:
+            flat["/".join(mod + [names[name]])] = t.detach().cpu().contiguous()
+    return _unflatten(flat) if flat else None
+
+
+def batch_stats_from_flax(batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``batch_stats`` tree -> the ``running_mean``/``running_var``
+    entries of a torch ``state_dict``."""
+    out = {}
+    for path, leaf in _flatten(batch_stats).items():
+        *mod, name = path.split("/")
+        if name not in _STATS:
+            raise ValueError(f"unknown flax batch statistic {path!r}")
+        out[".".join(mod + [_STATS[name]])] = _as_tensor(leaf).contiguous()
+    return out
+
+
+def load_flax_params(model: nn.Module, params: Dict[str, Any],
+                     batch_stats: Optional[Dict[str, Any]] = None) -> None:
+    """Load a flax ``params`` tree, and a ``batch_stats`` tree when given,
+    into ``model``. Every parameter (and, with ``batch_stats``, every
+    running statistic) must be present with its shape, and no extra one
+    may be; without ``batch_stats`` the model keeps its own running
+    statistics. A floating parameter takes only a floating leaf (a uint
+    leaf whose dtype sidecar was lost is refused, never cast)."""
     state = params_from_flax(params)
-    own = model.state_dict()
+    own = dict(model.named_parameters())
+    if batch_stats is not None:
+        state.update(batch_stats_from_flax(batch_stats))
+        own.update(model.named_buffers())
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:
@@ -99,7 +147,7 @@ def load_flax_params(model: nn.Module, params: Dict[str, Any]) -> None:
             raise TypeError(f"{key}: checkpoint leaf is {leaf.dtype} but the "
                             f"parameter is {target.dtype}; refusing to cast "
                             "(was the checkpoint's .json sidecar lost?)")
-    model.load_state_dict(state)
+    model.load_state_dict(state, strict=False)
 
 
 def _flax_leaf_order(flat: Dict[str, Any]) -> List[str]:

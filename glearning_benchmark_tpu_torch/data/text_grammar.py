@@ -1,8 +1,9 @@
 """The graph-token text grammar: serialization and parsing.
 
 Port of ``glearning_benchmark_tpu/data/text_grammar.py`` (copied; numpy
-only). The serving path uses it to turn loader-style records into graphs
-(``serve.predict_records``).
+only). The generator serializes with ``graph_to_text``; the loaders and
+the serving path parse records back into graphs
+(``text_record_to_graph``).
 
 Grammar (reference: docs/synthetic_data.md:96-120, parser in
 graph_data_loader/graph_token_dataset_nativegraph.py:54-96):
@@ -25,6 +26,21 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from .graphs import Graph
+
+
+def graph_to_text(
+    edges: np.ndarray,
+    num_nodes: int,
+    query: str,
+    label: str,
+) -> str:
+    """Serialize a graph + task into the graph-token grammar."""
+    parts: List[str] = ["<bos>"]
+    for u, v in np.asarray(edges).reshape(-1, 2):
+        parts.append(f"{int(u)} {int(v)} <e>")
+    parts.append("<n> " + " ".join(str(i) for i in range(num_nodes)))
+    parts.append(f"<q> {query} <p> {label} <eos>")
+    return " ".join(parts)
 
 
 def parse_yes_no_from_text(text: str) -> Optional[int]:

@@ -10,6 +10,11 @@ last axis. The seed is an explicit ``int``, not a framework key.
 ``multi_head_attention`` is the eager reference of the XLA attention path;
 the model's attention goes through :mod:`.flash_attention`. The threefry
 generator ``dropout_keep_mask`` is not ported (ROADMAP queue A, item 9).
+
+``hash_dropout`` has no JAX counterpart: it stands in for flax's
+``nn.Dropout`` (threefry Bernoulli masks) in the graph models, with the
+same counter hash at a full 32-bit threshold, so its rate is exact and the
+CPU and the GPU draw the same mask for the same seed.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import _U32, _mul_u32
+from .flash_attention import _U32, _keep_threshold, _mul_u32
 
 
 def _hash1_u32(seed_u32: int, idx: torch.Tensor) -> torch.Tensor:
@@ -72,6 +77,18 @@ def cheap_dropout(seed_u32: int, x: torch.Tensor, rate: float) -> torch.Tensor:
     keep, p_eff = hash_keep_mask(seed_u32, x.shape, rate, device=x.device)
     return torch.where(keep, x / (1.0 - p_eff), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
+
+
+def hash_dropout(seed_u32: int, x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Inverted dropout with a full 32-bit threshold: element ``i`` of x
+    (its linear index) is kept iff ``_hash1_u32(seed, i) >= rate * 2**32``,
+    and kept elements are divided by ``1 - rate`` in x's dtype."""
+    if rate <= 0.0:
+        return x
+    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device) & _U32
+    keep = (_hash1_u32(int(seed_u32) & _U32, idx) >= _keep_threshold(rate)).view(x.shape)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def multi_head_attention(

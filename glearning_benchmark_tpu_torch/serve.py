@@ -1,14 +1,17 @@
 """Batched inference from a training checkpoint (the serving path).
 
-Port of ``glearning_benchmark_tpu/serve.py`` for the token models (``ibtt``,
-``agtt``): restore a checkpoint written by either package, rebuild the
-model, tokenize raw inputs through the same byte-exact tokenizers training
-used, and run batched forwards in power-of-two row buckets.
+Port of ``glearning_benchmark_tpu/serve.py`` for all four model families:
+restore a checkpoint written by either package (with its ``batch_stats``
+for the graph models), rebuild the model, encode raw inputs through the
+same byte-exact tokenizers and graph batching training used (token rows
+for ``ibtt``/``agtt``, dense padded graphs at the checkpoint's node bucket
+``n_max`` for ``mpnn``/``ggps``), and run batched forwards in power-of-two
+row buckets.
 
 The model runs on ``device``: ``"cuda"`` unless the caller passes
 ``device="cpu"``. Without a GPU, the default raises; it never falls back
 to the CPU. On the GPU every encoder layer's attention is one launch of
-the flash-attention kernel.
+the flash-attention kernel; the graph models use no hand-written kernel.
 
 Usage:
     from glearning_benchmark_tpu_torch.serve import Predictor
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .convert import load_flax_params
-from .data.graphs import Graph
+from .data.graphs import Graph, batch_graphs
 from .tokenization.ibtt import encode_texts, tokenize_zinc_molecule
 from .tokenization.pack import pad_sequences
 from .tokenization.vocab import build_fixed_zinc_vocab
@@ -46,20 +49,16 @@ def _next_pow2(n: int, cap: int) -> int:
 
 
 class Predictor:
-    """Checkpoint-backed batched inference for the token models."""
+    """Checkpoint-backed batched inference."""
 
     def __init__(self, model_name: str, config: dict, params: Any,
-                 vocab: Optional[Dict[str, int]], serve: Dict[str, Any],
-                 max_batch: int = 512,
+                 batch_stats: Any, vocab: Optional[Dict[str, int]],
+                 serve: Dict[str, Any], max_batch: int = 512,
                  device: Optional[str | torch.device] = None):
         self.device = resolve_device(device)
         self.model_name = model_name
         self.task = serve["task"]
         self.kind = serve["kind"]
-        if self.kind != "tokens":
-            raise NotImplementedError(
-                f"{model_name} consumes {self.kind}; only the token models "
-                "are ported (ROADMAP queue A, item 5)")
         self.serve = serve
         self.vocab = vocab
         self.max_batch = max_batch
@@ -70,7 +69,10 @@ class Predictor:
             vocab_size=serve["vocab_size"], q_token_id=serve["q_token_id"],
             in_dim=serve["in_dim"], meta=dict(serve["meta"]))
         self.model = build_model(model_name, config, self.bundle)
-        load_flax_params(self.model, params)
+        if batch_stats is None and next(self.model.buffers(), None) is not None:
+            raise ValueError(f"{model_name} checkpoint without batch_stats: "
+                             "its BatchNorm running statistics are missing")
+        load_flax_params(self.model, params, batch_stats)
         self.model.to(self.device).eval()
         self._tok = None  # TrailTokenizer, built on first use (agtt)
 
@@ -88,7 +90,7 @@ class Predictor:
         serve = ckpt.get("serve")
         if serve is None:
             # a checkpoint from before the serve block: rebuild the bundle
-            # from the stored config (ZINC only; needs the corpus)
+            # from the stored config (needs the corpus)
             from .train.checkpoint import serving_meta
             from .train.datasets import build_dataset
             if model_name is None:
@@ -100,16 +102,18 @@ class Predictor:
             if ckpt.get("vocab") is None:
                 ckpt["vocab"] = bundle.vocab
         return cls(model_name or serve["model_name"], config,
-                   ckpt["params"], ckpt.get("vocab"), serve,
-                   max_batch=max_batch, device=device)
+                   ckpt["params"], ckpt.get("batch_stats"), ckpt.get("vocab"),
+                   serve, max_batch=max_batch, device=device)
 
     # -- forward ------------------------------------------------------------
 
     def _apply(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
-        ids = torch.from_numpy(batch["ids"]).to(self.device)
-        mask = torch.from_numpy(batch["mask"]).to(self.device)
+        t = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
         with torch.inference_mode():
-            out = self.model(ids, mask, q_token_id=self.bundle.q_token_id)
+            if self.kind == "tokens":
+                out = self.model(t["ids"], t["mask"], q_token_id=self.bundle.q_token_id)
+            else:
+                out = self.model(t["node_feat"], t["adj"], t["mask"], etype=t.get("eadj"))
         return out.float().cpu().numpy()
 
     def _batched(self, rows: Dict[str, np.ndarray], n: int) -> np.ndarray:
@@ -144,6 +148,8 @@ class Predictor:
                   query_u=0, query_v=1)
         if self.model_name == "agtt":
             return self._encode_trail_rows([g])
+        if self.model_name in ("mpnn", "ggps"):
+            return self._encode_graph_rows([g])
         if self.task == "zinc":
             text = tokenize_zinc_molecule(
                 g, max_len=int(self.serve["meta"]["max_len"]))
@@ -236,6 +242,33 @@ class Predictor:
         outm[:, :l] = mask
         return {"ids": out, "mask": outm}
 
+    def _encode_graph_rows(self, graphs: Sequence[Graph]) -> Dict[str, np.ndarray]:
+        """Dense padded rows at the checkpoint's node bucket: the node
+        features, the adjacency as f32, the mask, and the edge types when
+        the model reads them. A graph above the bucket is refused."""
+        meta = self.serve["meta"]
+        n_max = int(meta["n_max"])
+        too_big = [g.num_nodes for g in graphs if g.num_nodes > n_max]
+        if too_big:
+            raise ValueError(
+                f"graph with {max(too_big)} nodes exceeds this checkpoint's "
+                f"node bucket ({n_max} nodes)")
+        is_zinc = self.task == "zinc"
+        graphs = [dataclasses.replace(g, y=0.0 if is_zinc else 0)
+                  if g.y is None else g for g in graphs]
+        gb = batch_graphs(
+            graphs, n_max=n_max,
+            node_feat_mode="labels" if is_zinc else "const",
+            query_encoding=self.task in QUERY_TASKS,
+            label_dtype=np.float32 if is_zinc else np.int32,
+            edge_types=is_zinc)
+        rows = {"node_feat": gb.node_feat.astype(np.float32),
+                "adj": gb.adj.astype(np.float32),
+                "mask": gb.node_mask}
+        if self.model.edge_features and gb.eadj is not None:
+            rows["eadj"] = gb.eadj.astype(np.int32)
+        return rows
+
     # -- public API ---------------------------------------------------------
 
     def predict_texts(self, texts: Sequence[str]) -> Dict[str, np.ndarray]:
@@ -248,11 +281,13 @@ class Predictor:
         return self._finish(self._batched(rows, len(texts)))
 
     def predict_graphs(self, graphs: Sequence[Graph]) -> Dict[str, np.ndarray]:
-        """Predict from Graph inputs: SENT trails for agtt, the ZINC index
-        tokenizer for ibtt-zinc."""
+        """Predict from Graph inputs: SENT trails for agtt, dense batching
+        for mpnn/ggps, the ZINC index tokenizer for ibtt-zinc."""
         graphs = list(graphs)
         if self.model_name == "agtt":
             rows = self._encode_trail_rows(graphs)
+        elif self.model_name in ("mpnn", "ggps"):
+            rows = self._encode_graph_rows(graphs)
         elif self.task == "zinc":  # ibtt on molecules -> index token text
             texts = [tokenize_zinc_molecule(
                 dataclasses.replace(g, y=0.0) if g.y is None else g,

@@ -19,7 +19,8 @@ across processes and hosts and is what an insertion-ordered scan yields.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from collections import Counter
+from typing import Dict, Iterable, List, Optional, Tuple
 
 SPECIAL = ["<pad>", "<bos>", "<e>", "<n>", "<q>", "<p>", "<eos>", "yes", "no"]
 
@@ -28,6 +29,32 @@ ZINC_ATOM_TYPES = ["C", "N", "O", "F", "P", "S", "Cl", "Br", "I"]
 ZINC_BOND_TYPES = ["single", "double", "triple", "aromatic"]
 NUM_ATOM_TYPES = len(ZINC_ATOM_TYPES)
 NUM_BOND_TYPES = len(ZINC_BOND_TYPES)
+
+
+def build_vocab_from_texts(
+    texts: Iterable[str],
+    min_freq: int = 1,
+    max_tokens: Optional[int] = None,
+) -> Tuple[Dict[str, int], Dict[int, str]]:
+    """Frequency-ranked vocab seeded with SPECIAL (reference:
+    data_loader.py:451-463). ``Counter.most_common`` tie-breaks by first
+    occurrence, which is deterministic given text order."""
+    cnt: Counter = Counter()
+    for text in texts:
+        cnt.update(text.split())
+    vocab = {tok: i for i, tok in enumerate(SPECIAL)}
+    idx = len(vocab)
+    for tok, c in cnt.most_common():
+        if tok in vocab:
+            continue
+        if c < min_freq:
+            break
+        vocab[tok] = idx
+        idx += 1
+        if max_tokens and idx >= max_tokens:
+            break
+    itos = {i: t for t, i in vocab.items()}
+    return vocab, itos
 
 
 def build_fixed_zinc_vocab() -> Tuple[Dict[str, int], Dict[int, str]]:

@@ -1,12 +1,13 @@
 """CLI entry point of the port's trainer.
 
-    python -m glearning_benchmark_tpu_torch.train --model {ibtt,agtt}
-        --config configs/X.yaml [--epochs N] [--limit N] [--resume]
+    python -m glearning_benchmark_tpu_torch.train --model {ibtt,agtt,mpnn,ggps}
+        [--config configs/X.yaml] [--epochs N] [--limit N] [--resume]
         [--eval-only] [--checkpoint P] [--device cuda|cpu]
 
-The flags of the JAX package's root ``train.py``, plus ``--device``. The
-run is on the GPU unless ``--device cpu`` is given; without a GPU the
-default raises.
+The flags and default configs (``configs/<model>_graph_token.yaml``) of
+the JAX package's root ``train.py``, plus ``--device``. A missing
+graph-token corpus is generated first. The run is on the GPU unless
+``--device cpu`` is given; without a GPU the default raises.
 """
 
 from __future__ import annotations
@@ -15,15 +16,17 @@ import argparse
 import os
 
 MODEL_DEFAULT_CONFIGS = {
-    "ibtt": "configs/ibtt_zinc.yaml",
-    "agtt": "configs/agtt_zinc.yaml",
+    "ibtt": "configs/ibtt_graph_token.yaml",
+    "mpnn": "configs/mpnn_graph_token.yaml",
+    "ggps": "configs/gps_graph_token.yaml",
+    "agtt": "configs/agtt_graph_token.yaml",
 }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m glearning_benchmark_tpu_torch.train",
-        description="Train the token transformers (PyTorch/CUDA port)")
+        description="Train IBTT, AGTT, MPNN or GPS (PyTorch/CUDA port)")
     ap.add_argument("--model", required=True, choices=sorted(MODEL_DEFAULT_CONFIGS))
     ap.add_argument("--config", default=None, help="YAML config path")
     ap.add_argument("--epochs", type=int, default=None, help="override train.epochs")

@@ -1,17 +1,20 @@
 """Dataset assembly: configs -> fixed-shape arrays, one pass at startup.
 
-Port of ``glearning_benchmark_tpu/train/datasets.py`` for the token models
-on ``task: zinc``: ``DatasetBundle``, the query-task tables, the packed
-train split, the content-addressed bundle cache, ``build_ibtt_dataset``,
-``build_agtt_dataset`` and the ``build_dataset`` dispatcher (numpy, copied;
-the tests hold the arrays equal to the JAX package's). Trails come from the
-Python ``TrailTokenizer``. The synthetic corpora (``data/generator.py`` and
-the rest of ``data/loader.py``) and the graph-native bundles are not ported
-yet and raise ``NotImplementedError``.
+Port of ``glearning_benchmark_tpu/train/datasets.py`` (numpy, copied; the
+tests hold the arrays equal to the JAX package's): ``DatasetBundle``, the
+query-task tables, the packed train split, the content-addressed bundle
+cache, the synthetic graph-token corpora (generated when missing, then
+loaded per algorithm: ``train_algorithms`` for train and val,
+``test_algorithm`` for the out-of-distribution test split) and ZINC,
+``build_ibtt_dataset``, ``build_agtt_dataset``, ``build_graph_dataset``
+and the ``build_dataset`` dispatcher. Trails come from the Python
+``TrailTokenizer`` (the native tokenizer is not ported yet).
 
 Array layouts of a token split: ids [N, L] i32, mask [N, L] bool, y [N];
 a packed train split: ids/seg/pos [R, L] i32, pos_bos/pos_u/pos_v [R, K]
-i32, ex_valid [R, K] bool, y [R, K].
+i32, ex_valid [R, K] bool, y [R, K]; a graph split: node_feat [N, Nmax, F]
+f32, adj [N, Nmax, Nmax] uint8, mask [N, Nmax] bool, y [N], and for ZINC
+eadj [N, Nmax, Nmax] uint8 bond types.
 """
 
 from __future__ import annotations
@@ -23,12 +26,17 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..data.generator import GENERATOR_VERSION, ensure_corpus
+from ..data.graphs import batch_graphs
+from ..data.loader import (determine_num_classes, load_examples_multi_algorithm,
+                           load_graphs_multi_algorithm)
 from ..data.zinc import (ZINC_NUM_ATOM_TYPES, ZINC_NUM_BOND_TYPES,
                          ZINC_STANDIN_VERSION, load_zinc_split)
 from ..tokenization.ibtt import encode_texts, tokenize_zinc_molecule
 from ..tokenization.pack import pack_examples, pad_sequences, round_up_to_bucket
 from ..tokenization.sent import TrailTokenizer
-from ..tokenization.vocab import (build_fixed_zinc_vocab, collect_dynamic_tokens,
+from ..tokenization.vocab import (build_fixed_zinc_vocab, build_vocab_from_texts,
+                                  collect_dynamic_tokens,
                                   extend_vocab_with_dynamic_tokens)
 from ..utils.hashing import stable_hash
 
@@ -92,6 +100,7 @@ def _cache_path(model_name: str, dataset_cfg: dict, seed: int, limit) -> Optiona
     key_src = json.dumps({"model": model_name, "cfg": dataset_cfg,
                           "seed": seed, "limit": limit, "port": "torch",
                           "format": _CACHE_FORMAT,
+                          "gen": GENERATOR_VERSION,
                           "zinc": ZINC_STANDIN_VERSION},
                          sort_keys=True, default=str)
     return os.path.join(root, "processed",
@@ -136,11 +145,63 @@ def _load_bundle(path: str) -> Optional[DatasetBundle]:
         return None
 
 
-def _synthetic_not_ported(task: str):
-    raise NotImplementedError(
-        f"task {task!r} needs the synthetic corpora (data/generator.py and "
-        "the multi-algorithm loaders), which are not ported yet (ROADMAP "
-        "queue A, item 3); the port trains on task 'zinc'")
+def _resolve_corpus_root(dataset_cfg: dict, seed: int) -> str:
+    root = dataset_cfg.get("graph_token_root", "graph-token")
+    n = int(dataset_cfg.get("generate_num_graphs", 500))
+    algos = list(dict.fromkeys(
+        list(dataset_cfg.get("train_algorithms", [])) +
+        [dataset_cfg.get("test_algorithm", "sfn")]))
+    difficulty = dataset_cfg.get("difficulty")
+    if difficulty:
+        # dedicated root per difficulty preset: the per-directory generation
+        # stamps encode the knobs, so sharing a root with the default corpus
+        # would regenerate back and forth between presets
+        root = f"{root}-{difficulty}"
+    ensure_corpus(root, tasks=(dataset_cfg["task"],), algorithms=algos,
+                  number_of_graphs=n, seed=1234,
+                  difficulty=difficulty,
+                  size_buckets=dataset_cfg.get("size_buckets"))
+    return root
+
+
+def _load_synthetic_examples(dataset_cfg: dict, seed: int):
+    root = _resolve_corpus_root(dataset_cfg, seed)
+    task = dataset_cfg["task"]
+    algos = dataset_cfg["train_algorithms"]
+    test_algo = dataset_cfg["test_algorithm"]
+    kw = dict(
+        use_split_tasks_dirs=dataset_cfg.get("use_split_tasks_dirs", True),
+        seed=seed,
+        num_graphs=dataset_cfg.get("num_graphs"),
+        num_pairs_per_graph=dataset_cfg.get("num_pairs_per_graph"),
+    )
+    return {
+        "train": load_examples_multi_algorithm(root, task, algos, "train", **kw),
+        "val": load_examples_multi_algorithm(root, task, algos, "val", **kw),
+        "test": load_examples_multi_algorithm(root, task, [test_algo], "test", **kw),
+    }
+
+
+def _load_synthetic_graphs(dataset_cfg: dict, seed: int):
+    root = _resolve_corpus_root(dataset_cfg, seed)
+    task = dataset_cfg["task"]
+    algos = dataset_cfg["train_algorithms"]
+    test_algo = dataset_cfg["test_algorithm"]
+    kw = dict(
+        use_split_tasks_dirs=dataset_cfg.get("use_split_tasks_dirs", True),
+        seed=seed,
+        num_graphs=dataset_cfg.get("num_graphs"),
+        num_pairs_per_graph=dataset_cfg.get("num_pairs_per_graph"),
+    )
+    return {
+        "train": load_graphs_multi_algorithm(root, task, algos, "train", **kw),
+        "val": load_graphs_multi_algorithm(root, task, algos, "val", **kw),
+        "test": load_graphs_multi_algorithm(root, task, [test_algo], "test", **kw),
+    }
+
+
+def _drop_unlabeled(examples):
+    return [e for e in examples if e.get("label") is not None]
 
 
 def _zinc_graphs(dataset_cfg: dict, limit: Optional[int]):
@@ -157,26 +218,37 @@ def _zinc_graphs(dataset_cfg: dict, limit: Optional[int]):
 def build_ibtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None) -> DatasetBundle:
     task = dataset_cfg["task"]
     max_len = int(dataset_cfg.get("max_len", 600))
-    if task != "zinc":
-        _synthetic_not_ported(task)
 
-    mols = _zinc_graphs(dataset_cfg, limit)
-    texts = {s: [tokenize_zinc_molecule(m, max_len=max_len) for m in mols[s]]
-             for s in SPLITS}
-    labels = {s: np.array([m.y for m in mols[s]], dtype=np.float32) for s in SPLITS}
-    # fixed vocab + dynamic tokens over all splits, pinned order
-    fixed, _ = build_fixed_zinc_vocab()
-    dyn = collect_dynamic_tokens(
-        (t for s in SPLITS for t in texts[s]), fixed)
-    vocab = extend_vocab_with_dynamic_tokens(fixed, dyn)
-    num_classes = 1
+    if task == "zinc":
+        mols = _zinc_graphs(dataset_cfg, limit)
+        texts = {s: [tokenize_zinc_molecule(m, max_len=max_len) for m in mols[s]]
+                 for s in SPLITS}
+        labels = {s: np.array([m.y for m in mols[s]], dtype=np.float32) for s in SPLITS}
+        # fixed vocab + dynamic tokens over all splits, pinned order
+        fixed, _ = build_fixed_zinc_vocab()
+        dyn = collect_dynamic_tokens(
+            (t for s in SPLITS for t in texts[s]), fixed)
+        vocab = extend_vocab_with_dynamic_tokens(fixed, dyn)
+        num_classes = 1
+    else:
+        ex = _load_synthetic_examples(dataset_cfg, seed)
+        ex = {s: _drop_unlabeled(v) for s, v in ex.items()}
+        if limit:
+            ex = {s: v[:limit] for s, v in ex.items()}
+        texts = {s: [e["text"] for e in v] for s, v in ex.items()}
+        labels = {s: np.array([e["label"] for e in v], dtype=np.int32)
+                  for s, v in ex.items()}
+        vocab, _ = build_vocab_from_texts(
+            texts["train"], max_tokens=dataset_cfg.get("max_vocab"))
+        num_classes = determine_num_classes(
+            [e for v in ex.values() for e in v], task)
 
     pad_id = vocab["<pad>"]
     packed = {s: encode_texts(texts[s], vocab, max_len=max_len) for s in SPLITS}
     # per-split buckets: the train split pads only to ITS max (the OOD test
     # algorithm often has far longer serializations — e.g. er test graphs at
     # ~600 tokens vs path train graphs at ~200 — and attention cost is L²);
-    # val and test share one bucket because they share a compiled eval fn
+    # val and test share one bucket
     train_bucket = round_up_to_bucket(max(packed["train"][0].shape[1], 1))
     eval_bucket = round_up_to_bucket(max(
         max(packed[s][0].shape[1] if packed[s][0].size else 1 for s in ("val", "test")), 1))
@@ -216,12 +288,16 @@ def build_ibtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None
 def build_agtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None) -> DatasetBundle:
     task = dataset_cfg["task"]
     max_len = int(dataset_cfg.get("max_len", 600))
-    if task != "zinc":
-        _synthetic_not_ported(task)
-    graphs = _zinc_graphs(dataset_cfg, limit)
+    is_zinc = task == "zinc"
+    if is_zinc:
+        graphs = _zinc_graphs(dataset_cfg, limit)
+    else:
+        graphs = _load_synthetic_graphs(dataset_cfg, seed)
+        if limit:
+            graphs = {s: v[:limit] for s, v in graphs.items()}
 
     tok = TrailTokenizer(max_length=max_len, truncation_length=max_len,
-                         labeled_graph=True, undirected=True)
+                         labeled_graph=is_zinc, undirected=True)
     # position table sized over ALL splits, so no eval graph is dropped
     max_nodes_train = max(g.num_nodes for g in graphs["train"])
     max_nodes = max(g.num_nodes for s in SPLITS for g in graphs[s])
@@ -230,17 +306,32 @@ def build_agtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None
               f"{max_nodes_train} nodes); position table sized globally so "
               f"none are dropped")
     tok.set_num_nodes(max_nodes)
-    tok.set_num_node_and_edge_types(ZINC_NUM_ATOM_TYPES, ZINC_NUM_BOND_TYPES)
-    fixed, _ = build_fixed_zinc_vocab()
-    # fixed vocab size + node positions remapped to 22+
-    vocab_size = len(fixed) + max_nodes + 100
-    pad_id = fixed["<pad>"]
-    bos_like = fixed["<bos>"]
+    if is_zinc:
+        tok.set_num_node_and_edge_types(ZINC_NUM_ATOM_TYPES, ZINC_NUM_BOND_TYPES)
+        fixed, _ = build_fixed_zinc_vocab()
+        # fixed vocab size + node positions remapped to 22+
+        vocab_size = len(fixed) + max_nodes + 100
+        pad_id = fixed["<pad>"]
+        bos_like = fixed["<bos>"]
+    else:
+        vocab_size = tok.idx_offset + max_nodes + 1  # +1 for '<q>'
+        pad_id = TrailTokenizer.pad
+        bos_like = 0  # SOS
+        fixed = None
 
-    seqs_by_split = {
-        s: [(tok.remap_zinc_tokens(tok(g), fixed), g.y) for g in graphs[s]]
-        for s in SPLITS}
-    splits = {}
+    seqs_by_split = {}
+    for s in SPLITS:
+        seqs = []
+        for g in graphs[s]:
+            t = tok(g)
+            if is_zinc:
+                t = tok.remap_zinc_tokens(t, fixed)
+            if task in QUERY_TASKS and g.query_u is not None:
+                # single-node queries carry query_v == query_u, so the
+                # appended trail suffix is always '<q> u v'
+                t = tok.append_query(t, g.query_u, g.query_v)
+            seqs.append((t, g.y))
+        seqs_by_split[s] = seqs
 
     def split_bucket(names):
         m = max((len(t) for s in names for t, _ in seqs_by_split[s]), default=1)
@@ -250,6 +341,8 @@ def build_agtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None
     buckets = {"train": split_bucket(["train"]),
                "val": split_bucket(["val", "test"]),
                "test": split_bucket(["val", "test"])}
+    label_dtype = np.float32 if is_zinc else np.int32
+    splits = {}
     for s in SPLITS:
         bucket = buckets[s]
         seqs = [t for t, _ in seqs_by_split[s]]
@@ -260,35 +353,78 @@ def build_agtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None
         outm = np.zeros((n, bucket), dtype=bool)
         out[:, :l] = ids
         outm[:, :l] = mask
-        y = np.array(ys, dtype=np.float32)
-        splits[s] = {"ids": out, "mask": outm, "y": y}
+        splits[s] = {"ids": out, "mask": outm, "y": np.array(ys, dtype=label_dtype)}
     bucket = max(buckets.values())
+
+    all_ex = [{"label": int(y)} for s in SPLITS for _, y in seqs_by_split[s]] \
+        if not is_zinc else []
+    num_classes = 1 if is_zinc else determine_num_classes(all_ex, task)
+    q_id = tok.query_token_id if task in QUERY_TASKS else None
 
     n_examples_train = len(seqs_by_split["train"])
     if bool(dataset_cfg.get("pack", False)) and n_examples_train:
         splits["train"] = _pack_train_split(
             [t for t, _ in seqs_by_split["train"]],
-            np.array([y for _, y in seqs_by_split["train"]], dtype=np.float32),
-            buckets["train"], pad_id, None, (1, 2))
+            np.array([y for _, y in seqs_by_split["train"]], dtype=label_dtype),
+            buckets["train"], pad_id, q_id, (1, 2))  # trail '<q> u v'
 
     return DatasetBundle(task=task, kind="tokens", splits=splits,
-                         num_classes=1, vocab=None,
-                         vocab_size=vocab_size, q_token_id=None,
+                         num_classes=num_classes, vocab=None,
+                         vocab_size=vocab_size, q_token_id=q_id,
                          meta={"max_len": bucket, "pad_id": pad_id,
                                "idx_offset": tok.idx_offset,
                                "bos_id": bos_like, "max_nodes": max_nodes,
                                "n_examples_train": n_examples_train})
 
 
+# ---------------------------------------------------------------------------
+# Graph-native datasets (MPNN / GPS)
+# ---------------------------------------------------------------------------
+
+def build_graph_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None) -> DatasetBundle:
+    task = dataset_cfg["task"]
+    is_zinc = task == "zinc"
+    if is_zinc:
+        graphs = _zinc_graphs(dataset_cfg, limit)
+    else:
+        graphs = _load_synthetic_graphs(dataset_cfg, seed)
+        if limit:
+            graphs = {s: v[:limit] for s, v in graphs.items()}
+
+    n_max = max(g.num_nodes for s in SPLITS for g in graphs[s])
+    splits = {}
+    for s in SPLITS:
+        gb = batch_graphs(graphs[s], n_max=n_max,
+                          node_feat_mode="labels" if is_zinc else "const",
+                          query_encoding=task in QUERY_TASKS,
+                          label_dtype=np.float32 if is_zinc else np.int32,
+                          edge_types=is_zinc)
+        # adjacency stored uint8 (4x smaller on the device); the trainer
+        # casts each gathered batch to f32
+        splits[s] = {"node_feat": gb.node_feat, "adj": gb.adj.astype(np.uint8),
+                     "mask": gb.node_mask, "y": gb.y}
+        if gb.eadj is not None:
+            # bond-type adjacency for edge-featured (GINE) message passing
+            splits[s]["eadj"] = gb.eadj
+
+    if is_zinc:
+        num_classes = 1
+    else:
+        all_ex = [{"label": int(g.y)} for s in SPLITS for g in graphs[s]]
+        num_classes = determine_num_classes(all_ex, task)
+    in_dim = splits["train"]["node_feat"].shape[-1]
+    return DatasetBundle(task=task, kind="graphs", splits=splits,
+                         num_classes=num_classes, in_dim=in_dim,
+                         meta={"n_max": n_max})
+
+
 def build_dataset(model_name: str, dataset_cfg: dict, seed: int,
                   limit: Optional[int] = None) -> DatasetBundle:
     """The bundle of ``model_name`` for ``dataset_cfg``, from the cache when
     ``dataset.cache`` (default true) finds it there, else built and cached."""
-    if model_name in ("mpnn", "ggps"):
-        raise NotImplementedError(
-            f"{model_name} consumes graph bundles, which are not ported yet "
-            "(ROADMAP queue A, item 5)")
-    if model_name not in ("ibtt", "agtt"):
+    builders = {"ibtt": build_ibtt_dataset, "agtt": build_agtt_dataset,
+                "mpnn": build_graph_dataset, "ggps": build_graph_dataset}
+    if model_name not in builders:
         raise ValueError(f"unknown model {model_name!r}")
     cache = bool(dataset_cfg.get("cache", True))
     path = _cache_path(model_name, dataset_cfg, seed, limit) if cache else None
@@ -296,8 +432,7 @@ def build_dataset(model_name: str, dataset_cfg: dict, seed: int,
         cached = _load_bundle(path)
         if cached is not None:
             return cached
-    build = build_ibtt_dataset if model_name == "ibtt" else build_agtt_dataset
-    bundle = build(dataset_cfg, seed, limit=limit)
+    bundle = builders[model_name](dataset_cfg, seed, limit=limit)
     if path is not None:
         try:
             _save_bundle(path, bundle)

@@ -1,4 +1,5 @@
-"""The training engine of the token models (``ibtt``, ``agtt``).
+"""The training engine of all four model families (``ibtt``, ``agtt``,
+``mpnn``, ``ggps``).
 
 Port of ``glearning_benchmark_tpu/train/trainer.py``: ``build_model``,
 ``build_dataset``, the loss and its sufficient statistics, ``make_batches``,
@@ -20,11 +21,17 @@ block-best rule) and nothing is compiled; the dropout seeds come from a
 run with dropout is reproducible from its seed but does not share the JAX
 trainer's masks. On a CUDA device every encoder layer's attention, forward
 and backward, runs in the hand-written kernels of ``ops/flash_attention.py``.
+The graph models (MPNN, GPS) take dense padded batches (the uint8
+adjacency cast to f32 per gathered batch, the bond-type matrix ``eadj``
+with ``model.edge_features``); their BatchNorm running statistics are
+updated by every train step, used by every eval pass, snapshotted with the
+parameters at the best epoch and saved as the checkpoint's
+``batch_stats``.
 
-Not ported: the graph-native models (ROADMAP queue A, item 5), the
-``parallel.*`` layouts (item 9; any such key above 1 raises), the Switch
-MoE FFN (item 8), profiler traces (``train.profile_epochs``), W&B
-histograms and the confusion-matrix image.
+Not ported: the ``parallel.*`` layouts (ROADMAP queue A, item 9; any such
+key above 1 raises), the Switch MoE FFN (item 8), profiler traces
+(``train.profile_epochs``), W&B histograms and the images of
+``train/viz.py`` (the confusion matrix; the example-graph log is text).
 """
 
 from __future__ import annotations
@@ -38,9 +45,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-from ..convert import (load_flax_params, opt_state_from_torch,
+from ..convert import (batch_stats_to_flax, load_flax_params, opt_state_from_torch,
                        opt_state_to_torch, params_to_flax)
+from ..models.gps import GPSModel
+from ..models.mpnn import MPNN
 from ..models.transformer import SimpleTransformer
 from ..tokenization.vocab import SPECIAL
 from ..utils.device import resolve_device
@@ -50,8 +60,8 @@ from .metrics import (classification_metrics_from_cm, format_confusion_matrix,
                       regression_metrics_from_sums)
 from .optim import ClippedAdamW, warmup_cosine_decay_schedule
 
-__all__ = ["TrainResult", "build_model", "build_dataset", "make_batches",
-           "train_batch_size", "RunLogger", "train"]
+__all__ = ["TrainResult", "build_model", "build_dataset", "build_optimizer",
+           "make_batches", "train_batch_size", "RunLogger", "train"]
 
 
 @dataclass
@@ -61,7 +71,8 @@ class TrainResult:
     history: List[Dict[str, Any]]
     params: Any = None                  # flax-layout tree of CPU tensors
     bundle: Optional[DatasetBundle] = None
-    model: Optional[SimpleTransformer] = None
+    model: Optional[nn.Module] = None
+    batch_stats: Any = None             # flax-layout tree (graph models)
     # per-step training losses of every epoch run, one array per epoch
     step_losses: List[np.ndarray] = field(default_factory=list)
 
@@ -71,20 +82,47 @@ class TrainResult:
 # ---------------------------------------------------------------------------
 
 def build_model(model_name: str, config: dict, bundle: DatasetBundle,
-                generator: Optional[torch.Generator] = None) -> SimpleTransformer:
+                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build the model a checkpoint of ``model_name`` was trained as, with
     the JAX package's config defaults. ``generator`` seeds the initial
-    parameters. ``model.remat`` recomputes encoder layers in the backward
-    pass (default: rows of 1024 tokens and longer). ``model.use_flash`` is
-    accepted and ignored: attention always runs through the flash-attention
-    kernels (their plain versions on the CPU)."""
+    parameters. For the token models, ``model.remat`` recomputes encoder
+    layers in the backward pass (default: rows of 1024 tokens and longer);
+    ``model.use_flash`` is accepted and ignored: attention always runs
+    through the flash-attention kernels (their plain versions on the CPU).
+    GPS reads its widths from the config's ``gt:`` block."""
     model_cfg = config.get("model", {})
     task = bundle.task
+    if model_name == "mpnn":
+        return MPNN(
+            in_dim=bundle.in_dim,
+            hidden_dim=int(model_cfg.get("hidden_dim", 64)),
+            num_layers=int(model_cfg.get("num_layers", 5)),
+            dropout=float(model_cfg.get("dropout", 0.1)),
+            pooling=model_cfg.get("pooling", "mean"),
+            num_classes=bundle.num_classes,
+            task=task,
+            compute_dtype=model_cfg.get("compute_dtype", "bfloat16"),
+            # edge types exist only in ZINC bundles (``eadj``)
+            edge_features=bool(model_cfg.get("edge_features", False)) and task == "zinc",
+            generator=generator,
+        )
+    if model_name == "ggps":
+        gt = config.get("gt", {})
+        return GPSModel(
+            in_dim=bundle.in_dim,
+            dim=int(gt.get("dim_hidden", model_cfg.get("dim_hidden", 32))),
+            num_layers=int(gt.get("layers", model_cfg.get("num_layers", 4))),
+            n_heads=int(gt.get("n_heads", model_cfg.get("n_heads", 4))),
+            dropout=float(gt.get("dropout", 0.0)),
+            attn_dropout=float(gt.get("attn_dropout", 0.1)),
+            pooling=model_cfg.get("graph_pooling", "mean"),
+            num_classes=bundle.num_classes,
+            task=task,
+            compute_dtype=model_cfg.get("compute_dtype", "bfloat16"),
+            edge_features=bool(model_cfg.get("edge_features", False)) and task == "zinc",
+            generator=generator,
+        )
     if model_name not in ("ibtt", "agtt"):
-        if model_name in ("mpnn", "ggps"):
-            raise NotImplementedError(
-                f"{model_name} is not ported yet (ROADMAP queue A, item 5: "
-                "models/mpnn.py and models/gps.py)")
         raise ValueError(f"unknown model {model_name!r}")
     if int(model_cfg.get("moe_experts", 0)) > 0:
         raise NotImplementedError("the Switch MoE FFN is not ported yet "
@@ -124,8 +162,12 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
 
 def _apply_model(model, batch: Dict[str, torch.Tensor], bundle: DatasetBundle,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Logits of one gathered batch: [B] / [B, C] for unpacked rows,
-    [B, K] / [B, K, C] for packed rows."""
+    """Logits of one gathered batch: [B] / [B, C] for unpacked rows and
+    graphs, [B, K] / [B, K, C] for packed rows."""
+    if bundle.kind == "graphs":
+        adj = batch["adj"].to(torch.float32)   # stored uint8
+        return model(batch["node_feat"], adj, batch["mask"], etype=batch.get("eadj"),
+                     generator=generator)
     if "seg" in batch:
         return model(batch["ids"], batch["seg"] > 0,
                      q_token_id=bundle.q_token_id, seg=batch["seg"],
@@ -200,6 +242,26 @@ def train_batch_size(bundle: DatasetBundle, batch_size: int) -> int:
     n_rows = bundle.n("train")
     n_examples = int(bundle.meta.get("n_examples_train", n_rows))
     return max(1, round(batch_size * n_rows / max(n_examples, 1)))
+
+
+def build_optimizer(model: nn.Module, train_cfg: dict, steps_per_epoch: int):
+    """(``ClippedAdamW`` over the model's parameters, schedule or None) as
+    ``train_cfg`` asks: ``scheduler: cosine_with_warmup`` warms up over
+    ``num_warmup_epochs`` (default 5) epochs, then decays over the rest of
+    ``epochs``; the AdamW first moment is stored in bf16 by default, f32 on
+    request (``mu_dtype``)."""
+    lr = float(train_cfg.get("lr", 1e-3))
+    schedule = None
+    if train_cfg.get("scheduler", "none") == "cosine_with_warmup":
+        epochs = int(train_cfg.get("epochs", 100))
+        warm = int(train_cfg.get("num_warmup_epochs", 5)) * steps_per_epoch
+        schedule = warmup_cosine_decay_schedule(
+            0.0, lr, warm, max(epochs * steps_per_epoch, warm + 1))
+    named = dict(model.named_parameters())
+    opt = ClippedAdamW(list(named), list(named.values()), schedule or lr,
+                       weight_decay=float(train_cfg.get("weight_decay", 1e-4)),
+                       mu_dtype=train_cfg.get("mu_dtype", "bfloat16"))
+    return opt, schedule
 
 
 def _gather(arrays: Dict[str, torch.Tensor], idx: torch.Tensor):
@@ -338,6 +400,18 @@ def _check_parallel(config: dict) -> None:
                                   "(ROADMAP queue A, item 9)")
 
 
+def _example_graphs(dataset_cfg: dict, task: str, seed: int) -> str:
+    """The text log of one example graph of the first train algorithm."""
+    from ..data.loader import load_graphs_multi_algorithm
+    from .viz import log_graph_examples
+
+    gs = load_graphs_multi_algorithm(
+        dataset_cfg.get("graph_token_root", "graph-token"), task,
+        dataset_cfg.get("train_algorithms", [])[:1], "train",
+        num_graphs=1, num_pairs_per_graph=1, seed=seed)
+    return log_graph_examples(gs, task=task, num_examples=1)
+
+
 def _snapshot(model, opt: ClippedAdamW) -> dict:
     return {"params": {k: v.detach().clone()
                        for k, v in model.state_dict().items()},
@@ -360,7 +434,6 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     epochs = int(train_cfg.get("epochs", 100))
     batch_size = int(train_cfg.get("batch_size", 128))
     lr = float(train_cfg.get("lr", 1e-3))
-    weight_decay = float(train_cfg.get("weight_decay", 1e-4))
     task = dataset_cfg["task"]
 
     bundle = build_dataset(model_name, dataset_cfg, seed, limit=limit)
@@ -379,24 +452,14 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             print(f"packed train split: {n_train_examples} examples in "
                   f"{n_train} rows (x{n_train_examples / max(n_train, 1):.2f} "
                   f"density), row batch {train_bs}")
+        if task != "zinc" and bundle.kind == "graphs":
+            print(_example_graphs(dataset_cfg, task, seed))
 
     generator = torch.Generator().manual_seed(seed)  # init, then dropout seeds
     model = build_model(model_name, config, bundle, generator=generator).to(device)
-    named = dict(model.state_dict(keep_vars=True))
-    names, params = list(named), list(named.values())
-
-    # steps/schedule
     steps_per_epoch = max(1, (n_train + train_bs - 1) // train_bs)
-    sched_name = train_cfg.get("scheduler", "none")
-    if sched_name == "cosine_with_warmup":
-        warm = int(train_cfg.get("num_warmup_epochs", 5)) * steps_per_epoch
-        schedule = warmup_cosine_decay_schedule(
-            0.0, lr, warm, max(epochs * steps_per_epoch, warm + 1))
-    else:
-        schedule = None
-    # the AdamW first moment is stored in bf16 by default, f32 on request
-    opt = ClippedAdamW(names, params, schedule or lr, weight_decay=weight_decay,
-                       mu_dtype=train_cfg.get("mu_dtype", "bfloat16"))
+    opt, schedule = build_optimizer(model, train_cfg, steps_per_epoch)
+    names, params = opt.names, opt.params
     num_params = sum(p.numel() for p in params)
     if verbose:
         print(f"Model parameters: {num_params:,}")
@@ -429,7 +492,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
         if ckpt is None and verbose:
             print(f"[warn] no checkpoint at {ckpt_path}; starting fresh")
         if ckpt is not None and ckpt.get("params") is not None:
-            load_flax_params(model, ckpt["params"])
+            load_flax_params(model, ckpt["params"], ckpt.get("batch_stats"))
             if ckpt.get("opt_state"):
                 # AdamW moments and step counts, cast to this optimizer's
                 # dtypes: mu precision is a storage choice, not state
@@ -538,6 +601,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             time_to_best = time.time() - t0
             save_checkpoint(best_path, {
                 "params": params_to_flax(best["params"]),
+                "batch_stats": batch_stats_to_flax(best["params"]),
                 "opt_state": opt_state_from_torch(
                     best["opt"], names, with_schedule=schedule is not None),
                 "epoch": epoch + blk_ep, "best_val": best_val,
@@ -598,4 +662,5 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
 
     return TrainResult(best_val=best_val, test_metrics=te, history=history,
                        params=params_to_flax(model.state_dict()),
+                       batch_stats=batch_stats_to_flax(model.state_dict()),
                        bundle=bundle, model=model, step_losses=step_losses)

@@ -2,6 +2,8 @@
 byte-identical graphs, token ids and token strings to the JAX package's,
 on a few hundred stand-in ZINC molecules."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -183,10 +185,12 @@ def test_build_dataset_caches_and_refuses_what_is_not_ported(tmp_path):
     for split in ds.SPLITS:
         _same_arrays(again.splits[split], first.splits[split])
     assert again.meta == first.meta
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        ds.build_dataset("ibtt", {"task": "cycle_check"}, 0)
-    with pytest.raises(NotImplementedError, match="graph bundles"):
-        ds.build_dataset("mpnn", cfg, 0)
+    # the graph models' ZINC bundle: dense graphs with bond types, cached
+    graphs = ds.build_dataset("mpnn", cfg, 0, limit=40)
+    assert graphs.kind == "graphs" and graphs.splits["train"]["eadj"].max() > 1
+    assert graphs.splits["train"]["adj"].dtype == np.uint8
+    assert os.path.isdir(ds._cache_path("mpnn", cfg, 0, 40))
+    assert ds.build_dataset("ggps", cfg, 0, limit=40).meta == graphs.meta
     with pytest.raises(ValueError):
         ds.build_dataset("nope", cfg, 0)
 

@@ -353,8 +353,10 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     bad["train"]["mu_dtype"] = "float16"
     with pytest.raises(ValueError, match="mu_dtype"):
         trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.train(config, "mpnn", limit=8, verbose=False, device="cpu")
+    moe = copy.deepcopy(config)
+    moe["model"]["moe_experts"] = 2
+    with pytest.raises(NotImplementedError, match="MoE"):
+        trainer.train(moe, "agtt", limit=8, verbose=False, device="cpu")
 
 
 def test_make_batches_matches_jax():
