@@ -14,16 +14,18 @@ Phases; any failure exits non-zero before the last line is printed:
 3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
-   p = 0.1 (whose keep pattern is read back from the kernel, through the
-   f32 route and the bf16 tensor-core route at head dims 64, 16 and 4, and
-   must equal the plain version's bit for bit). Then the served shapes as the model
+   p = 0.1 (the ``use_flash`` rate). The keep pattern is read back from the
+   kernel at 0.1 and at 26/256, the rate the training path hands the kernels
+   (``train_rate``: the JAX package's quantised XLA rate), through the f32
+   route and the bf16 tensor-core route at head dims 64, 16 and 4, and must
+   equal the plain version's bit for bit. Then the served shapes as the model
    builds them: q, k, v as strided views of one fused qkv output, with the
    key masks of the served stand-in ZINC ``val`` rows, at [512, 1024, 4, 16]
    (AGTT-ZINC, the largest request bucket) and [256, 1024, 4, 4]
    (IBTT-ZINC). And the shapes the training path gives it, again on fused
    qkv views: the first packed stand-in ``train`` rows at the trainer's row
-   batch ([49, 256, 4, 16] bf16) with p = 0.1, the first IBTT ``train``
-   batch ([128, 256, 4, 4]) with p = 0.1, and the first ``val`` batch of
+   batch ([49, 256, 4, 16] bf16) with p = 26/256, the first IBTT ``train``
+   batch ([128, 256, 4, 4]) with p = 26/256, and the first ``val`` batch of
    each model with its key masks. Then kernel, plain and
    ``scaled_dot_product_attention`` times and the kernel's bound at the
    served AGTT-ZINC rows, B = 256, at the served IBTT-ZINC rows and dense;
@@ -31,16 +33,16 @@ Phases; any failure exits non-zero before the last line is printed:
    reading is kept and both are printed, with the device kernels that the
    library call ran as.
 4. Backward kernels against their plain version on the card: the same
-   packed AGTT training rows, p = 0 and p = 0.1, q/k/v as strided views of
+   packed AGTT training rows, p = 0 and p = 26/256, q/k/v as strided views of
    a fused qkv and a non-contiguous dO; the same IBTT training rows, bf16,
-   p = 0.1; f32; L = 600 (not a multiple of the tiles). Once
+   p = 26/256; f32; L = 600 (not a multiple of the tiles; p = 0.1). Once
    (dq, dk, dv) of the kernels against ``torch.autograd.grad`` through the
    plain FORWARD in f32. Two runs of the dK/dV kernel must give equal bits.
    Then each backward kernel's time at the AGTT and at the IBTT training
    rows beside its bound, the plain version and the backward of
    ``scaled_dot_product_attention``, and the forward kernel's time there
    beside its bound, its plain version and SDPA's forward; and the
-   backward kernels' times on rows that split the cost (p 0 against 0.1,
+   backward kernels' times on rows that split the cost (p 0 against 26/256,
    all pad, one segment a row). The forward kernel's breakdown splits its
    time the same way, at the packed train rows and at the served AGTT
    rows.
@@ -69,7 +71,7 @@ Phases; any failure exits non-zero before the last line is printed:
    root, timed, and its sha256 must be the expected one. The three kernels
    against their plain versions at the first packed train row batch of
    agtt_graph_token (head dim 8) and of ibtt_graph_token (head dim 4), p
-   0.1, and at ibtt_graph_token's test batch with the most tokens, each
+   26/256, and at ibtt_graph_token's test batch with the most tokens, each
    timed beside its bound and SDPA. Then 3 epochs on cuda of ibtt and agtt
    on cycle_check, agtt and mpnn on shortest_path, mpnn and GPS on
    cycle_check and GPS on the stand-in ZINC, the configs' full widths:
@@ -81,7 +83,25 @@ Phases; any failure exits non-zero before the last line is printed:
    and the device's busy share of steady steps. The trained MPNN and GPS
    checkpoints serve the sfn test graphs with the trainer's own eval logits
    (1e-6) and within 5e-3 of the CPU on the first rows.
-8. One JSON line of every kernel (name, launches, errors, times, bound),
+8. Host tokenization: the native library (``csrc/host/*.cpp``, built with
+   g++ at first use) must be available, its two build times printed. On the
+   12,000 stand-in ZINC graphs (all three splits): the scalar
+   ``tokenize_zinc_corpus_ids``, the numpy ``corpus_ids_vectorized``, the
+   native ``corpus_ids_best`` and the torch ``device_encode_corpus`` on
+   cuda give equal lens and equal ids over them, pad beyond;
+   ``build_zinc_vocab_fast`` equals the string-path vocab; the native
+   ``pack_corpus`` equals the numpy one. The native SENT tokenizer equals
+   the Python ``TrailTokenizer`` on phase 7's shortest_path graphs and on
+   ZINC (labeled); the native corpus scan gives the examples of the Python
+   parse for the files phase 7's configs read (both tasks); native orbit
+   counts equal the numpy ones on 200 ZINC graphs; the agtt shortest_path
+   and ibtt cycle_check bundles rebuilt without the cache equal phase 7's
+   (cycle_check's also without the native library). Each path's graphs/s
+   (the faster paths read three times, ``pack_corpus`` five times
+   interleaved with numpy; every reading printed), the device encoder's
+   device ms (CUDA events), its kernels and its host-to-device copy, the
+   scan and the bundle seconds are printed beside the card.
+9. One JSON line of every kernel (name, launches, errors, times, bound),
    then the result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -152,6 +172,22 @@ GRAPH_CONFIGS = {
         "model": {"graph_pooling": "mean"}, "gt": {**GT_BLOCK, "attn_dropout": 0.5},
         "train": dict(GPS_TRAIN)},
 }
+
+
+def train_rate() -> float:
+    """The dropout rate the training path hands the attention kernels: the
+    token configs' 0.1 through the trainer's ``attention_dropout_rate``
+    (26/256 without ``use_flash``, as the JAX package's XLA attention
+    drops)."""
+    from glearning_benchmark_tpu_torch.train.trainer import attention_dropout_rate
+
+    rates = {attention_dropout_rate(m["dropout"], m.get("use_flash", False))
+             for m in (AGTT_ZINC_MODEL, IBTT_ZINC_MODEL,
+                       GRAPH_CONFIGS["ibtt_graph_token"]["model"],
+                       GRAPH_CONFIGS["agtt_graph_token"]["model"])}
+    if len(rates) != 1:
+        raise AssertionError(f"the token configs drop attention at several rates: {rates}")
+    return rates.pop()
 # the runs of the graph-token phase: (model, config, task), 3 epochs each
 GRAPH_RUNS = (("ibtt", "ibtt_graph_token", "cycle_check"),
               ("agtt", "agtt_graph_token", "cycle_check"),
@@ -251,8 +287,9 @@ def fmt_ms(readings: list) -> str:
 
 
 def device_kernels(fn) -> str:
-    """Names of the device kernels one call of ``fn`` launches, from
-    torch.profiler: says which backend a library call chose."""
+    """The device kernels one call of ``fn`` launches, by device time, from
+    torch.profiler: says which backend a library call chose and where its
+    device time goes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,9 +298,14 @@ def device_kernels(fn) -> str:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [f"{e.key[:70]} x{e.count}" for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    return "; ".join(names) if names else "not seen by the profiler"
+    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)
+    if not dev:
+        return "not seen by the profiler"
+    return (f"{sum(n for _, n, _ in dev)} kernels, {sum(us for us, _, _ in dev) / 1e3:.4f} "
+            f"ms in all: " + "; ".join(f"{name[:70]} x{n} {us / 1e3:.4f} ms"
+                                       for us, n, name in dev))
 
 
 def sdpa_flags() -> str:
@@ -575,9 +617,9 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict
     return res
 
 
-def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator) -> None:
+def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator, p: float) -> None:
     """Where the backward kernels' time goes at the AGTT training shape: the
-    packed train rows with p 0 and 0.1 (the dropout hash), every token pad
+    packed train rows with p 0 and ``p`` (the dropout hash), every token pad
     (launch and prologue only: no pair is computed), one segment a row
     (every pair computed); and one launch of a one-element add (the floor
     of a launch)."""
@@ -589,7 +631,7 @@ def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator) -> None:
             "all pad": torch.zeros(b, l, dtype=torch.int32, device="cuda"),
             "one segment": torch.ones(b, l, dtype=torch.int32, device="cuda")}
     for name, seg in segs.items():
-        for p_drop in ((0.1,) if name == "all pad" else (0.0, 0.1)):
+        for p_drop in ((p,) if name == "all pad" else (0.0, p)):
             o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, 3)
             _, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, 3)
             t_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
@@ -604,10 +646,10 @@ def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator) -> None:
         f"{fmt_ms(cuda_ms(lambda: one.add_(1), 50))}")
 
 
-def fwd_breakdown(fa, rows: dict, gen: torch.Generator) -> None:
+def fwd_breakdown(fa, rows: dict, gen: torch.Generator, p: float) -> None:
     """Where the forward kernel's time goes, bf16 at head dim 16 on fused
     qkv views, for each ``rows`` entry (its name and the [B, L] segment ids
-    of its real rows): the real rows at p 0 and 0.1 (the dropout hash),
+    of its real rows): the real rows at p 0 and ``p`` (the dropout hash),
     every token pad (launch and empty-tile exit only: no pair is computed),
     one segment a row (every pair computed)."""
     for where, seg_real in rows.items():
@@ -618,7 +660,7 @@ def fwd_breakdown(fa, rows: dict, gen: torch.Generator) -> None:
                 "all pad": torch.zeros(b, l, dtype=torch.int32, device="cuda"),
                 "one segment": torch.ones(b, l, dtype=torch.int32, device="cuda")}
         for name, seg in segs.items():
-            for p_drop in ((0.1,) if name == "all pad" else (0.0, 0.1)):
+            for p_drop in ((p,) if name == "all pad" else (0.0, p)):
                 t = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, 3), 30)
                 log(f"[kernel] fwd breakdown {where} {list(shape)} bfloat16 {name} "
                     f"p_drop {p_drop}: {fmt_ms(t)}; {allowed_pairs(seg, shape[2])} "
@@ -1064,11 +1106,12 @@ def graph_config(name: str, task: str, root: str, out_dir: str, epochs: int) -> 
     return cfg
 
 
-def graph_token_rows(fa, bundles: dict, gen: torch.Generator) -> tuple:
+def graph_token_rows(fa, bundles: dict, gen: torch.Generator, p: float) -> tuple:
     """The three kernels against their plain versions at the graph-token
     rows: the first packed train row batch of agtt_graph_token (head dim 8)
-    and of ibtt_graph_token (head dim 4), p 0.1, and ibtt_graph_token's test
-    batch with the most tokens (p 0 forward, p 0.1 backward); then their
+    and of ibtt_graph_token (head dim 4), at the training rate ``p``, and
+    ibtt_graph_token's test batch with the most tokens (p 0 forward, ``p``
+    backward); then their
     times beside the bounds and SDPA. Returns (forward errors, backward
     errors, timings by shape)."""
     from glearning_benchmark_tpu_torch.train.trainer import make_batches, train_batch_size
@@ -1086,12 +1129,12 @@ def graph_token_rows(fa, bundles: dict, gen: torch.Generator) -> tuple:
             f"{int(lens.min())}-{int(lens.max())} valid tokens a row")
         label = f"{name} packed train rows"
         errs.append(compare(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg,
-                            p_drop=0.1, seed=11))
+                            p_drop=p, seed=11))
         berrs.append(compare_bwd(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg,
-                                 strided_do(shape, torch.bfloat16, gen), 0.1, 11))
-        timing[f"{name}_train_rows_p0.1"] = time_bwd(
+                                 strided_do(shape, torch.bfloat16, gen), p, 11))
+        timing[f"{name}_train_rows_p{p}"] = time_bwd(
             fa, *qkv_views(shape, torch.bfloat16, gen), seg,
-            strided_do(shape, torch.bfloat16, gen), 0.1, 11, label)
+            strided_do(shape, torch.bfloat16, gen), p, 11, label)
     b = bundles["ibtt_graph_token"]
     mask = b.splits["test"]["mask"]
     idx, valid = make_batches(len(mask), GRAPH_CONFIGS["ibtt_graph_token"]["train"]["batch_size"],
@@ -1106,7 +1149,7 @@ def graph_token_rows(fa, bundles: dict, gen: torch.Generator) -> tuple:
         f"{int(lens.min())}-{int(lens.max())} valid tokens a row")
     errs.append(compare(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg))
     berrs.append(compare_bwd(label, fa, *qkv_views(shape, torch.bfloat16, gen), seg,
-                             strided_do(shape, torch.bfloat16, gen), 0.1, 13))
+                             strided_do(shape, torch.bfloat16, gen), p, 13))
     timing["ibtt_graph_token_test_rows"] = time_kernel(
         fa, *qkv_views(shape, torch.bfloat16, gen), seg, label)
     return errs, berrs, timing
@@ -1210,6 +1253,240 @@ def graph_token_phase(fa, root: str, tmp: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the host tokenization paths against their Python counterparts
+# ---------------------------------------------------------------------------
+
+def python_paths():
+    """Within this context the native library is unavailable, so every
+    caller takes its Python path."""
+    from unittest import mock
+
+    from glearning_benchmark_tpu_torch import native
+
+    return mock.patch.object(native, "get_lib", lambda: None)
+
+
+def timed(fn) -> tuple:
+    """(fn(), host seconds), the device synchronised at the end."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def timed_readings(fn, n: int) -> tuple:
+    """(fn()'s last result, the host seconds of ``n`` calls)."""
+    secs = []
+    for _ in range(n):
+        out, t = timed(fn)
+        secs.append(t)
+    return out, secs
+
+
+def fmt_graphs_s(secs: list, n: int) -> str:
+    """``n`` graphs over the best of ``secs``: graphs/s, then every reading."""
+    return (f"{n / min(secs):.1f} graphs/s ({min(secs) * 1e3:.3f} ms; readings "
+            f"{', '.join(f'{t * 1e3:.3f}' for t in secs)} ms)")
+
+
+def same_rows(name: str, got, want, pad: int) -> None:
+    """Equal lens, equal ids over each row's lens and pad beyond, whatever
+    the two matrices' widths."""
+    import numpy as np
+
+    (ids, lens), (ref, ref_lens) = ([np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                                     for x in pair] for pair in (got, want))
+    width = max(ids.shape[1], ref.shape[1])
+    full = [np.pad(x, ((0, 0), (0, width - x.shape[1])), constant_values=pad)
+            for x in (ids, ref)]
+    beyond = np.arange(width)[None, :] >= lens[:, None]
+    if not (np.array_equal(lens, ref_lens) and np.array_equal(full[0], full[1])
+            and (full[0][beyond] == pad).all()):
+        raise AssertionError(f"{name}: ids or lens differ from the reference path")
+
+
+def zinc_host_paths(card: str) -> None:
+    """The ZINC tokenization paths on the 12,000 stand-in graphs, held
+    against the scalar path, timed."""
+    import numpy as np
+
+    from glearning_benchmark_tpu_torch.data.zinc import load_zinc_split
+    from glearning_benchmark_tpu_torch.tokenization.ibtt import (
+        tokenize_zinc_corpus, tokenize_zinc_corpus_ids)
+    from glearning_benchmark_tpu_torch.tokenization.ibtt_fast import (
+        build_zinc_vocab_fast, corpus_ids_best, corpus_ids_vectorized,
+        device_encode_corpus, device_encoder_inputs, flatten_zinc_corpus,
+        make_device_encoder)
+    from glearning_benchmark_tpu_torch.tokenization.pack import pack_corpus
+    from glearning_benchmark_tpu_torch.tokenization.vocab import (
+        build_fixed_zinc_vocab, collect_dynamic_tokens, extend_vocab_with_dynamic_tokens)
+
+    mols, secs = timed(lambda: [m for split in ("train", "val", "test")
+                                for m in load_zinc_split(split=split)])
+    n = len(mols)
+    log(f"[host] {n} stand-in ZINC graphs (train, val, test) made in {secs:.2f} s")
+    vocab, t_fast = timed_readings(lambda: build_zinc_vocab_fast(mols), 3)
+    fixed, _ = build_fixed_zinc_vocab()
+    string_vocab, t_str = timed(lambda: extend_vocab_with_dynamic_tokens(
+        fixed, collect_dynamic_tokens(tokenize_zinc_corpus(mols), fixed)))
+    if vocab != string_vocab:
+        raise AssertionError("build_zinc_vocab_fast differs from the string-path vocab")
+    pad = vocab["<pad>"]
+    scalar, t_scalar = timed(lambda: tokenize_zinc_corpus_ids(mols, vocab))
+    with python_paths():
+        vec, t_vec = timed_readings(lambda: corpus_ids_vectorized(mols, vocab), 3)
+    best, t_best = timed_readings(lambda: corpus_ids_best(mols, vocab), 3)
+    dev, t_dev = timed_readings(lambda: device_encode_corpus(mols, vocab, device="cuda"), 3)
+    if dev[0].device.type != "cuda":
+        raise AssertionError("device_encode_corpus did not run on the card")
+    for name, got in (("corpus_ids_vectorized", vec), ("corpus_ids_best", best),
+                      ("device_encode_corpus", dev)):
+        same_rows(name, got, scalar, pad)
+    log(f"[host] ZINC vocab, {n} graphs: build_zinc_vocab_fast (native) "
+        f"{fmt_graphs_s(t_fast, n)}, string path {n / t_str:.1f} graphs/s ({t_str:.4f} s); "
+        f"equal, {len(vocab)} tokens; on {card}")
+    log(f"[host] ZINC ids, {n} graphs, equal over lens (max {int(scalar[1].max())}): "
+        f"scalar {n / t_scalar:.1f} graphs/s ({t_scalar:.4f} s), numpy vectorized "
+        f"{fmt_graphs_s(t_vec, n)}, native best {fmt_graphs_s(t_best, n)}, device encoder "
+        f"end to end {fmt_graphs_s(t_dev, n)}; on {card}")
+    # the device encoder alone: its inputs' copy to the card, then the encode
+    flat = flatten_zinc_corpus(mols)
+    l_max, max_nodes, host_args = device_encoder_inputs(flat)
+    nbytes = sum(a.numel() * a.element_size() for a in host_args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    args = [a.to("cuda") for a in host_args]
+    end.record()
+    torch.cuda.synchronize()
+    copy_ms = start.elapsed_time(end)
+    enc = make_device_encoder(l_max, vocab, max_nodes, "cuda")
+    same_rows("make_device_encoder", enc(*args), scalar, pad)
+    enc_ms = cuda_ms(lambda: enc(*args), iters=20)
+    log(f"[host] device encoder on {card}: {l_max} wide, encode {fmt_ms(enc_ms)} on the "
+        f"device (CUDA events) = {n / (min(enc_ms) / 1e3):.1f} graphs/s; its inputs' "
+        f"host-to-device copy {copy_ms:.4f} ms for {nbytes / 1e6:.2f} MB "
+        f"({nbytes / copy_ms / 1e6:.2f} GB/s, pageable)")
+    log(f"[host] device encoder's kernels (torch.profiler): "
+        f"{device_kernels(lambda: enc(*args))}")
+    ids, lens = best
+    t_pack, t_pack_np = [], []
+    for _ in range(5):      # interleaved: the host's load falls on both alike
+        packed, t = timed(lambda: pack_corpus(ids, lens, pad_id=pad))
+        t_pack.append(t)
+        with python_paths():
+            packed_np, t = timed(lambda: pack_corpus(ids, lens, pad_id=pad))
+        t_pack_np.append(t)
+    if not all(np.array_equal(a, b) and a.dtype == b.dtype
+               for a, b in zip(packed, packed_np)):
+        raise AssertionError("pack_corpus: the native pass differs from numpy")
+    log(f"[host] pack_corpus {list(packed[0].shape)}, equal: native "
+        f"{fmt_graphs_s(t_pack, n)}, numpy {fmt_graphs_s(t_pack_np, n)}; on {card}")
+
+
+def sent_host_paths(graphs, max_len: int, labeled: bool, label: str, card: str) -> None:
+    """The native batched SENT tokenizer against the Python TrailTokenizer."""
+    import numpy as np
+
+    from glearning_benchmark_tpu_torch import native
+    from glearning_benchmark_tpu_torch.tokenization.sent import TrailTokenizer
+
+    tok = TrailTokenizer(max_length=max_len, truncation_length=max_len,
+                         labeled_graph=labeled, undirected=True)
+    tok.set_num_nodes(max(g.num_nodes for g in graphs))
+    kw = {"labeled": labeled}
+    if labeled:
+        tok.set_num_node_and_edge_types(9, 4)
+        kw.update(node_idx_offset=tok.node_idx_offset, edge_idx_offset=tok.edge_idx_offset)
+    py, t_py = timed(lambda: [tok(g) for g in graphs])
+    (ids, lens), t_nat = timed(lambda: native.sent_tokenize_batch_native(
+        graphs, tok.idx_offset, max_len, **kw))
+    for i, want in enumerate(py):
+        if lens[i] != len(want) or not np.array_equal(ids[i, :lens[i]], want) \
+                or (ids[i, lens[i]:] != TrailTokenizer.pad).any():
+            raise AssertionError(f"SENT {label}: native trail {i} differs from Python")
+    n = len(graphs)
+    log(f"[host] SENT {label}, {n} graphs, equal: native {n / t_nat:.1f} graphs/s "
+        f"({t_nat:.4f} s), Python {n / t_py:.1f} graphs/s ({t_py:.4f} s) on {card}")
+
+
+def host_tokenization_phase(gt_root: str, card: str) -> None:
+    """Every native host path against its Python counterpart (see the
+    module docstring, phase 8)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import numpy as np
+
+    from glearning_benchmark_tpu_torch import native
+    from glearning_benchmark_tpu_torch.data.zinc import load_zinc_split
+    from glearning_benchmark_tpu_torch.eval import graph_stats
+    from glearning_benchmark_tpu_torch.train import datasets
+
+    if not (native.available() and native.gstats_available()):
+        raise AssertionError("the native host library did not build on this machine")
+    secs = native.build_seconds()
+    log(f"[build] host library (g++ -O3 -march=native, at first use): libgtok "
+        f"{secs['gtok']:.2f} s, libgstats {secs['gstats']:.2f} s")
+    zinc_host_paths(card)
+
+    sp = graph_config("agtt_graph_token", "shortest_path", gt_root, "", 1)
+    sp_graphs = datasets._load_synthetic_graphs(sp["dataset"], 0)
+    sent_host_paths([g for s in datasets.SPLITS for g in sp_graphs[s]],
+                    int(sp["dataset"]["max_len"]), False, "shortest_path graphs", card)
+    sent_host_paths(load_zinc_split(split="val"), 1024, True, "ZINC val (labeled)", card)
+
+    cc = graph_config("ibtt_graph_token", "cycle_check", gt_root, "", 1)
+    for cfg in (cc, sp):
+        ds = cfg["dataset"]
+        fast, t_fast = timed(lambda: datasets._load_synthetic_examples(ds, 0))
+        with python_paths():
+            slow, t_slow = timed(lambda: datasets._load_synthetic_examples(ds, 0))
+        if fast != slow:
+            raise AssertionError(f"corpus scan {ds['task']}: examples differ from Python")
+        n = sum(len(v) for v in fast.values())
+        log(f"[host] corpus scan {ds['task']} ({n} examples, train/val/test as the "
+            f"{ds['num_graphs']}-graph config reads them): native {t_fast:.3f} s, Python "
+            f"{t_slow:.3f} s, equal; on {card}")
+
+    mols = load_zinc_split(split="val")[:200]
+    edges, nodes = [m.edges for m in mols], [m.num_nodes for m in mols]
+    counts, t_nat = timed(lambda: graph_stats.orbit_counts_batch(edges, nodes))
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=get_context("spawn")) as pool:
+        plain, t_np = timed(lambda: list(pool.map(graph_stats._orbit_counts_numpy,
+                                                  edges, nodes)))
+    if not all(np.array_equal(a, b) for a, b in zip(counts, plain)):
+        raise AssertionError("orbit counts: native differs from numpy")
+    log(f"[host] orbit counts, 200 ZINC val graphs: native {t_nat * 1e3:.2f} ms, numpy "
+        f"{t_np:.2f} s (process pool), equal; on {card}")
+
+    # the Python rebuild of the shortest_path bundle would repeat the Python
+    # scan and trails held above (about 18 s): only cycle_check's is rebuilt
+    for model_name, cfg, also_python in (("agtt", sp, False), ("ibtt", cc, True)):
+        ds = cfg["dataset"]
+        ref = datasets.build_dataset(model_name, ds, 0)          # phase 7's, cached
+        build = getattr(datasets, f"build_{model_name}_dataset")
+        got, t_nat = timed(lambda: build(ds, 0))
+        built = [got]
+        if also_python:
+            with python_paths():
+                py, t_py = timed(lambda: build(ds, 0))
+            built.append(py)
+        for b in built:
+            for split in datasets.SPLITS:
+                for k, v in ref.splits[split].items():
+                    w = b.splits[split][k]
+                    if w.dtype != v.dtype or w.shape != v.shape or not np.array_equal(w, v):
+                        raise AssertionError(f"{model_name} {ds['task']} bundle: {split} "
+                                             f"{k} differs from phase 7's")
+            if (b.vocab, b.vocab_size, b.meta) != (ref.vocab, ref.vocab_size, ref.meta):
+                raise AssertionError(f"{model_name} {ds['task']} bundle: meta differs")
+        python = f", Python {t_py:.2f} s" if also_python else ""
+        log(f"[data] {model_name} {ds['task']} bundle rebuilt without the cache: native "
+            f"{t_nat:.2f} s{python}, arrays equal to phase 7's; on {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1224,6 +1501,8 @@ def main() -> int:
     from glearning_benchmark_tpu_torch.serve import Predictor
     from glearning_benchmark_tpu_torch.train.datasets import build_dataset
     from glearning_benchmark_tpu_torch.train.trainer import train_batch_size
+
+    p_train = train_rate()
 
     # phase 1: the card
     card = nvidia_smi("name,power.limit")
@@ -1264,7 +1543,8 @@ def main() -> int:
                         key_mask_seg(lens, 1024)))
     errs.append(compare("dropout packed", fa, *rand((8, 600, 4, 16), torch.bfloat16),
                         packed_seg(8, 600, cgen), p_drop=0.1, seed=1234))
-    dropout_pattern(fa, seed=1234, p_drop=0.1)
+    for p_drop in (p_train, 0.1):       # the training rate and the use_flash one
+        dropout_pattern(fa, seed=1234, p_drop=p_drop)
 
     graphs = load_zinc_split(split="val")   # stand-in unless ./data/ZINC has an export
     ibtt_graphs = graphs[:256]
@@ -1303,7 +1583,7 @@ def main() -> int:
         errs.append(compare(
             "agtt-zinc packed train rows", fa,
             *qkv_views((row_bs, l_train, 4, 16), torch.bfloat16, gen), seg_train,
-            p_drop=0.1, seed=4321))
+            p_drop=p_train, seed=4321))
         for name, b, d in (("agtt", bundle, 16), ("ibtt", ibtt_bundle, 4)):
             seg = first_masks(b, "val")
             errs.append(compare(
@@ -1313,12 +1593,12 @@ def main() -> int:
         ibtt_shape = (len(ibtt_seg_train), ibtt_seg_train.shape[1], 4, 4)
         errs.append(compare(
             "ibtt-zinc train rows", fa, *qkv_views(ibtt_shape, torch.bfloat16, gen),
-            ibtt_seg_train, p_drop=0.1, seed=7))
+            ibtt_seg_train, p_drop=p_train, seed=7))
 
         # phase 4: the backward kernels against their plain version, at the
         # same training rows
         berrs = []
-        for p_drop in (0.0, 0.1):
+        for p_drop in (0.0, p_train):
             berrs.append(compare_bwd(
                 "agtt-zinc packed train rows", fa,
                 *qkv_views((row_bs, l_train, 4, 16), torch.bfloat16, gen), seg_train,
@@ -1326,25 +1606,25 @@ def main() -> int:
         berrs.append(compare_bwd(
             "ibtt-zinc train rows", fa, *qkv_views(ibtt_shape, torch.bfloat16, gen),
             ibtt_seg_train,
-            torch.randn(ibtt_shape, device="cuda", generator=gen).bfloat16(), 0.1, 7))
+            torch.randn(ibtt_shape, device="cuda", generator=gen).bfloat16(), p_train, 7))
         berrs.append(compare_bwd(
             "f32 packed train rows", fa, *rand((16, l_train, 4, 16), torch.float32),
             train_seg[row_bs:row_bs + 16].contiguous(),
-            torch.randn(16, l_train, 4, 16, device="cuda", generator=gen), 0.1, 99))
+            torch.randn(16, l_train, 4, 16, device="cuda", generator=gen), p_train, 99))
         berrs.append(compare_bwd(
             "L600 packed", fa, *rand((8, 600, 4, 16), torch.bfloat16),
             packed_seg(8, 600, cgen),
             torch.randn(8, 600, 4, 16, device="cuda", generator=gen).bfloat16(), 0.1, 1234))
         compare_bwd_autograd(fa, train_seg[row_bs + 16:row_bs + 20].contiguous(), gen,
-                             0.1, 5)
+                             p_train, 5)
         btiming = time_bwd(fa, *qkv_views((row_bs, l_train, 4, 16), torch.bfloat16, gen),
                            seg_train,
                            strided_do((row_bs, l_train, 4, 16), torch.bfloat16, gen),
-                           0.1, 4321, "agtt-zinc packed train rows")
+                           p_train, 4321, "agtt-zinc packed train rows")
         ibtt_btiming = time_bwd(fa, *qkv_views(ibtt_shape, torch.bfloat16, gen),
                                 ibtt_seg_train, strided_do(ibtt_shape, torch.bfloat16, gen),
-                                0.1, 7, "ibtt-zinc train rows")
-        bwd_breakdown(fa, seg_train, gen)
+                                p_train, 7, "ibtt-zinc train rows")
+        bwd_breakdown(fa, seg_train, gen, p_train)
 
         paths = {"agtt": serve_checkpoint(tmp, "agtt", AGTT_ZINC_MODEL, graphs, args.seed),
                  "ibtt": serve_checkpoint(tmp, "ibtt", IBTT_ZINC_MODEL, ibtt_graphs,
@@ -1379,7 +1659,7 @@ def main() -> int:
             ibtt_seg, "ibtt-zinc served")
         torch.cuda.empty_cache()
         fwd_breakdown(fa, {"packed train rows": seg_train,
-                           "served rows": agtt_seg[:256].contiguous()}, gen)
+                           "served rows": agtt_seg[:256].contiguous()}, gen, p_train)
 
         # phase 5: serving at full width (launch counts read per path)
         t0 = time.perf_counter()
@@ -1414,13 +1694,18 @@ def main() -> int:
                                      ("agtt", "agtt_graph_token"))}
         log(f"[data] ibtt_graph_token and agtt_graph_token cycle_check bundles in "
             f"{time.perf_counter() - t1:.1f} s")
-        gerrs, gberrs, gtiming = graph_token_rows(fa, bundles, gen)
+        gerrs, gberrs, gtiming = graph_token_rows(fa, bundles, gen, p_train)
         errs += gerrs
         berrs += gberrs
         graph_launches = graph_token_phase(fa, gt_root, tmp, card)
         log(f"[phase] graph-token {time.perf_counter() - t0:.1f} s")
 
-    # phase 8: the kernels line, then the result
+        # phase 8: the host tokenization paths against their Python ones
+        t0 = time.perf_counter()
+        host_tokenization_phase(gt_root, card)
+        log(f"[phase] host tokenization {time.perf_counter() - t0:.1f} s")
+
+    # phase 9: the kernels line, then the result
     src = "glearning_benchmark_tpu_torch/csrc/"
     ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1436,8 +1721,8 @@ def main() -> int:
                              **{path: n["flash_attn_fwd"]
                                 for path, n in graph_launches.items()}},
         "by_shape": {name: {key: t[key] for key in keys} for name, t in (
-            ("agtt_train_rows_p0.1", btiming["flash_attn_fwd"]),
-            ("ibtt_train_rows_p0.1", ibtt_btiming["flash_attn_fwd"]),
+            (f"agtt_train_rows_p{p_train}", btiming["flash_attn_fwd"]),
+            (f"ibtt_train_rows_p{p_train}", ibtt_btiming["flash_attn_fwd"]),
             ("ibtt_served", ibtt_timing), ("agtt_dense", dense_timing),
             *((f"{rows}", t["flash_attn_fwd"]) for rows, t in gtiming.items()
               if "flash_attn_fwd" in t),
@@ -1453,7 +1738,7 @@ def main() -> int:
             "launches_by_path": {"train_agtt": train_launches[name],
                                  **{path: n[name] for path, n in graph_launches.items()}},
             "by_shape": {rows: {key: bt[name][key] for key in keys} for rows, bt in (
-                ("ibtt_train_rows_p0.1", ibtt_btiming),
+                (f"ibtt_train_rows_p{p_train}", ibtt_btiming),
                 *((rows, bt) for rows, bt in gtiming.items() if name in bt))}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

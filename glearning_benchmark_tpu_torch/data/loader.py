@@ -8,10 +8,11 @@ per-algorithm file sampling (``num_graphs``) and per-graph pair sampling
 the same stable per-algorithm seeds, INF-pair dropping, class detection and
 class balancing.
 
-Every file goes through the Python parse path. The JAX package also has a
-native strict-layout scan (``native/gtok.cpp``), a speed path that is
-byte-identical to the Python one; it is not ported yet (ROADMAP queue A,
-item 7), so the examples are the same and only the load is slower.
+A file in the generator's strict layout (cycle_check and shortest_path)
+is scanned by the native library (``gtok_corpus_scan``, through
+``..native``) when it is available, byte-identical to the Python parse,
+which takes every other file; pair sampling draws from the same
+``random.Random`` stream on both paths.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import native
 from ..utils.hashing import stable_hash
 from .graphs import Graph
 from .text_grammar import (
@@ -109,6 +111,66 @@ def _extract_text_and_label(rec: Any, task: str):
     return t, parse_yes_no_from_text(t), None
 
 
+_NATIVE_SCAN_TASKS = ("cycle_check", "shortest_path")
+
+
+def _scan_file_native(path: str, task: str):
+    """Native strict-layout corpus scan (``gtok_corpus_scan``) or None.
+
+    Byte-identical to the Python path on every file it accepts (the
+    scanner bails to None on anything but the exact layout the generator
+    writes — escapes, extra keys, JSONL, non-ASCII — so the reference's
+    format-tolerant surface is preserved), and None when the library is
+    unavailable."""
+    if task not in _NATIVE_SCAN_TASKS:
+        return None
+    return native.scan_corpus_file(path, task)
+
+
+def _scan_files_threaded(files: Sequence[str], task: str):
+    """Prefetch native scans with a small thread pool, yielding (file, scan)
+    in FILE ORDER — the caller's pair-sampling RNG stream depends on it.
+
+    The scan is one ctypes call (GIL released) plus a file read, so threads
+    give real parallelism; a bounded submission window caps the scan buffers
+    held in flight. Pool overhead (~0.2 ms/file) only pays off when the
+    per-file parse is substantial, so tiny-file corpora (cycle_check: one
+    record/file) stay sequential — gated on a sampled mean file size."""
+    approx = files[:: max(1, len(files) // 8)][:8]
+    try:
+        mean_sz = sum(os.path.getsize(f) for f in approx) / max(len(approx), 1)
+    except OSError:
+        mean_sz = 0
+    if len(files) < 8 or mean_sz < 16384:
+        for fp in files:
+            yield fp, _scan_file_native(fp, task)
+        return
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        window: deque = deque()
+        for fp in files:
+            window.append((fp, ex.submit(_scan_file_native, fp, task)))
+            if len(window) >= 32:
+                f0, fut = window.popleft()
+                yield f0, fut.result()
+        while window:
+            f0, fut = window.popleft()
+            yield f0, fut.result()
+
+
+def _entry_from_scan(scan, i: int) -> Dict[str, Any]:
+    buf, offs, lens, labels, has_q, qu, qv = scan
+    text = buf[offs[i]:offs[i] + lens[i]].decode("ascii")
+    entry: Dict[str, Any] = {
+        "text": text,
+        "label": None if labels[i] == -2 else int(labels[i]),
+    }
+    if has_q[i]:
+        entry["query_u"], entry["query_v"] = int(qu[i]), int(qv[i])
+    return entry
+
+
 def _read_records(path: str) -> List[Any]:
     with open(path, "r") as f:
         raw = f.read().strip()
@@ -173,7 +235,29 @@ def load_examples(
     out: List[Dict[str, Any]] = []
     pair_rng = random.Random(seed)
     sample_pairs = task == "shortest_path" and num_pairs_per_graph is not None
-    for fp in files:
+    for fp, scan in _scan_files_threaded(files, task):
+        if scan is not None:
+            # native fast path: texts are materialized lazily, so under
+            # pair sampling only the ~num_pairs_per_graph selected records
+            # (of up to N(N-1)/2 in the file) become Python strings.
+            # Sampling consumes the SAME RNG stream as the Python path:
+            # random.Random.sample's draws depend only on the population
+            # length, so sampling candidate indices selects the exact
+            # records rng.sample(file_examples, k) would.
+            lens_arr, has_q_arr = scan[2], scan[4]
+            n_recs = len(lens_arr)
+            if sample_pairs:
+                # Python path admits only records with query nodes (empty
+                # texts can't carry one)
+                cand = [i for i in range(n_recs) if has_q_arr[i]]
+                if len(cand) > num_pairs_per_graph:
+                    cand = pair_rng.sample(cand, num_pairs_per_graph)
+                out.extend(_entry_from_scan(scan, i) for i in cand)
+            else:
+                # Python path skips empty texts ("if not t: continue")
+                out.extend(_entry_from_scan(scan, i) for i in range(n_recs)
+                           if lens_arr[i] > 0)
+            continue
         recs = _read_records(fp)
         file_examples: List[Dict[str, Any]] = []
         for rec in recs:

@@ -1,9 +1,10 @@
 """ZINC molecular graphs.
 
 Port of ``glearning_benchmark_tpu/data/zinc.py`` (copied; numpy only): the
-same stand-in generator and export reader give byte-identical graphs for
-the same split. A stand-in corpus carries no ``flat`` form here: the
-serving path reads per-molecule graphs only.
+same stand-in generator, export reader and writer (``save_zinc_npz``) give
+byte-identical graphs for the same split, and every split is a
+``GraphCorpus`` carrying its flat struct-of-arrays form: the export's own
+arrays, or ``ibtt_fast.flatten_zinc_corpus`` of the stand-in molecules.
 
 The reference loads ZINC-12K through ``torch_geometric.datasets.ZINC`` (a
 network download, reference: graph_data_loader/zinc_dataset_indexbase.py:79).
@@ -54,6 +55,12 @@ _BOND_PROBS = np.array([0.68, 0.20, 0.02, 0.10])  # single/double/triple/aromati
 
 _SPLIT_SIZES = {"train": 10000, "val": 1000, "test": 1000}
 _SPLIT_SEED = {"train": 0, "val": 1, "test": 2}
+
+
+def get_zinc_num_types():
+    """(num_node_types, num_edge_types) = (9, 4) (reference:
+    zinc_dataset_autograph.py:76-100)."""
+    return ZINC_NUM_ATOM_TYPES, ZINC_NUM_BOND_TYPES
 
 
 def zinc_atom_symbol(idx: int) -> str:
@@ -194,6 +201,27 @@ def _standin_target(atom, und, bond, deg, n, weights=None) -> float:
                  + 0.4 * noise + CENTER)
 
 
+def save_zinc_npz(path: str, graphs: List[Graph]) -> None:
+    """Write graphs in the export schema ``_load_npz`` consumes (the same
+    writer the JAX package's tools/export_zinc.py uses on the real PyG
+    dataset, so a real export and this round trip are schema-identical)."""
+    node_off = np.zeros(len(graphs) + 1, dtype=np.int64)
+    edge_off = np.zeros(len(graphs) + 1, dtype=np.int64)
+    for i, g in enumerate(graphs):
+        node_off[i + 1] = node_off[i] + g.num_nodes
+        edge_off[i + 1] = edge_off[i] + len(g.edges)
+    np.savez_compressed(
+        path,
+        node_offsets=node_off,
+        edge_offsets=edge_off,
+        atom_types=np.concatenate([g.node_labels for g in graphs]).astype(np.int32),
+        edge_src=np.concatenate([g.edges[:, 0] for g in graphs]).astype(np.int32),
+        edge_dst=np.concatenate([g.edges[:, 1] for g in graphs]).astype(np.int32),
+        bond_types=np.concatenate([g.edge_labels for g in graphs]).astype(np.int32),
+        y=np.asarray([g.y for g in graphs], dtype=np.float64),
+    )
+
+
 def _load_npz(path: str):
     """Returns (graphs, flat): per-molecule Graph views plus the corpus's
     flat struct-of-arrays form, built directly from the export arrays
@@ -212,9 +240,9 @@ def _load_npz(path: str):
             edge_labels=bond[es:ee].astype(np.int32)))
     node_off = node_off.astype(np.int64)
     edge_off = edge_off.astype(np.int64)
-    # canonical flat dtypes: int32 fields, int64 offsets (the JAX
-    # package's contract), so the export's own int32 arrays flow through
-    # zero-copy
+    # canonical flat dtypes = the native-kernel dtypes (int32 fields, int64
+    # offsets — same contract as tokenization.ibtt_fast.flatten_zinc_corpus),
+    # so the export's own int32 arrays flow through zero-copy
     flat = {
         "n_nodes": np.diff(node_off).astype(np.int32),
         "n_edges": np.diff(edge_off).astype(np.int32),
@@ -235,8 +263,8 @@ def load_zinc_split(root: str = "./data/ZINC", split: str = "train",
                     subset: bool = True, limit: int | None = None,
                     target_weights=None) -> GraphCorpus:
     """Load one ZINC split (real export if present, deterministic stand-in
-    otherwise). Returns a :class:`GraphCorpus`; it carries the export's
-    flat struct-of-arrays form when read from one."""
+    otherwise). Returns a :class:`GraphCorpus` carrying the flat
+    struct-of-arrays form alongside the per-molecule Graph views."""
     global _warned
     if split not in _SPLIT_SIZES:
         raise ValueError(f"unknown split {split!r}")
@@ -260,5 +288,8 @@ def load_zinc_split(root: str = "./data/ZINC", split: str = "train",
     if limit is not None and len(graphs) > limit:
         graphs, flat = graphs[:limit], None
     corpus = GraphCorpus(graphs)
+    if flat is None:
+        from ..tokenization.ibtt_fast import flatten_zinc_corpus
+        flat = flatten_zinc_corpus(graphs)
     corpus.flat = flat
     return corpus

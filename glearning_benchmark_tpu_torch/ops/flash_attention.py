@@ -27,18 +27,16 @@ its design and what bounds it on an H100.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from ..utils.build import compile_library, library_path
 
 NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 32, 64)
@@ -51,7 +49,8 @@ SOURCES = {name: _CSRC / f"{name}.cu"
            for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
                         "flash_attn_bwd_dkv")}
 HEADERS = (_CSRC / "flash_attn_common.cuh",)
-BUILD_DIR = _PKG / "_build"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches since import (or since :func:`reset_launches`), by kernel
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -236,35 +235,22 @@ def _nvcc() -> str:
 
 
 def _compile(name: str, lib: Path) -> float:
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(SOURCES[name])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCES[name].name} "
-                           f"({proc.returncode}):\n{proc.stderr}")
-    (BUILD_DIR / f"{lib.stem}.ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return time.perf_counter() - t0
+    secs, ptxas = compile_library([_nvcc()] + _NVCC_FLAGS + [str(SOURCES[name])], lib)
+    (lib.parent / f"{lib.stem}.ptxas.txt").write_text(ptxas)
+    return secs
 
 
 def build() -> Dict[str, Path]:
     """Compile every kernel source for sm_90a into a shared library of its
-    own, named by the hash of the source and the shared header (a changed
-    source gets a new library), and return {name: path}. The compilers run
-    side by side; a library already built from the same text is reused."""
-    shared = b"".join(h.read_bytes() for h in HEADERS)
-    libs = {}
-    for name, src in SOURCES.items():
-        digest = hashlib.sha256(src.read_bytes() + shared).hexdigest()[:16]
-        libs[name] = BUILD_DIR / f"lib{name}_{digest}.so"
+    own, named by the hash of the source, the shared header and the flags
+    (a changed source gets a new library), and return {name: path}. The
+    compilers run side by side; a library already built from the same text
+    is reused."""
+    inputs = [h.read_bytes() for h in HEADERS] + [" ".join(_NVCC_FLAGS).encode()]
+    libs = {name: library_path(name, [src.read_bytes()] + inputs)
+            for name, src in SOURCES.items()}
     todo = [name for name, lib in libs.items() if not lib.is_file()]
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with ThreadPoolExecutor(len(todo)) as pool:
             for name, secs in zip(todo, pool.map(
                     lambda n: _compile(n, libs[n]), todo)):

@@ -1,10 +1,11 @@
 """Padding and packing of token-id sequences into fixed-shape batches.
 
-Port of ``glearning_benchmark_tpu/tokenization/pack.py``: ``pad_sequences``,
-``round_up_to_bucket`` and ``pack_examples`` (numpy, copied; the tests hold
-their outputs byte-identical to the JAX package's). ``pack_corpus`` and
-``batch_iterator`` are not on the token models' training path and are not
-ported.
+Port of ``glearning_benchmark_tpu/tokenization/pack.py`` (numpy, copied;
+the tests hold the outputs byte-identical to the JAX package's):
+``pad_sequences``, ``round_up_to_bucket``, ``pack_corpus`` (a whole corpus
+padded to one static bucket, through the native parallel pass from 512 rows
+up), ``pack_examples`` (several sequences per row behind a block-diagonal
+mask) and ``batch_iterator``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,35 @@ def round_up_to_bucket(n: int, buckets: Sequence[int] = (64, 128, 256, 512, 640,
         if n <= b:
             return b
     return n
+
+
+def pack_corpus(
+    ids: np.ndarray,
+    lengths: np.ndarray,
+    pad_id: int,
+    bucket: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad a ragged-ish [N, L] matrix out to a static bucket length.
+
+    Returns (ids [N, L_bucket], mask [N, L_bucket]): one static shape for
+    the whole corpus. The stage is pure memory bandwidth, so from 512 rows
+    up it takes the parallel native pass (``gtok_pack_ids``, bit-identical)
+    when the library is available; an error of that pass raises.
+    """
+    from .. import native
+
+    n, l = ids.shape
+    lb = round_up_to_bucket(l) if bucket else l
+    if n >= 512 and native.available():
+        return native.pack_ids_native(ids, np.asarray(lengths), lb, pad_id)
+    # numpy path: fill only the pad tail (out[:, l:]) instead of np.full
+    # over the whole matrix — the [:, :l] region is overwritten
+    out = np.empty((n, lb), dtype=np.int32)
+    out[:, :l] = ids
+    if lb > l:
+        out[:, l:] = pad_id
+    mask = np.arange(lb)[None, :] < lengths[:, None]
+    return out, mask
 
 
 def pack_examples(
@@ -118,3 +148,26 @@ def pack_examples(
     return {"ids": ids, "seg": seg, "pos": pos, "pos_bos": pos_bos,
             "pos_u": pos_u, "pos_v": pos_v, "ex_valid": ex_valid,
             "ex_index": ex_index, "ex_of_row": rows}
+
+
+def batch_iterator(
+    n: int,
+    batch_size: int,
+    shuffle: bool,
+    seed: int,
+    drop_remainder: bool = False,
+):
+    """Yield index arrays; the final short batch is padded by repeating index
+    0 with a validity count so every step keeps a static batch shape."""
+    idx = np.arange(n)
+    if shuffle:
+        rng = np.random.default_rng(seed)
+        rng.shuffle(idx)
+    for start in range(0, n, batch_size):
+        chunk = idx[start : start + batch_size]
+        valid = len(chunk)
+        if valid < batch_size:
+            if drop_remainder:
+                return
+            chunk = np.concatenate([chunk, np.zeros(batch_size - valid, dtype=chunk.dtype)])
+        yield chunk, valid

@@ -1,8 +1,9 @@
 """SENT trail tokenization (AGTT): graphs -> trail token-id sequences.
 
 Port of ``glearning_benchmark_tpu/tokenization/sent.py`` (the pure-Python
-``TrailTokenizer``, copied; numpy only). The native C++ batch path is not
-needed for serving.
+``TrailTokenizer``, copied; numpy only). The training bundles take the
+native batched path (``..native.sent_tokenize_batch_native``) when it is
+available; serving tokenises here, as the JAX package's serving does.
 
 Re-implements, from the observed interface contract, the external AutoGraph
 ``Graph2TrailTokenizer`` the reference drives but does not vendor

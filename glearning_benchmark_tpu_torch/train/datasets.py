@@ -7,8 +7,10 @@ cache, the synthetic graph-token corpora (generated when missing, then
 loaded per algorithm: ``train_algorithms`` for train and val,
 ``test_algorithm`` for the out-of-distribution test split) and ZINC,
 ``build_ibtt_dataset``, ``build_agtt_dataset``, ``build_graph_dataset``
-and the ``build_dataset`` dispatcher. Trails come from the Python
-``TrailTokenizer`` (the native tokenizer is not ported yet).
+and the ``build_dataset`` dispatcher. AGTT trails come from the native
+batched SENT tokenizer (``..native.sent_tokenize_batch_native``) when the
+library is available, else from the Python ``TrailTokenizer``; the two are
+byte-identical.
 
 Array layouts of a token split: ids [N, L] i32, mask [N, L] bool, y [N];
 a packed train split: ids/seg/pos [R, L] i32, pos_bos/pos_u/pos_v [R, K]
@@ -26,6 +28,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import native
 from ..data.generator import GENERATOR_VERSION, ensure_corpus
 from ..data.graphs import batch_graphs
 from ..data.loader import (determine_num_classes, load_examples_multi_algorithm,
@@ -319,11 +322,21 @@ def build_agtt_dataset(dataset_cfg: dict, seed: int, limit: Optional[int] = None
         bos_like = 0  # SOS
         fixed = None
 
+    use_native = native.available()
     seqs_by_split = {}
     for s in SPLITS:
+        gs = graphs[s]  # nothing dropped: max_nodes covers every split
+        if use_native and gs:
+            ids_n, lens_n = native.sent_tokenize_batch_native(
+                gs, tok.idx_offset, max_len, labeled=is_zinc,
+                node_idx_offset=tok.node_idx_offset or 0,
+                edge_idx_offset=tok.edge_idx_offset or 0,
+                pad_id=TrailTokenizer.pad)
+            raw = [ids_n[i, : lens_n[i]] for i in range(len(gs))]
+        else:
+            raw = [tok(g) for g in gs]
         seqs = []
-        for g in graphs[s]:
-            t = tok(g)
+        for g, t in zip(gs, raw):
             if is_zinc:
                 t = tok.remap_zinc_tokens(t, fixed)
             if task in QUERY_TASKS and g.query_u is not None:

@@ -81,15 +81,24 @@ class TrainResult:
 # model construction
 # ---------------------------------------------------------------------------
 
+def attention_dropout_rate(p_drop: float, use_flash: bool) -> float:
+    """The rate the JAX package drops attention probabilities at: its
+    default XLA attention (``use_flash`` false or unset) quantises it to
+    round(p*256)/256 in ``hash_keep_mask`` (26/256 at p = 0.1); its Pallas
+    kernel (``use_flash`` true) drops at the exact p."""
+    return p_drop if use_flash else round(p_drop * 256.0) / 256.0
+
+
 def build_model(model_name: str, config: dict, bundle: DatasetBundle,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build the model a checkpoint of ``model_name`` was trained as, with
     the JAX package's config defaults. ``generator`` seeds the initial
     parameters. For the token models, ``model.remat`` recomputes encoder
-    layers in the backward pass (default: rows of 1024 tokens and longer);
-    ``model.use_flash`` is accepted and ignored: attention always runs
-    through the flash-attention kernels (their plain versions on the CPU).
-    GPS reads its widths from the config's ``gt:`` block."""
+    layers in the backward pass (default: rows of 1024 tokens and longer).
+    Attention always runs through the flash-attention kernels (their plain
+    versions on the CPU); ``model.use_flash`` only sets the rate they drop
+    attention probabilities at (:func:`attention_dropout_rate`). GPS reads
+    its widths from the config's ``gt:`` block."""
     model_cfg = config.get("model", {})
     task = bundle.task
     if model_name == "mpnn":
@@ -136,13 +145,15 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
         bos_id = bundle.meta.get("bos_id", 0)
         offsets = (1, 2)  # trail-appended '<q> u v'
     seq_len = bundle.meta.get("max_len", 0)
+    p_drop = float(model_cfg.get("dropout", 0.1))
     return SimpleTransformer(
         vocab_size=bundle.vocab_size,
         d_model=int(model_cfg.get("d_model", 32)),
         nhead=int(model_cfg.get("nhead", 4)),
         nlayers=int(model_cfg.get("nlayers", 4)),
         d_ff=int(model_cfg.get("d_ff", 128)),
-        p_drop=float(model_cfg.get("dropout", 0.1)),
+        p_drop=p_drop,
+        attn_p_drop=attention_dropout_rate(p_drop, bool(model_cfg.get("use_flash", False))),
         max_pos=max(int(model_cfg.get("max_pos", 600)), seq_len),
         num_classes=bundle.num_classes,
         use_query_nodes=task in QUERY_TASKS,

@@ -216,3 +216,90 @@ def test_config_and_metrics_copies_match(tmp_path):
             jax_metrics.format_confusion_matrix(cm, task)
     assert metrics.regression_metrics_from_sums(1.5, 2.5, 1.5, 10.0) == \
         jax_metrics.regression_metrics_from_sums(1.5, 2.5, 1.5, 10.0)
+
+
+# ---------------------------------------------------------------------------
+# the corpus helpers: text encode, scalar ids, packing, batches, hashing,
+# the npz writer and the stand-in flat form
+# ---------------------------------------------------------------------------
+
+def test_encode_text_and_corpus_ids_are_identical(graphs):
+    ours, ref = graphs
+    texts = ibtt.tokenize_zinc_corpus(ours, max_len=1024)
+    assert texts == jax_ibtt.tokenize_zinc_corpus(ref, max_len=1024)
+    fixed = vocab.build_fixed_zinc_vocab()[0]
+    voc = vocab.extend_vocab_with_dynamic_tokens(
+        fixed, vocab.collect_dynamic_tokens(texts, fixed))
+    for text in texts[:30] + ["UNSEEN <bos> <p> x", ""]:
+        for max_len, strip in ((1024, True), (12, True), (1024, False)):
+            a = ibtt.encode_text(text, voc, max_len=max_len, strip_label=strip)
+            b = jax_ibtt.encode_text(text, voc, max_len=max_len, strip_label=strip)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    for max_len in (1024, 40):
+        a = ibtt.tokenize_zinc_corpus_ids(ours, voc, max_len=max_len)
+        b = jax_ibtt.tokenize_zinc_corpus_ids(ref, voc, max_len=max_len)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes()
+        # the scalar ids are the encoded strings, row by row
+        enc = ibtt.encode_texts(ibtt.tokenize_zinc_corpus(ours, max_len=max_len), voc,
+                                max_len=max_len)
+        assert a[0].tobytes() == enc[0].tobytes() and a[1].tobytes() == enc[1].tobytes()
+
+
+@pytest.mark.parametrize("n,bucket", [(40, True), (600, True), (600, False)])
+def test_pack_corpus_is_byte_identical(n, bucket):
+    """Under 512 rows the numpy path, from 512 up the native pass."""
+    from glearning_benchmark_tpu.tokenization import pack as jax_pack
+    from glearning_benchmark_tpu_torch.tokenization import pack
+
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, 50, size=(n, 100)).astype(np.int32)
+    lens = rng.integers(1, 101, size=n).astype(np.int32)
+    got = pack.pack_corpus(ids, lens, pad_id=3, bucket=bucket)
+    ref = jax_pack.pack_corpus(ids, lens, pad_id=3, bucket=bucket)
+    assert got[0].shape == (n, 128 if bucket else 100)
+    _same_arrays({"ids": got[0], "mask": got[1]}, {"ids": ref[0], "mask": ref[1]})
+
+
+@pytest.mark.parametrize("shuffle,drop", [(False, False), (True, False), (True, True)])
+def test_batch_iterator_is_identical(shuffle, drop):
+    from glearning_benchmark_tpu.tokenization import pack as jax_pack
+    from glearning_benchmark_tpu_torch.tokenization import pack
+
+    got = list(pack.batch_iterator(103, 16, shuffle, 5, drop_remainder=drop))
+    ref = list(jax_pack.batch_iterator(103, 16, shuffle, 5, drop_remainder=drop))
+    assert len(got) == len(ref) == (6 if drop else 7)
+    for (a, va), (b, vb) in zip(got, ref):
+        assert va == vb and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_stable_token_hash_is_identical():
+    from glearning_benchmark_tpu.utils import hashing as jax_hashing
+    from glearning_benchmark_tpu_torch.utils import hashing
+
+    toks = ["<bos>", "val_1_25", "C", "", "ünï"]
+    a, b = hashing.stable_token_hash(toks), jax_hashing.stable_token_hash(toks)
+    assert a.dtype == b.dtype == np.uint64 and a.tobytes() == b.tobytes()
+    assert hashing.stable_hash("ba") == jax_hashing.stable_hash("ba")
+
+
+def test_save_zinc_npz_round_trip_and_num_types(graphs, tmp_path):
+    ours, ref = graphs
+    zinc.save_zinc_npz(str(tmp_path / "zinc_val.npz"), list(ours[:60]))
+    jax_zinc.save_zinc_npz(str(tmp_path / "ref.npz"), list(ref[:60]))
+    a, b = np.load(tmp_path / "zinc_val.npz"), np.load(tmp_path / "ref.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+    back = zinc.load_zinc_split(str(tmp_path), "val")
+    _same_graphs(back, ref[:60])
+    assert zinc.get_zinc_num_types() == jax_zinc.get_zinc_num_types() == (9, 4)
+
+
+def test_standin_split_carries_its_flat_form(graphs):
+    """A stand-in split carries the flat struct-of-arrays form, equal field
+    for field to the JAX package's."""
+    ours, ref = graphs
+    assert ours.flat is not None and ours.flat.keys() == ref.flat.keys()
+    for k, v in ref.flat.items():
+        assert ours.flat[k].dtype == v.dtype and ours.flat[k].tobytes() == v.tobytes(), k
