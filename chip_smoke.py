@@ -101,7 +101,30 @@ Phases; any failure exits non-zero before the last line is printed:
    interleaved with numpy; every reading printed), the device encoder's
    device ms (CUDA events), its kernels and its host-to-device copy, the
    scan and the bundle seconds are printed beside the card.
-9. One JSON line of every kernel (name, launches, errors, times, bound),
+9. Data parallelism and the Switch MoE FFN. The three kernels against
+   their plain versions at a non-zero ``bh_offset`` (rank 1's place in a
+   global batch of two packed AGTT train row batches, p 26/256), in bf16
+   and in f32. Then, each
+   through ``train()``, one process against two ranks: spawned processes
+   that join one process group as torchrun would describe it, over NCCL
+   when each has a card of its own and otherwise over gloo with CUDA
+   tensors (NCCL refuses two ranks on one card). The runs: agtt_zinc width
+   (packed, dropout 0.1) on the full stand-in splits for 2 epochs at f32
+   and at bf16, with a batch size near 128 whose row batch divides over the
+   ranks, and MPNN cycle_check at f32. Each run must shard; every rank
+   must report the same metrics and the one process's kernel launches, with
+   finite, falling losses; the first 4 step losses within 1e-4 relative of
+   the one process's (f32) or 2e-3 (bf16). Each epoch's losses and
+   examples/s are printed for both, two ranks sharing one card (not a
+   scaling figure), beside a second one-process f32 run: the card's own
+   run-to-run spread, which later epochs are not held against. The ranks
+   also build the ZINC vocab over their
+   shards of the 12,000 stand-in graphs, which must equal the one-process
+   vocab. Last, agtt_zinc width with ``moe_experts: 4`` trains 3 epochs on
+   the full splits (launch counts as in phase 6), its first 4 steps are held
+   against the CPU's (2e-3), its best checkpoint serves the trainer's own
+   logits, and ``[time]`` lines profile its steady train steps.
+10. One JSON line of every kernel (name, launches, errors, times, bound),
    then the result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -360,16 +383,17 @@ def qkv_views(shape, dtype, gen: torch.Generator) -> tuple:
     return tuple(t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
 
 
-def compare(name, fa, q, k, v, seg, p_drop=0.0, seed=0, chunk=64):
-    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed)
+def compare(name, fa, q, k, v, seg, p_drop=0.0, seed=0, chunk=64, bh_offset=0):
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed, bh_offset)
     torch.cuda.synchronize()
-    if p_drop > 0.0:   # the keep mask hashes absolute b*H+h: no chunking
-        chunk = q.shape[0]
-    # the plain version is dense in L^2: run it on `chunk` rows at a time
+    # the plain version is dense in L^2: run it on `chunk` rows at a time,
+    # each chunk at its own place in the batch*head index space
+    h = q.shape[2]
     parts = [fa.flash_attention_reference(q[i:i + chunk].float(),
                                           k[i:i + chunk].float(),
                                           v[i:i + chunk].float(),
-                                          seg[i:i + chunk], p_drop, seed)
+                                          seg[i:i + chunk], p_drop, seed,
+                                          bh_offset + i * h)
              for i in range(0, q.shape[0], chunk)]
     ro = torch.cat([p[0] for p in parts])
     rl = torch.cat([p[1] for p in parts])
@@ -382,7 +406,7 @@ def compare(name, fa, q, k, v, seg, p_drop=0.0, seed=0, chunk=64):
     ok_pad = bool((o[pad] == 0).all())
     layout = "contiguous" if q.is_contiguous() else f"strides {list(q.stride())}"
     log(f"[kernel] {name}: shape {list(q.shape)} {str(q.dtype)[6:]} {layout} "
-        f"p_drop {p_drop}: max|dO| {err.max().item():.3e} "
+        f"p_drop {p_drop} bh_offset {bh_offset}: max|dO| {err.max().item():.3e} "
         f"(rtol {O_RTOL[q.dtype]:g}), max|dLSE| {err_lse:.3e} "
         f"(atol {LSE_ATOL:g}), pad rows zero {ok_pad}")
     if not (ok_o and err_lse <= LSE_ATOL and ok_pad):
@@ -488,17 +512,18 @@ def strided_do(shape, dtype, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(b, h, l, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
 
 
-def compare_bwd(name, fa, q, k, v, seg, do, p_drop=0.0, seed=0) -> dict:
+def compare_bwd(name, fa, q, k, v, seg, do, p_drop=0.0, seed=0, bh_offset=0) -> dict:
     """Both backward kernels against ``flash_attention_bwd_reference`` on
     the same inputs (O and LSE from the forward kernel). Returns the max
     abs error per kernel."""
-    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed)
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, seed)
-    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, seed)
+    args = (p_drop, seed, bh_offset)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, *args)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, *args)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, *args)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, *args)
     torch.cuda.synchronize()
     rq, rk, rv = fa.flash_attention_bwd_reference(
-        q.float(), k.float(), v.float(), seg, o, lse, do.float(), p_drop, seed)
+        q.float(), k.float(), v.float(), seg, o, lse, do.float(), *args)
     rdelta = fa.flash_attention_delta(o, do)
     errs, ok = {}, True
     for what, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
@@ -511,7 +536,8 @@ def compare_bwd(name, fa, q, k, v, seg, do, p_drop=0.0, seed=0) -> dict:
     same_bits = torch.equal(dk, dk2) and torch.equal(dv, dv2)
     layout = "contiguous" if q.is_contiguous() else f"strides {list(q.stride())}"
     log(f"[kernel] bwd {name}: shape {list(q.shape)} {str(q.dtype)[6:]} {layout}, "
-        f"dO {'contiguous' if do.is_contiguous() else 'strided'}, p_drop {p_drop}: "
+        f"dO {'contiguous' if do.is_contiguous() else 'strided'}, p_drop {p_drop} "
+        f"bh_offset {bh_offset}: "
         f"max|d dQ| {errs['dq']:.3e}, |d dK| {errs['dk']:.3e}, |d dV| {errs['dv']:.3e} "
         f"(rtol {G_RTOL[q.dtype]:g}), |d delta| {err_delta:.3e} (atol {LSE_ATOL:g}), "
         f"pad rows zero {ok_pad}, dK/dV bits equal on a second run {same_bits}")
@@ -1487,6 +1513,262 @@ def host_tokenization_phase(gt_root: str, card: str) -> None:
             f"{t_nat:.2f} s{python}, arrays equal to phase 7's; on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: data parallelism and the Switch MoE FFN
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_EPOCHS = 2
+DP_TIMEOUT = 600          # seconds the ranks may take together
+MOE_EXPERTS = 4
+# two ranks against one process at f32, the same global batches, seed and
+# masks: the first steps see (nearly) the same weights, so their losses
+# agree to f32 rounding (sums in another order, cuBLAS kernels picked by row
+# count); later epochs are not held, since on the card even two
+# one-process runs part (atomic adds in the embedding backward, amplified by
+# AdamW on near-zero gradients) and the script prints that spread beside
+DP_STEP_RTOL = 1e-4
+
+
+def even_row_batch(bundle, near: int) -> int:
+    """The config batch size nearest ``near`` that, with its packed row
+    batch, divides over the ranks: the batches then shard (else every rank
+    runs them whole, as in the reference), and one process and the ranks
+    run the same global batches (a row batch that does not divide is
+    rounded down under data parallelism, as the reference does)."""
+    from glearning_benchmark_tpu_torch.train.trainer import train_batch_size
+
+    for delta in range(near):
+        for bs in (near - delta, near + delta):
+            if bs > 0 and bs % DP_RANKS == 0 \
+                    and train_batch_size(bundle, bs) % DP_RANKS == 0:
+                return bs
+    raise AssertionError("no batch size gives a row batch that divides over the ranks")
+
+
+def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
+              out: str) -> None:
+    """One rank of phase 9, a spawned process: joins the group as torchrun
+    would describe it, runs ``jobs`` through the port's own entry points
+    (``train()``; the multi-process ZINC vocab on its shard of the 12,000
+    stand-in graphs) and saves what they gave."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    import torch.distributed as dist
+
+    from glearning_benchmark_tpu_torch.data.zinc import load_zinc_split
+    from glearning_benchmark_tpu_torch.ops import flash_attention as fa
+    from glearning_benchmark_tpu_torch.parallel import host_shard_bounds, initialize_distributed
+    from glearning_benchmark_tpu_torch.parallel.multiproc import multiprocess_zinc_vocab
+    from glearning_benchmark_tpu_torch.train.trainer import train
+
+    dev = initialize_distributed("cuda", backend, init)
+    results = {"device": str(dev), "backend": dist.get_backend()}
+    for job in jobs:
+        t0 = time.perf_counter()
+        if job["kind"] == "vocab":
+            mols = [m for split in ("train", "val", "test") for m in load_zinc_split(split=split)]
+            start, end = host_shard_bounds(len(mols))
+            results["vocab"] = multiprocess_zinc_vocab(mols[start:end])
+            results["vocab_s"] = time.perf_counter() - t0
+            continue
+        fa.reset_launches()
+        res = train(job["config"], job["model"], limit=job["limit"], verbose=False,
+                    device=dev)
+        torch.cuda.synchronize()
+        results[job["name"]] = {
+            "history": res.history, "steps": [s.tolist() for s in res.step_losses],
+            "launches": dict(fa.LAUNCHES), "seconds": time.perf_counter() - t0,
+            "sharded": sharding(res.bundle, job["config"], world)}
+    torch.save(results, f"{out}.{rank}")
+    dist.destroy_process_group()
+
+
+def sharding(bundle, config: dict, ranks: int) -> tuple:
+    """(whether a run's minibatches shard over ``ranks``, as ``train()``
+    decides it, and a line that says so)."""
+    from glearning_benchmark_tpu_torch.train.trainer import (data_parallel_rows,
+                                                             train_batch_size)
+
+    bs = int(config["train"]["batch_size"])
+    rows, sharded = data_parallel_rows(ranks, bs, train_batch_size(bundle, bs),
+                                       "seg" in bundle.splits["train"])
+    return sharded, (f"{'sharded' if sharded else 'NOT sharded'}: batch {bs}, train "
+                     f"rows {rows} over {ranks} ranks")
+
+
+def run_ranks(jobs: list, tmp: str) -> list:
+    """Run ``jobs`` on ``DP_RANKS`` spawned ranks: NCCL when every rank has
+    a card of its own, else gloo with CUDA tensors (NCCL refuses two ranks
+    on one card). Any rank's failure fails the phase; no rank outlives it."""
+    import multiprocessing as mp
+
+    backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
+    init = f"file://{tmp}/dp.rdzv"
+    out = os.path.join(tmp, "dp_result")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_worker, args=(r, DP_RANKS, backend, init, jobs, out))
+             for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    codes = [proc.exitcode for proc in procs]
+    log(f"[dp] {DP_RANKS} ranks over {backend} on {torch.cuda.device_count()} visible "
+        f"card(s): exit codes {codes}, {time.perf_counter() - t0:.1f} s")
+    if codes != [0] * DP_RANKS:
+        raise AssertionError(f"a data-parallel rank failed: exit codes {codes}")
+    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(DP_RANKS)]
+
+
+def _metrics(history: list) -> list:
+    return [{k: v for k, v in h.items()
+             if not k.startswith(("time/", "throughput/", "efficiency/", "memory/"))}
+            for h in history]
+
+
+def dp_against_single(name: str, ranks: list, single, single_launches: dict,
+                      card: str, step_atol=None) -> None:
+    """The ranks' run against the one-process run of the same config: the
+    run sharded; equal metrics on every rank; kernel launches on each rank
+    equal to the one process's (every rank takes every step on its rows);
+    losses finite and falling; the first ``CPU_CHECK_STEPS`` step losses
+    within ``DP_STEP_RTOL`` of the one process's or, with ``step_atol``
+    (bf16), within that absolute gap."""
+    import numpy as np
+
+    got = [r[name] for r in ranks]
+    for r, g in enumerate(got[1:], 1):
+        for mine, first in zip(_metrics(g["history"]), _metrics(got[0]["history"])):
+            differ = {k: (first[k], v) for k, v in mine.items() if first.get(k) != v}
+            if differ:
+                raise AssertionError(f"{name}: rank {r} disagrees with rank 0 on "
+                                     f"(rank 0, rank {r}) {differ}")
+    for r, g in enumerate(got):
+        if g["launches"] != single_launches:
+            raise AssertionError(f"{name}: rank {r} kernel launches {g['launches']}, "
+                                 f"one process {single_launches}")
+    layout = (f"{len(got)} ranks sharing one card (not a scaling figure)"
+              if torch.cuda.device_count() < len(got) else f"{len(got)} ranks, a card each")
+    for h, w in zip(got[0]["history"], single.history):
+        log(f"[dp] {name} epoch {h['epoch']}: train loss {h['train/loss']:.6f} "
+            f"(one process {w['train/loss']:.6f}), val loss {h['val/loss']:.6f} "
+            f"({w['val/loss']:.6f}), grad norm {h['train/grad_norm']:.4f} "
+            f"({w['train/grad_norm']:.4f}); {h['throughput/graphs_per_sec']:.1f} "
+            f"examples/s on {layout} (one process "
+            f"{w['throughput/graphs_per_sec']:.1f}) on {card}")
+    steps = np.array(got[0]["steps"][0][:CPU_CHECK_STEPS])
+    want_steps = np.asarray(single.step_losses[0][:CPU_CHECK_STEPS])
+    log(f"[dp] {name}: first {len(steps)} step losses {steps.tolist()} against one "
+        f"process {want_steps.tolist()}; launches a rank {got[0]['launches']}; rank 0 "
+        f"call {got[0]['seconds']:.1f} s; {got[0]['sharded'][1]}")
+    if not got[0]["sharded"][0]:
+        raise AssertionError(f"{name}: the run did not shard over the ranks")
+    finite = all(math.isfinite(v) for g in got for h in g["history"]
+                 for v in (h["train/loss"], h["val/loss"]))
+    hist = got[0]["history"]
+    falls = len(hist) < 2 or hist[-1]["train/loss"] < hist[0]["train/loss"]
+    if step_atol is None:
+        ok = bool(np.allclose(steps, want_steps, rtol=DP_STEP_RTOL, atol=0))
+    else:
+        ok = bool(np.abs(steps - want_steps).max() <= step_atol)
+    if not (finite and falls and ok and len(hist) == len(single.history)):
+        raise AssertionError(f"{name}: two ranks disagree with one process")
+
+
+def dp_moe_phase(fa, tmp: str, gt_root: str, graphs, seg_train, gen, p: float,
+                 card: str) -> tuple:
+    """Phase 9 (module docstring). Returns (kernel errors at a non-zero
+    bh_offset, backward kernel errors, launches by path)."""
+    import copy
+
+    from glearning_benchmark_tpu_torch.data.zinc import load_zinc_split
+    from glearning_benchmark_tpu_torch.tokenization.ibtt_fast import build_zinc_vocab_fast
+    from glearning_benchmark_tpu_torch.train.datasets import build_dataset
+
+    # the kernels at rank 1's place in a global batch of two row batches,
+    # bf16 (the mma kernels) and f32 (the FP32-pipe kernels)
+    b, l = seg_train.shape
+    shape = (b, l, 4, 16)
+    offset = b * shape[2]
+    errs, berrs = [], []
+    for dt in (torch.bfloat16, torch.float32):
+        errs.append(compare("agtt-zinc packed train rows, rank 1 of 2", fa,
+                            *qkv_views(shape, dt, gen), seg_train, p_drop=p,
+                            seed=4321, bh_offset=offset))
+        berrs.append(compare_bwd("agtt-zinc packed train rows, rank 1 of 2", fa,
+                                 *qkv_views(shape, dt, gen), seg_train,
+                                 strided_do(shape, dt, gen), p, 4321, offset))
+
+    launches = {}
+    zinc_root = os.path.join(tmp, "ZINC")
+    out = os.path.join(tmp, "runs_dp")
+    ds = train_config("agtt", AGTT_ZINC_MODEL, zinc_root, out, True, 1)["dataset"]
+    bs = even_row_batch(build_dataset("agtt", ds, ZINC_TRAIN["seed"]),
+                        ZINC_TRAIN["batch_size"])
+    runs = {f"agtt_dp_{dt}": ("agtt", train_config(
+        "agtt", {**AGTT_ZINC_MODEL, "compute_dtype": dt}, zinc_root,
+        os.path.join(out, dt), True, DP_EPOCHS, batch_size=bs), None)
+        for dt in ("float32", "bfloat16")}
+    mpnn = graph_config("mpnn_graph_token", "cycle_check", gt_root,
+                        os.path.join(out, "mpnn"), GRAPH_EPOCHS)
+    mpnn["model"]["compute_dtype"] = "float32"
+    runs["mpnn_dp_float32"] = ("mpnn", mpnn, None)
+    log(f"[dp] agtt-zinc width on the stand-in splits, batch size {bs} (its "
+        f"packed row batch divides over {DP_RANKS} ranks), {DP_EPOCHS} epochs, f32 and "
+        f"bf16; mpnn cycle_check f32, {GRAPH_EPOCHS} epochs")
+    single = {}
+    for name, (model_name, cfg, limit) in runs.items():
+        single[name], launches[f"train_{name}_one_process"] = train_phase(
+            fa, model_name, cfg, limit, card)
+    # the card's own spread: the f32 token run once more in one process
+    model_name, cfg, limit = runs["agtt_dp_float32"]
+    cfg = copy.deepcopy(cfg)
+    cfg["output"]["out_dir"] += "_again"
+    again, _ = train_phase(fa, model_name, cfg, limit, card)
+    for h, w in zip(again.history, single["agtt_dp_float32"].history):
+        log(f"[dp] one process run twice, f32, epoch {h['epoch']}: train loss "
+            f"{h['train/loss']:.6f} and {w['train/loss']:.6f}, val loss "
+            f"{h['val/loss']:.6f} and {w['val/loss']:.6f} (the card's run-to-run spread)")
+    jobs = []
+    for name, (model_name, cfg, limit) in runs.items():
+        cfg = copy.deepcopy(cfg)
+        cfg["output"]["out_dir"] += "_ranks"
+        jobs.append({"kind": "train", "name": name, "model": model_name, "config": cfg,
+                     "limit": limit})
+    jobs.append({"kind": "vocab"})
+    ranks = run_ranks(jobs, tmp)
+    log(f"[dp] rank devices {[r['device'] for r in ranks]}, backend {ranks[0]['backend']}")
+    for name in runs:
+        dp_against_single(name, ranks, single[name], launches[f"train_{name}_one_process"],
+                          card, STEP_LOSS_ATOL if name.endswith("bfloat16") else None)
+        for r, rank in enumerate(ranks):
+            launches[f"train_{name}_rank{r}"] = rank[name]["launches"]
+    mols = [m for split in ("train", "val", "test") for m in load_zinc_split(split=split)]
+    host = build_zinc_vocab_fast(mols)
+    same = all(rank["vocab"] == host for rank in ranks)
+    log(f"[dp] ZINC vocab over {len(mols)} stand-in graphs on {DP_RANKS} ranks "
+        f"({len(host)} ids, rank 0 {ranks[0]['vocab_s']:.2f} s) equals the one-process "
+        f"vocab: {same}")
+    if not same:
+        raise AssertionError("the multi-process ZINC vocab differs from the one-process one")
+
+    # the Switch MoE FFN at agtt_zinc width, one process
+    moe_cfg = train_config("agtt", {**AGTT_ZINC_MODEL, "moe_experts": MOE_EXPERTS},
+                           zinc_root, os.path.join(tmp, "runs_moe"), True, TRAIN_EPOCHS)
+    res, launches["train_agtt_moe"] = train_phase(fa, "agtt", moe_cfg, None, card)
+    first_steps_on_cpu(res, moe_cfg)
+    trained_checkpoint_serves(res, moe_cfg, graphs)
+    train_step_breakdown(res, moe_cfg)
+    return errs, berrs, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1705,7 +1987,16 @@ def main() -> int:
         host_tokenization_phase(gt_root, card)
         log(f"[phase] host tokenization {time.perf_counter() - t0:.1f} s")
 
-    # phase 9: the kernels line, then the result
+        # phase 9: data parallelism (the kernels at a bh_offset, two ranks
+        # against one process, the ranks' vocab) and the Switch MoE FFN
+        t0 = time.perf_counter()
+        derrs, dberrs, dp_launches = dp_moe_phase(fa, tmp, gt_root, graphs, seg_train,
+                                                  gen, p_train, card)
+        errs += derrs
+        berrs += dberrs
+        log(f"[phase] data parallelism and MoE {time.perf_counter() - t0:.1f} s")
+
+    # phase 10: the kernels line, then the result
     src = "glearning_benchmark_tpu_torch/csrc/"
     ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1719,7 +2010,7 @@ def main() -> int:
         "launches_by_path": {"serve_agtt": serve_launches,
                              "train_agtt": train_launches["flash_attn_fwd"],
                              **{path: n["flash_attn_fwd"]
-                                for path, n in graph_launches.items()}},
+                                for path, n in {**graph_launches, **dp_launches}.items()}},
         "by_shape": {name: {key: t[key] for key in keys} for name, t in (
             (f"agtt_train_rows_p{p_train}", btiming["flash_attn_fwd"]),
             (f"ibtt_train_rows_p{p_train}", ibtt_btiming["flash_attn_fwd"]),
@@ -1736,7 +2027,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "launches_by_path": {"train_agtt": train_launches[name],
-                                 **{path: n[name] for path, n in graph_launches.items()}},
+                                 **{path: n[name] for path, n in
+                                    {**graph_launches, **dp_launches}.items()}},
             "by_shape": {rows: {key: bt[name][key] for key in keys} for rows, bt in (
                 (f"ibtt_train_rows_p{p_train}", ibtt_btiming),
                 *((rows, bt) for rows, bt in gtiming.items() if name in bt))}})

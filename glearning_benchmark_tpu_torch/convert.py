@@ -11,7 +11,8 @@ module names are the flax ones, so the mapping is mechanical:
   ``weight``;
 - ``Embed`` (modules ``embed`` and ``pos``): ``embedding`` <-> ``weight``;
 - GIN's scalar ``eps`` and GINE's ``edge_emb`` [types, F] keep their names
-  and layout.
+  and layout, and so do the Switch MoE expert stacks ``moe/{w1,b1,w2,b2}``
+  (leading expert axis); the MoE ``router`` is a ``Dense``.
 
 A flax path ``layer_0/qkv/kernel`` becomes the key ``layer_0.qkv.weight``.
 The ``batch_stats`` collection (a BatchNorm's running ``mean`` and ``var``)
@@ -41,7 +42,7 @@ from .train.checkpoint import _flatten, _unflatten
 
 _EMBEDS = ("embed", "pos")
 # parameters stored under the same name and layout in both packages
-_AS_IS = ("eps", "edge_emb")
+_AS_IS = ("eps", "edge_emb", "w1", "b1", "w2", "b2")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 

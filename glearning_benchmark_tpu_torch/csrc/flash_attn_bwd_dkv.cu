@@ -9,8 +9,8 @@
 //   dV = sum_queries (P keep/(1-p)) dO
 //   dP = dO.v keep/(1-p),  dS = P (dP - delta),  dK = scale * sum_queries dS q
 // delta [B, H, L] f32 is an input here: the dQ kernel writes it. Pad keys
-// (seg 0) get dK = dV = 0 exactly. The dropout hash sees (batch*head,
-// query row, key column) exactly as the forward does, though the block's
+// (seg 0) get dK = dV = 0 exactly. The dropout hash sees (bh_offset +
+// batch*head, query row, key column) exactly as the forward does, though the block's
 // own axis is now the keys. A key's sums are taken by one warp in query
 // order: no atomics, and two runs give the same bits.
 //
@@ -137,7 +137,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   uint32_t hkey[2];  // the dropout hash's (batch*head, key column) terms
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    hkey[i] = (static_cast<uint32_t>(bh) * kHashBh) ^
+    hkey[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
               (static_cast<uint32_t>(keys[i]) * kHashCol);
   // opaque to the compiler: kept in registers, not recomputed per pair
   asm volatile("" : "+r"(hkey[0]), "+r"(hkey[1]));
@@ -368,7 +368,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
           const float pi = exp2f(dot - lse2s[i]);
           float pd = pi;  // the dropped probability (dV path)
           if (p.dropout) {
-            const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh),
+            const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh) + p.bh_offset,
                                          static_cast<uint32_t>(l0 + i),
                                          static_cast<uint32_t>(col));
             const float keepf = hv >= p.keep_thresh ? p.keep_scale : 0.f;

@@ -13,7 +13,8 @@
 // kernel's prologue, written to delta [B, H, L] f32 for the dK/dV kernel,
 // which therefore runs after this one on the same stream. Pad queries
 // (seg 0) get dQ = 0 exactly. The keep decision is
-// hash_u32(seed, bh, query row, key col) >= keep_thresh, as in the forward.
+// hash_u32(seed, bh_offset + bh, query row, key col) >= keep_thresh, as in
+// the forward.
 //
 // What bounds it on an H100. Per allowed pair 6*D FLOPs (q.k, dO.v, dS k),
 // one exp2 and, under dropout, one hash. At the packed AGTT-ZINC training
@@ -160,7 +161,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   uint32_t hrow[2];  // the dropout hash's (batch*head, row) terms
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    hrow[i] = (static_cast<uint32_t>(bh) * kHashBh) ^
+    hrow[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
               (static_cast<uint32_t>(rows[i]) * kHashRow);
   // opaque to the compiler: kept in registers, not recomputed per pair
   asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
@@ -365,7 +366,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
           }
           const float pj = exp2f(dot - lse2);
           if (p.dropout) {
-            const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh),
+            const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh) + p.bh_offset,
                                          static_cast<uint32_t>(row),
                                          static_cast<uint32_t>(s0 + j));
             dp = hv >= p.keep_thresh ? dp * p.keep_scale : 0.f;

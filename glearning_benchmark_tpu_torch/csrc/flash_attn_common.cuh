@@ -106,7 +106,9 @@ struct BwdParams {
   int dropout;       // 0: p_drop == 0
   uint32_t seed;
   uint32_t keep_thresh;
-  float keep_scale;  // 1 / (1 - p_drop)
+  float keep_scale;    // 1 / (1 - p_drop)
+  uint32_t bh_offset;  // added to batch*head in the dropout hash: a
+                       // data-parallel rank's place in the global batch
 };
 
 // `mine` is the calling thread's segment id (0 = pad or out of range). Finds

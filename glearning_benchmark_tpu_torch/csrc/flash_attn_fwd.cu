@@ -12,9 +12,11 @@
 //            seg[i] == seg[j] and seg[j] != 0
 //   o        [B, L, H, D] in q's dtype; pad queries get exact zeros
 //   lse      [B, H, L] f32, m + log(l); -1e30 on rows that attend nothing
-// Dropout: keep(bh, row, col) = triple32(seed, bh, row, col) >= thresh,
-// bit-identical to `dropout_keep_reference` (`_hash_u32`), rescale
+// Dropout: keep(bh, row, col) = triple32(seed, bh_offset + bh, row, col) >=
+// thresh, bit-identical to `dropout_keep_reference` (`_hash_u32`), rescale
 // 1/(1-p); the softmax normaliser l sums the UNdropped probabilities.
+// bh_offset places a data-parallel rank's rows in the global batch*head
+// index space (0 on one process).
 //
 // What bounds it on an H100. Per allowed (query, key) pair: 4*D FLOPs (q.k
 // and p.v) and one exp. With O and LSE written in full (pad rows too), the
@@ -96,7 +98,8 @@ struct Params {
   int dropout;       // 0: p_drop == 0
   uint32_t seed;
   uint32_t keep_thresh;
-  float keep_scale;  // 1 / (1 - p_drop)
+  float keep_scale;    // 1 / (1 - p_drop)
+  uint32_t bh_offset;  // added to batch*head in the dropout hash
 };
 
 // Rows [r0, r0 + n) of one head of O (row stride `stride` elements; rows at
@@ -193,7 +196,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   uint32_t hrow[2];  // the dropout hash's (batch*head, row) terms
 #pragma unroll
   for (int i = 0; i < 2; ++i)
-    hrow[i] = (static_cast<uint32_t>(bh) * kHashBh) ^
+    hrow[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
               (static_cast<uint32_t>(rows[i]) * kHashRow);
   // opaque to the compiler: kept in registers, not recomputed per pair
   asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
@@ -435,7 +438,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
             float pj = (segs[c + j] == sq) ? exp2f(s[j] - m) : 0.f;
             l += pj;
             if (p.dropout) {
-              const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh),
+              const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh) + p.bh_offset,
                                            static_cast<uint32_t>(row),
                                            static_cast<uint32_t>(s0 + c + j));
               pj = hv >= p.keep_thresh ? pj * p.keep_scale : 0.f;
@@ -501,7 +504,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               int B, int L, int H, int head_dim, int is_bf16,
                               float scale, int dropout, uint32_t seed,
                               uint32_t keep_thresh, float keep_scale,
-                              void* stream) {
+                              uint32_t bh_offset, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -520,5 +523,6 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   p.seed = seed;
   p.keep_thresh = keep_thresh;
   p.keep_scale = keep_scale;
+  p.bh_offset = bh_offset;
   return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
 }

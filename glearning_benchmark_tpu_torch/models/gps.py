@@ -17,7 +17,8 @@ flax (``node_encoder``, ``gps_{i}/{local_gin,bn_local,q,k,v,attn_out,
 bn_attn,ff1,ff2,bn_ff}``, ``post_mp``). The q/k/v/attn_out ``Dense`` layers
 and the local GIN compute in ``compute_dtype``; the FFN, BatchNorms and
 residuals in f32. The other dropout sites use
-:func:`..ops.attention.hash_dropout` (see ``models/mpnn.py``).
+:func:`..ops.attention.hash_dropout`; a ``shard`` of the global batch
+places every mask and reduces every BatchNorm as in ``models/mpnn.py``.
 """
 
 from __future__ import annotations
@@ -65,28 +66,31 @@ class GPSLayer(nn.Module):
 
     def forward(self, h: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
                 etype: Optional[torch.Tensor] = None,
-                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+                seeds: Optional[Sequence[int]] = None, shard=None) -> torch.Tensor:
         """h [B, N, d] f32 -> [B, N, d] f32. ``seeds`` (one per site of
-        ``_SITES``) turns dropout on."""
+        ``_SITES``) turns dropout on; ``shard`` places the rows in the
+        global batch."""
         s = dict(zip(_SITES, seeds if seeds is not None else (None,) * len(_SITES)))
         b, n, d = h.shape
         hd = d // self.n_heads
-        local = self.local_gin(h, adj, mask, etype, s["local_gin"])
-        local = _drop(local, self.dropout, s["local"])
-        h = self.bn_local(h + local, mask)
+        row0 = 0 if shard is None else shard.start
+        local = self.local_gin(h, adj, mask, etype, s["local_gin"], shard)
+        local = _drop(local, self.dropout, s["local"], shard)
+        h = self.bn_local(h + local, mask, shard)
 
         q, k, v = (_dense(lin, h, self.dtype).reshape(b, n, self.n_heads, hd)
                    for lin in (self.q, self.k, self.v))
         p_attn = self.attn_dropout if s["attn_probs"] is not None else 0.0
         attn = multi_head_attention(q, k, v, key_mask=mask, dropout_rate=p_attn,
-                                    dropout_seed=s["attn_probs"]).reshape(b, n, d)
+                                    dropout_seed=s["attn_probs"],
+                                    batch_offset=row0).reshape(b, n, d)
         attn = _dense(self.attn_out, attn, self.dtype).float()
-        attn = _drop(attn, self.dropout, s["attn_out"])
-        h = self.bn_attn(h + attn, mask)
+        attn = _drop(attn, self.dropout, s["attn_out"], shard)
+        h = self.bn_attn(h + attn, mask, shard)
 
-        y = _drop(F.relu(self.ff1(h)), self.dropout, s["ff_relu"])
-        y = _drop(self.ff2(y), self.dropout, s["ff2"])
-        return self.bn_ff(h + y, mask)
+        y = _drop(F.relu(self.ff1(h)), self.dropout, s["ff_relu"], shard)
+        y = _drop(self.ff2(y), self.dropout, s["ff2"], shard)
+        return self.bn_ff(h + y, mask, shard)
 
 
 class GPSModel(nn.Module):
@@ -125,7 +129,8 @@ class GPSModel(nn.Module):
 
     def forward(self, node_feat: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
                 etype: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         """As ``MPNN.forward``."""
         seeds: Sequence[Optional[Sequence[int]]] = [None] * self.num_layers
         if self.training and max(self.dropout, self.attn_dropout) > 0.0:
@@ -137,7 +142,7 @@ class GPSModel(nn.Module):
         etype = etype if self.edge_features else None
         h = self.node_encoder(node_feat)
         for i, layer_seeds in enumerate(seeds):
-            h = getattr(self, f"gps_{i}")(h, adj, mask, etype, layer_seeds)
+            h = getattr(self, f"gps_{i}")(h, adj, mask, etype, layer_seeds, shard)
         h = h * mask[..., None].to(h.dtype)
         out = self.post_mp(pool(h, mask, self.pooling))
         return out.squeeze(-1) if self.task == "zinc" else out

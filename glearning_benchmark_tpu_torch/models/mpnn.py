@@ -19,6 +19,13 @@ Dropout runs only in ``train()`` mode, through
 :func:`..ops.attention.hash_dropout`, with seeds drawn on the host from the
 ``torch.Generator`` the caller passes (flax draws threefry masks, which the
 port does not reproduce: dropout bits are not a conformance surface).
+
+Under data parallelism a forward is handed its ``shard`` of the global
+batch (``parallel.mesh.BatchShard``): the dropout masks are the rank's rows
+of the global ones, and a training BatchNorm's statistics are all-reduced
+over the shard's group, so they cover every valid node of the global
+batch, as GSPMD computes them in the reference, and every rank updates the
+same running statistics.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch import nn
 
 from ..ops.attention import hash_dropout
 from ..ops.segment import masked_max, masked_mean, masked_sum
+from ..parallel.dist import global_sum
 from .transformer import _dense, _lecun_normal_
 
 _SEED_MAX = 2**31 - 1
@@ -49,8 +57,10 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
-def _drop(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
-    return x if seed is None else hash_dropout(seed, x, rate)
+def _drop(x: torch.Tensor, rate: float, seed: Optional[int], shard=None) -> torch.Tensor:
+    if seed is None:
+        return x
+    return hash_dropout(seed, x, rate, 0 if shard is None else shard.start)
 
 
 def pool(h: torch.Tensor, mask: torch.Tensor, pooling: str) -> torch.Tensor:
@@ -70,7 +80,10 @@ class MaskedBatchNorm(nn.Module):
     In ``train()`` mode it normalises by the batch statistics of the valid
     nodes (biased variance) and updates the running mean and the running
     unbiased variance ``var * n / max(n - 1, 1)`` from the same statistics;
-    in ``eval()`` mode it normalises by the running statistics."""
+    in ``eval()`` mode it normalises by the running statistics. With a
+    ``shard`` the sums behind the batch statistics (valid nodes, their sum,
+    then their centred sum of squares) are all-reduced over its group,
+    differentiably."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -81,13 +94,14 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, shard=None) -> torch.Tensor:
         # x: [B, N, F], mask: [B, N]
         if self.training:
             m = mask.to(x.dtype)[..., None]
-            n = m.sum().clamp(min=1.0)
-            mean = (x * m).sum(dim=(0, 1)) / n
-            var = (((x - mean) ** 2) * m).sum(dim=(0, 1)) / n
+            sums = global_sum(torch.cat([(x * m).sum(dim=(0, 1)), m.sum()[None]]), shard)
+            n = sums[-1].clamp(min=1.0)
+            mean = sums[:-1] / n
+            var = global_sum((((x - mean) ** 2) * m).sum(dim=(0, 1)), shard) / n
             with torch.no_grad():
                 mom = self.momentum
                 unbiased = var * n / (n - 1.0).clamp(min=1.0)
@@ -129,9 +143,10 @@ class GINLayer(nn.Module):
 
     def forward(self, h: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
                 etype: Optional[torch.Tensor] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None, shard=None) -> torch.Tensor:
         """h [B, N, F] f32, adj [B, N, N] f32 -> [B, N, hidden] f32.
-        ``seed`` turns the MLP's dropout on."""
+        ``seed`` turns the MLP's dropout on; ``shard`` places the rows in the
+        global batch."""
         if self.num_edge_types > 0 and etype is not None:
             msg = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
             hc = h.to(self.dtype)
@@ -142,8 +157,8 @@ class GINLayer(nn.Module):
         else:
             agg = (1.0 + self.eps) * h + _bmm_f32(adj.to(self.dtype), h.to(self.dtype))
         y = _dense(self.mlp1, agg, self.dtype)
-        y = F.relu(self.mlp_bn(y.float(), mask))
-        y = _drop(y, self.dropout, seed)
+        y = F.relu(self.mlp_bn(y.float(), mask, shard))
+        y = _drop(y, self.dropout, seed, shard)
         return _dense(self.mlp2, y, self.dtype).float()
 
 
@@ -188,11 +203,13 @@ class MPNN(nn.Module):
 
     def forward(self, node_feat: torch.Tensor, adj: torch.Tensor, mask: torch.Tensor,
                 etype: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         """node_feat [B, N, F], adj [B, N, N] f32, mask [B, N] bool -> logits
         [B, C] ([B] for zinc). ``etype`` [B, N, N] edge types (0 = none) is
         used only with ``edge_features``. In ``train()`` mode with dropout,
-        ``generator`` (a CPU generator) gives the forward's seeds."""
+        ``generator`` (a CPU generator) gives the forward's seeds. ``shard``
+        places the rows in the global batch (module docstring)."""
         seeds: Sequence[Optional[int]] = [None] * self.num_layers
         if self.training and self.dropout > 0.0:
             if generator is None:
@@ -203,8 +220,8 @@ class MPNN(nn.Module):
         etype = etype if self.edge_features else None
         h = self.node_encoder(node_feat)
         for i, seed in enumerate(seeds):
-            h = getattr(self, f"conv_{i}")(h, adj, mask, etype, seed)
-            h = F.relu(getattr(self, f"bn_{i}")(h, mask))
+            h = getattr(self, f"conv_{i}")(h, adj, mask, etype, seed, shard)
+            h = F.relu(getattr(self, f"bn_{i}")(h, mask, shard))
         # zero padded slots before pooling (BN shifts them off zero)
         h = h * mask[..., None].to(h.dtype)
         out = self.output_head(pool(h, mask, self.pooling))

@@ -5,7 +5,8 @@ absolute positional embeddings, a post-LN encoder stack (self-attention ->
 add -> LayerNorm -> FFN(ReLU) -> add -> LayerNorm), <bos> pooling with a masked-mean fallback, the '<q> u v' query readout, and
 the packed-row readout. Module and parameter names follow the flax ones
 (``embed``, ``pos``, ``layer_{i}/{qkv,out_proj,ff1,ff2,norm1,norm2}``,
-``norm``, ``cls``) so ``convert.py`` maps checkpoints mechanically.
+``norm``, ``cls``; ``layer_{i}/moe`` in place of ff1/ff2 with
+``moe_experts``) so ``convert.py`` maps checkpoints mechanically.
 
 Numerics follow flax: parameters are f32; the ``Dense`` layers inside the
 encoder and the attention compute in ``compute_dtype``; residual sums and
@@ -23,6 +24,17 @@ int32 seed per call), and by :func:`..ops.attention.cheap_dropout` after
 drawn on the host from the ``torch.Generator`` the caller passes, before
 any layer runs, so a checkpointed (``remat``) layer sees the same masks
 when it is recomputed.
+
+With ``moe_experts`` > 0 each layer's FFN is the Switch MoE FFN of
+:mod:`.moe` (valid tokens: the key mask, ``seg > 0`` for packed rows),
+whose expert hidden layer drops at ``p_drop`` with the ReLU site's seed;
+its load-balance losses, one a layer, are appended to the list a training
+forward is handed as ``aux``.
+
+Under data parallelism a forward is handed its ``shard`` of the global
+batch (``parallel.mesh.BatchShard``): every dropout mask is then the rows
+of the global mask that the rank holds, so a run on N ranks draws the
+masks of the same run on one process.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import cheap_dropout
 from ..ops.flash_attention import flash_attention
+from .moe import SwitchFFN
 
 LN_EPS = 1e-6            # flax nn.LayerNorm default
 _TRUNC_STD = 0.02        # flax truncated_normal(0.02): embed, pos, cls
@@ -70,11 +83,13 @@ class EncoderLayer(nn.Module):
     """Post-LN encoder layer (torch ``TransformerEncoderLayer`` semantics:
     norm_first=False, ReLU). ``p_attn`` drops attention probabilities,
     ``p_res`` the two [B, L, d] residual branches, ``p_ffn`` the
-    [B, L, d_ff] activation."""
+    [B, L, d_ff] activation; with ``moe_experts`` > 0 the FFN is a
+    :class:`SwitchFFN` whose hidden layer drops at ``p_moe``."""
 
     def __init__(self, d_model: int, nhead: int, d_ff: int,
                  dtype: torch.dtype = torch.float32, p_attn: float = 0.0,
-                 p_res: float = 0.0, p_ffn: float = 0.0):
+                 p_res: float = 0.0, p_ffn: float = 0.0, moe_experts: int = 0,
+                 moe_capacity: float = 1.25, p_moe: float = 0.0):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -85,25 +100,37 @@ class EncoderLayer(nn.Module):
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff1 = nn.Linear(d_model, d_ff)
-        self.ff2 = nn.Linear(d_ff, d_model)
+        if moe_experts > 0:
+            self.moe = SwitchFFN(d_model, d_ff, moe_experts, moe_capacity, p_moe, dtype)
+        else:
+            self.ff1 = nn.Linear(d_model, d_ff)
+            self.ff2 = nn.Linear(d_ff, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
-        for lin in (self.qkv, self.out_proj, self.ff1, self.ff2):
+        for lin in (self.qkv, self.out_proj):
             _lecun_normal_(lin, generator)
+        if hasattr(self, "moe"):
+            self.moe.reset_parameters(generator)
+        else:
+            _lecun_normal_(self.ff1, generator)
+            _lecun_normal_(self.ff2, generator)
         for norm in (self.norm1, self.norm2):
             nn.init.ones_(norm.weight)
             nn.init.zeros_(norm.bias)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor,
-                seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """x [B, L, d] f32, seg [B, L] int32 (0 = pad) -> [B, L, d] f32.
-        ``seeds`` (attention, out_proj, ReLU, ff2) turns dropout on; None
-        is the deterministic forward."""
+                seeds: Optional[Sequence[int]] = None, shard=None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x [B, L, d] f32, seg [B, L] int32 (0 = pad) -> ([B, L, d] f32,
+        the MoE aux loss of a training forward or None). ``seeds``
+        (attention, out_proj, ReLU, ff2) turns dropout on; None is the
+        deterministic forward. ``shard``: the rows' place in the global
+        batch (module docstring)."""
         b, l, d = x.shape
         h = self.nhead
         s_attn, s_out, s_relu, s_ff2 = seeds if seeds is not None else (None,) * 4
+        row0 = 0 if shard is None else shard.start
         # q|k|v along the last axis (jnp.split order); each stays a strided
         # view of qkv, which the kernels read in place
         q, k, v = _dense(self.qkv, x, self.dtype).split(d, dim=-1)
@@ -111,18 +138,22 @@ class EncoderLayer(nn.Module):
                                k.unflatten(-1, (h, d // h)),
                                v.unflatten(-1, (h, d // h)), seg=seg,
                                p_drop=self.p_attn if seeds is not None else 0.0,
-                               seed=s_attn)
+                               seed=s_attn, bh_offset=row0 * h)
         attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
         if seeds is not None:
-            attn = cheap_dropout(s_out, attn, self.p_res)
+            attn = cheap_dropout(s_out, attn, self.p_res, batch_offset=row0)
         x = _layer_norm(self.norm1, x + attn.float())
-        y = F.relu(_dense(self.ff1, x, self.dtype))
+        aux = None
+        if hasattr(self, "moe"):
+            y, aux = self.moe(x.to(self.dtype), seg > 0, s_relu, shard)
+        else:
+            y = F.relu(_dense(self.ff1, x, self.dtype))
+            if seeds is not None:
+                y = cheap_dropout(s_relu, y, self.p_ffn, batch_offset=row0)
+            y = _dense(self.ff2, y, self.dtype)
         if seeds is not None:
-            y = cheap_dropout(s_relu, y, self.p_ffn)
-        y = _dense(self.ff2, y, self.dtype)
-        if seeds is not None:
-            y = cheap_dropout(s_ff2, y, self.p_res)
-        return _layer_norm(self.norm2, x + y.float())
+            y = cheap_dropout(s_ff2, y, self.p_res, batch_offset=row0)
+        return _layer_norm(self.norm2, x + y.float()), aux
 
 
 def transformer_embed(embed: nn.Embedding, pos_embed: nn.Embedding,
@@ -199,7 +230,9 @@ class SimpleTransformer(nn.Module):
     from the other three, ``resid_p_drop`` / ``ffn_p_drop`` split those
     into the two residual sites and the FFN-inner site (None: inherit).
     ``remat`` recomputes each encoder layer in the backward pass instead of
-    keeping its activations."""
+    keeping its activations. ``moe_experts`` > 0 makes every layer's FFN a
+    Switch MoE FFN of that many experts at capacity factor
+    ``moe_capacity``."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, nhead: int = 8,
                  nlayers: int = 4, d_ff: int = 512, p_drop: float = 0.1,
@@ -211,6 +244,7 @@ class SimpleTransformer(nn.Module):
                  mlp_p_drop: Optional[float] = None,
                  resid_p_drop: Optional[float] = None,
                  ffn_p_drop: Optional[float] = None,
+                 moe_experts: int = 0, moe_capacity: float = 1.25,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if compute_dtype not in ("float32", "bfloat16"):
@@ -232,11 +266,13 @@ class SimpleTransformer(nn.Module):
         p_mlp = p_drop if mlp_p_drop is None else mlp_p_drop
         p_res = p_mlp if resid_p_drop is None else resid_p_drop
         p_ffn = p_mlp if ffn_p_drop is None else ffn_p_drop
-        self.has_dropout = max(p_attn, p_res, p_ffn) > 0.0
+        self.has_dropout = max(p_attn, p_res, p_ffn,
+                               p_drop if moe_experts > 0 else 0.0) > 0.0
         for i in range(nlayers):
             self.add_module(f"layer_{i}",
                             EncoderLayer(d_model, nhead, d_ff, cdtype,
-                                         p_attn, p_res, p_ffn))
+                                         p_attn, p_res, p_ffn, moe_experts,
+                                         moe_capacity, p_drop))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         readout_width = 3 * d_model if use_query_nodes else d_model
         self.cls = nn.Linear(readout_width, num_classes)
@@ -263,13 +299,16 @@ class SimpleTransformer(nn.Module):
                 pos_bos: Optional[torch.Tensor] = None,
                 pos_u: Optional[torch.Tensor] = None,
                 pos_v: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard=None, aux: Optional[list] = None) -> torch.Tensor:
         """x [B, L] int token ids, attn_mask [B, L] bool. Unpacked rows
         (seg None) return [B, C] ([B] for zinc); packed rows (seg [B, L]
         segment ids with within-segment ``pos`` and readout slots
         ``pos_bos``/``pos_u``/``pos_v`` [B, K]) return [B, K, C].
         In ``train()`` mode with a non-zero dropout rate, ``generator`` (a
-        CPU generator) gives the forward's dropout seeds."""
+        CPU generator) gives the forward's dropout seeds. ``shard`` places
+        the rows in the global batch (data parallelism); a training forward
+        of an MoE model appends its layers' aux losses to ``aux``."""
         h = transformer_embed(self.embed, self.pos, x, pos)
         seg_ids = (attn_mask if seg is None else seg).to(torch.int32).contiguous()
         seeds = [None] * self.nlayers
@@ -284,10 +323,12 @@ class SimpleTransformer(nn.Module):
                                   generator=generator).tolist()
         for layer, layer_seeds in zip(self.layers(), seeds):
             if self.remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, seg_ids, layer_seeds,
-                               use_reentrant=False)
+                h, layer_aux = checkpoint(layer, h, seg_ids, layer_seeds, shard,
+                                          use_reentrant=False)
             else:
-                h = layer(h, seg_ids, layer_seeds)
+                h, layer_aux = layer(h, seg_ids, layer_seeds, shard)
+            if layer_aux is not None and aux is not None:
+                aux.append(layer_aux)
         return transformer_readout(
             lambda t: _layer_norm(self.norm, t), self.cls, h, x, attn_mask,
             task=self.task, use_query_nodes=self.use_query_nodes,

@@ -98,14 +98,28 @@ def _keep_threshold(p_drop: float) -> int:
     return min(int(p_drop * 4294967296.0), 4294967295)
 
 
+def _check_bh_offset(bh_offset, bh: int) -> int:
+    """The offset of this call's first batch*head row in the global index
+    space: a data-parallel rank's rows are rows of the global batch, so its
+    keep masks are the matching rows of the global mask."""
+    bh_offset = int(bh_offset)
+    if bh_offset < 0 or bh_offset + bh > 2**32:
+        raise ValueError(f"bh_offset {bh_offset} with {bh} batch*head rows leaves "
+                         "the u32 index space")
+    return bh_offset
+
+
 def dropout_keep_reference(seed: int, bh: int, n_rows: int, n_cols: int,
                            p_drop: float,
-                           device: torch.device | str = "cpu") -> torch.Tensor:
+                           device: torch.device | str = "cpu",
+                           bh_offset: int = 0) -> torch.Tensor:
     """[bh, n_rows, n_cols] bool keep mask, bit-identical to the kernel's
-    stream and to the JAX package's ``dropout_keep_reference``."""
+    stream and to the JAX package's ``dropout_keep_reference``; with
+    ``bh_offset``, rows ``bh_offset ..`` of the mask of a larger batch."""
     idx = dict(dtype=torch.int64, device=device)
     x = _hash_u32(_seed_u32(seed),
-                  torch.arange(bh, **idx)[:, None, None],
+                  torch.arange(bh, **idx)[:, None, None]
+                  + _check_bh_offset(bh_offset, bh),
                   torch.arange(n_rows, **idx)[None, :, None],
                   torch.arange(n_cols, **idx)[None, None, :])
     return x >= _keep_threshold(p_drop)
@@ -117,7 +131,8 @@ def dropout_keep_reference(seed: int, bh: int, n_rows: int, n_cols: int,
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, seg: torch.Tensor,
-                              p_drop: float = 0.0, seed: int = 0
+                              p_drop: float = 0.0, seed: int = 0,
+                              bh_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense masked attention in f32 with the kernel's semantics.
 
@@ -134,8 +149,8 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(logits - m) * allow
     denom = p.sum(dim=-1, keepdim=True)
     if p_drop > 0.0:
-        keep = dropout_keep_reference(seed, b * h, l, l, p_drop,
-                                      device=q.device).view(b, h, l, l)
+        keep = dropout_keep_reference(seed, b * h, l, l, p_drop, device=q.device,
+                                      bh_offset=bh_offset).view(b, h, l, l)
         p = torch.where(keep, p * (1.0 / (1.0 - p_drop)), 0.0)
     safe = torch.where(denom > 0, denom, 1.0)
     out = torch.einsum("bhls,bshd->bhld", p, vf) / safe
@@ -158,7 +173,7 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, seg: torch.Tensor,
                                   o: torch.Tensor, lse: torch.Tensor,
                                   do: torch.Tensor, p_drop: float = 0.0,
-                                  seed: int = 0
+                                  seed: int = 0, bh_offset: int = 0
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """The two backward kernels' formulae (``_bwd_dq_kernel``,
@@ -176,8 +191,8 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     dp = torch.einsum("blhd,bshd->bhls", dof, vf)
     delta = flash_attention_delta(o, do)[..., None]
     if p_drop > 0.0:
-        keep = dropout_keep_reference(seed, b * h, l, l, p_drop,
-                                      device=q.device).view(b, h, l, l)
+        keep = dropout_keep_reference(seed, b * h, l, l, p_drop, device=q.device,
+                                      bh_offset=bh_offset).view(b, h, l, l)
         keepf = keep * (1.0 / (1.0 - p_drop))
         pd = p * keepf
         dp = dp * keepf
@@ -205,7 +220,8 @@ class _BwdParams(ctypes.Structure):
                    ("scale", ctypes.c_float), ("scale_log2", ctypes.c_float),
                    ("dropout", ctypes.c_int), ("seed", ctypes.c_uint32),
                    ("keep_thresh", ctypes.c_uint32),
-                   ("keep_scale", ctypes.c_float)])
+                   ("keep_scale", ctypes.c_float),
+                   ("bh_offset", ctypes.c_uint32)])
 
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -213,7 +229,7 @@ _BWD_ARGTYPES = [ctypes.POINTER(_BwdParams), _I32, _I32, _PTR]
 _ARGTYPES = {
     "flash_attn_fwd": ([_PTR] * 6 + [_I64] * 9 + [_I32] * 5
                        + [ctypes.c_float, _I32, ctypes.c_uint32,
-                          ctypes.c_uint32, ctypes.c_float, _PTR]),
+                          ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32, _PTR]),
     "flash_attn_bwd_dq": _BWD_ARGTYPES,
     "flash_attn_bwd_dkv": _BWD_ARGTYPES,
 }
@@ -322,18 +338,20 @@ def _check_cuda(q, k, v, seg):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seg: torch.Tensor, p_drop: float = 0.0,
-                        seed: Optional[int] = None
+                        seed: Optional[int] = None, bh_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention forward over [B, L, H, D] inputs with segment masking and
-    optional in-kernel dropout. Returns (O [B, L, H, D] in q's dtype,
-    LSE [B, H, L] f32). CUDA tensors run the kernel; CPU tensors run
-    :func:`flash_attention_reference`."""
+    optional in-kernel dropout; ``bh_offset`` places the rows in the dropout
+    index space of a larger batch (:func:`dropout_keep_reference`). Returns
+    (O [B, L, H, D] in q's dtype, LSE [B, H, L] f32). CUDA tensors run the
+    kernel; CPU tensors run :func:`flash_attention_reference`."""
     _check(q, k, v, seg)
     p_drop = _check_p_drop(p_drop)
     seed = 0 if seed is None else int(seed)
     seed_u32 = _seed_u32(seed)
+    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, seg, p_drop, seed)
+        return flash_attention_reference(q, k, v, seg, p_drop, seed, bh_offset)
     _check_cuda(q, k, v, seg)
     b, l, h, d = q.shape
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -350,7 +368,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  v.stride(0), v.stride(1), v.stride(2),
                  b, l, h, d, int(q.dtype == torch.bfloat16),
                  1.0 / d ** 0.5, int(p_drop > 0.0), seed_u32,
-                 _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), stream)
+                 _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), bh_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
     LAUNCHES["flash_attn_fwd"] += 1
@@ -358,7 +376,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
-                p_drop: float, seed: int) -> None:
+                p_drop: float, seed: int, bh_offset: int) -> None:
     """Fill ``flash::BwdParams`` and launch backward kernel ``name``."""
     _check_cuda(q, k, v, seg)
     b, l, h, d = q.shape
@@ -385,7 +403,8 @@ def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
            for i, a in enumerate("blh")},
         B=b, L=l, H=h, scale=1.0 / d ** 0.5, scale_log2=0.0,
         dropout=int(p_drop > 0.0), seed=_seed_u32(seed),
-        keep_thresh=_keep_threshold(p_drop), keep_scale=1.0 / (1.0 - p_drop))
+        keep_thresh=_keep_threshold(p_drop), keep_scale=1.0 / (1.0 - p_drop),
+        bh_offset=bh_offset)
     fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -398,25 +417,27 @@ def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seg: torch.Tensor, o: torch.Tensor,
                            lse: torch.Tensor, do: torch.Tensor,
-                           p_drop: float = 0.0, seed: Optional[int] = None
+                           p_drop: float = 0.0, seed: Optional[int] = None,
+                           bh_offset: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dQ of attention, and delta = rowsum(dO * O) [B, H, L] f32 for
     :func:`flash_attention_bwd_dkv`. ``o`` and ``lse`` are the forward's
-    outputs for the same inputs, ``p_drop`` and ``seed``. CUDA tensors run
-    the dQ kernel; CPU tensors the plain version."""
+    outputs for the same inputs, ``p_drop``, ``seed`` and ``bh_offset``.
+    CUDA tensors run the dQ kernel; CPU tensors the plain version."""
     _check(q, k, v, seg)
     p_drop = _check_p_drop(p_drop)
     seed = 0 if seed is None else int(seed)
+    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
     if q.device.type == "cpu":
         dq = flash_attention_bwd_reference(q, k, v, seg, o, lse, do,
-                                           p_drop, seed)[0]
+                                           p_drop, seed, bh_offset)[0]
         return dq, flash_attention_delta(o, do)
     b, l, h, d = q.shape
     dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     if dq.numel():
         _launch_bwd("flash_attn_bwd_dq", q, k, v, seg, o, lse, do, delta,
-                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed)
+                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed, bh_offset)
     return dq, delta
 
 
@@ -424,7 +445,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             seg: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor,
                             delta: torch.Tensor, p_drop: float = 0.0,
-                            seed: Optional[int] = None
+                            seed: Optional[int] = None, bh_offset: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of attention, from the forward's ``o``/``lse`` and the
     ``delta`` that :func:`flash_attention_bwd_dq` returned. CUDA tensors run
@@ -432,20 +453,21 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, seg)
     p_drop = _check_p_drop(p_drop)
     seed = 0 if seed is None else int(seed)
+    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, seg, o, lse, do,
-                                             p_drop, seed)[1:]
+                                             p_drop, seed, bh_offset)[1:]
     b, l, h, d = q.shape
     dk = torch.empty((b, l, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, l, h, d), dtype=v.dtype, device=q.device)
     if dk.numel():
         _launch_bwd("flash_attn_bwd_dkv", q, k, v, seg, o, lse, do, delta,
-                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed)
+                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed, bh_offset)
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, seg, o, lse, do, p_drop: float = 0.0,
-                        seed: Optional[int] = None
+                        seed: Optional[int] = None, bh_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on the same stream
     (CPU tensors: one pass of :func:`flash_attention_bwd_reference`)."""
@@ -453,23 +475,26 @@ def flash_attention_bwd(q, k, v, seg, o, lse, do, p_drop: float = 0.0,
         _check(q, k, v, seg)
         return flash_attention_bwd_reference(
             q, k, v, seg, o, lse, do, _check_p_drop(p_drop),
-            0 if seed is None else int(seed))
-    dq, delta = flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed)
+            0 if seed is None else int(seed),
+            _check_bh_offset(bh_offset, q.shape[0] * q.shape[2]))
+    dq, delta = flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed,
+                                       bh_offset)
     dk, dv = flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta,
-                                     p_drop, seed)
+                                     p_drop, seed, bh_offset)
     return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``_flash_core`` with its custom gradient: forward kernel, and in the
     backward the dQ and dK/dV kernels on the saved q, k, v, O, LSE, seg and
-    seed (the dropout masks are regenerated, never stored)."""
+    seed and ``bh_offset`` (the dropout masks are regenerated, never
+    stored)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg, p_drop, seed):
-        o, lse = flash_attention_fwd(q, k, v, seg, p_drop, seed)
+    def forward(ctx, q, k, v, seg, p_drop, seed, bh_offset=0):
+        o, lse = flash_attention_fwd(q, k, v, seg, p_drop, seed, bh_offset)
         ctx.save_for_backward(q, k, v, seg, o, lse)
-        ctx.p_drop, ctx.seed = p_drop, seed
+        ctx.p_drop, ctx.seed, ctx.bh_offset = p_drop, seed, bh_offset
         return o
 
     @staticmethod
@@ -477,23 +502,24 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, seg, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, seg, o, lse, do,
-                                         ctx.p_drop, ctx.seed)
-        return dq, dk, dv, None, None, None
+                                         ctx.p_drop, ctx.seed, ctx.bh_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: Optional[torch.Tensor] = None, *,
                     seg: Optional[torch.Tensor] = None, p_drop: float = 0.0,
-                    seed: Optional[int] = None) -> torch.Tensor:
+                    seed: Optional[int] = None, bh_offset: int = 0) -> torch.Tensor:
     """The JAX package's ``flash_attention`` signature, differentiable in
     q, k, v: pass ``key_mask`` [B, L] bool (True = attend) or ``seg``
     [B, L] segment ids (0 = pad). ``p_drop`` > 0 drops attention
     probabilities inside the kernels by the counter hash of ``seed`` (an
-    int32). Returns O [B, L, H, D]."""
+    int32), at batch*head rows ``bh_offset ..`` of the global index space
+    (a data-parallel rank's rows; 0 on one process). Returns O [B, L, H, D]."""
     if seg is None:
         if key_mask is None:
             raise ValueError("flash_attention needs key_mask or seg")
         seg = key_mask
     return FlashAttentionFunction.apply(
         q, k, v, seg.to(torch.int32).contiguous(), float(p_drop),
-        0 if seed is None else int(seed))
+        0 if seed is None else int(seed), int(bh_offset))

@@ -3,11 +3,22 @@
     python -m glearning_benchmark_tpu_torch.train --model {ibtt,agtt,mpnn,ggps}
         [--config configs/X.yaml] [--epochs N] [--limit N] [--resume]
         [--eval-only] [--checkpoint P] [--device cuda|cpu]
+        [--dist-init URL]
 
 The flags and default configs (``configs/<model>_graph_token.yaml``) of
 the JAX package's root ``train.py``, plus ``--device``. A missing
 graph-token corpus is generated first. The run is on the GPU unless
 ``--device cpu`` is given; without a GPU the default raises.
+
+Data-parallel under torchrun, one rank a card over NCCL (or, with
+``--device cpu``, on the CPU over gloo):
+
+    torchrun --nproc_per_node=N -m glearning_benchmark_tpu_torch.train --model agtt ...
+
+``--dist-init`` replaces torchrun's ``env://`` rendezvous (e.g.
+``file:///path``, with ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set by
+the caller). A failed initialisation raises; the run never goes on as one
+process.
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ def main(argv=None) -> None:
                          "(default: <output.dir>/best_<run_name>)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: cuda (raises without a GPU)")
+    ap.add_argument("--dist-init", default="env://",
+                    help="rendezvous of a multi-rank run (default: torchrun's env://)")
     args = ap.parse_args(argv)
 
     config_path = args.config or MODEL_DEFAULT_CONFIGS[args.model]
@@ -60,11 +73,17 @@ def main(argv=None) -> None:
     if args.checkpoint:
         config["train"]["resume_path"] = args.checkpoint
 
-    print(f"Loaded config from: {config_path}")
-    print(f"Task: {config['dataset']['task']} | Model: {args.model}")
+    from ..parallel.data import initialize_distributed
+    rank_device = initialize_distributed(args.device, init_method=args.dist_init)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(f"Loaded config from: {config_path}")
+        print(f"Task: {config['dataset']['task']} | Model: {args.model}")
 
     from .trainer import train
-    train(config, args.model, limit=args.limit, device=args.device)
+    train(config, args.model, limit=args.limit, device=rank_device or args.device)
+    if rank_device is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

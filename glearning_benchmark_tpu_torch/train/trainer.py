@@ -26,12 +26,33 @@ adjacency cast to f32 per gathered batch, the bond-type matrix ``eadj``
 with ``model.edge_features``); their BatchNorm running statistics are
 updated by every train step, used by every eval pass, snapshotted with the
 parameters at the best epoch and saved as the checkpoint's
-``batch_stats``.
+``batch_stats``. With ``model.moe_experts`` the token models' FFNs are
+Switch MoE FFNs, and a training step adds their load-balance loss, weighted
+by ``model.moe_aux_weight`` (default 0.01), as the reference does.
 
-Not ported: the ``parallel.*`` layouts (ROADMAP queue A, item 9; any such
-key above 1 raises), the Switch MoE FFN (item 8), profiler traces
-(``train.profile_epochs``), W&B histograms and the images of
-``train/viz.py`` (the confusion matrix; the example-graph log is text).
+Data parallelism, as the JAX trainer runs on a 'data' mesh: when a process
+group of several ranks is initialised (``parallel.initialize_distributed``,
+e.g. under torchrun), every rank builds the same model from the same seed,
+draws the same shuffles and dropout seeds, and takes its contiguous block
+of every minibatch's rows (a packed row batch is first rounded to a
+multiple of the ranks). The loss is the global batch's: each rank's sum
+over its examples divided by the count all-reduced over the ranks, so the
+gradients all-reduced by sum are the single-process gradient, whatever
+valid examples each rank holds; the global norm is clipped (and reported)
+after that all-reduce. Dropout masks are the rank's rows of the global
+masks, BatchNorm statistics and the MoE loss are reduced over the global
+batch, and the epoch's train, val and test statistics are all-reduced, so
+every rank picks the same best epoch. A minibatch that does not divide by
+the ranks runs unsharded, as in the reference: every rank computes all of
+it, and the ranks average their gradients so that no rank drifts from
+the others where GPU sums are not deterministic. Only rank 0 writes the
+dataset cache, the log and the checkpoints; the others wait for it at a
+barrier.
+
+Not ported: the ``parallel.*`` axes other than 'data' and the manual EP
+dispatch (the next slice, ROADMAP queue A, item 9; any such key raises),
+profiler traces (``train.profile_epochs``), W&B histograms and the images
+of ``train/viz.py`` (the confusion matrix; the example-graph log is text).
 """
 
 from __future__ import annotations
@@ -40,10 +61,11 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -52,6 +74,8 @@ from ..convert import (batch_stats_to_flax, load_flax_params, opt_state_from_tor
 from ..models.gps import GPSModel
 from ..models.mpnn import MPNN
 from ..models.transformer import SimpleTransformer
+from ..parallel.dist import all_reduce_metrics
+from ..parallel.mesh import BatchShard, make_mesh, shard_batch_spec
 from ..tokenization.vocab import SPECIAL
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint, serving_meta
@@ -133,9 +157,6 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
         )
     if model_name not in ("ibtt", "agtt"):
         raise ValueError(f"unknown model {model_name!r}")
-    if int(model_cfg.get("moe_experts", 0)) > 0:
-        raise NotImplementedError("the Switch MoE FFN is not ported yet "
-                                  "(ROADMAP queue A, item 8: models/moe.py)")
     if model_name == "ibtt":
         # from the dataset's vocab: the fixed ZINC vocab pins '<bos>' at 0,
         # the synthetic SPECIAL table at 1
@@ -163,6 +184,8 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
         compute_dtype=model_cfg.get("compute_dtype", "bfloat16"),
         # recompute encoder layers in the backward pass at long rows
         remat=bool(model_cfg.get("remat", seq_len >= 1024)),
+        moe_experts=int(model_cfg.get("moe_experts", 0)),
+        moe_capacity=float(model_cfg.get("moe_capacity", 1.25)),
         generator=generator,
     )
 
@@ -172,21 +195,24 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
 # ---------------------------------------------------------------------------
 
 def _apply_model(model, batch: Dict[str, torch.Tensor], bundle: DatasetBundle,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 shard: Optional[BatchShard] = None,
+                 aux: Optional[list] = None) -> torch.Tensor:
     """Logits of one gathered batch: [B] / [B, C] for unpacked rows and
-    graphs, [B, K] / [B, K, C] for packed rows."""
+    graphs, [B, K] / [B, K, C] for packed rows. ``shard``: the rows' place
+    in the global batch; a token model's MoE aux losses go to ``aux``."""
     if bundle.kind == "graphs":
         adj = batch["adj"].to(torch.float32)   # stored uint8
         return model(batch["node_feat"], adj, batch["mask"], etype=batch.get("eadj"),
-                     generator=generator)
+                     generator=generator, shard=shard)
     if "seg" in batch:
         return model(batch["ids"], batch["seg"] > 0,
                      q_token_id=bundle.q_token_id, seg=batch["seg"],
                      pos=batch["pos"], pos_bos=batch["pos_bos"],
                      pos_u=batch["pos_u"], pos_v=batch["pos_v"],
-                     generator=generator)
+                     generator=generator, shard=shard, aux=aux)
     return model(batch["ids"], batch["mask"], q_token_id=bundle.q_token_id,
-                 generator=generator)
+                 generator=generator, shard=shard, aux=aux)
 
 
 def _loss_inputs(logits, batch, bvalid):
@@ -255,6 +281,20 @@ def train_batch_size(bundle: DatasetBundle, batch_size: int) -> int:
     return max(1, round(batch_size * n_rows / max(n_examples, 1)))
 
 
+def data_parallel_rows(ranks: int, batch_size: int, train_bs: int,
+                       packed: bool) -> Tuple[int, bool]:
+    """(train row batch, whether minibatches shard) on a data axis of
+    ``ranks``, as the reference decides them: a packed split's derived row
+    batch is rounded down to a multiple of the ranks, and a minibatch
+    shards only when both ``batch_size`` and the row batch divide by the
+    ranks (otherwise every rank computes the whole of it)."""
+    if ranks == 1:
+        return train_bs, False
+    if packed:
+        train_bs = max(ranks, (train_bs // ranks) * ranks)
+    return train_bs, batch_size % ranks == 0 and train_bs % ranks == 0
+
+
 def build_optimizer(model: nn.Module, train_cfg: dict, steps_per_epoch: int):
     """(``ClippedAdamW`` over the model's parameters, schedule or None) as
     ``train_cfg`` asks: ``scheduler: cosine_with_warmup`` warms up over
@@ -277,6 +317,29 @@ def build_optimizer(model: nn.Module, train_cfg: dict, steps_per_epoch: int):
 
 def _gather(arrays: Dict[str, torch.Tensor], idx: torch.Tensor):
     return {k: v[idx] for k, v in arrays.items()}
+
+
+def _rows(t: torch.Tensor, shard: Optional[BatchShard]) -> torch.Tensor:
+    """This rank's block of a minibatch's index or validity row."""
+    return t if shard is None else t[shard.start:shard.stop]
+
+
+def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
+    dist.all_reduce(t)
+    return t
+
+
+def _all_reduce_grads(grads, mean_over: int = 0) -> List[torch.Tensor]:
+    """Sum the ranks' gradients (or, with ``mean_over`` ranks, average
+    them), all in one flat all-reduce."""
+    flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    if mean_over:
+        flat /= mean_over
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return out
 
 
 def _add_stats(total: Optional[dict], stats: dict) -> dict:
@@ -315,43 +378,74 @@ def _epoch_metrics(stats: Dict[str, np.ndarray], task: str) -> Dict[str, Any]:
 
 def train_epoch(model, opt: ClippedAdamW, arrays, idx, valid,
                 bundle: DatasetBundle, generator: Optional[torch.Generator],
-                max_steps: Optional[int] = None):
+                max_steps: Optional[int] = None, shard: Optional[BatchShard] = None,
+                moe_aux_weight: float = 0.01, replicas: int = 1):
     """One pass over the minibatches ``idx``/``valid`` ([nb, bs] device
     tensors). Returns (summed statistics, per-step losses [steps]), both on
-    the device: nothing is read back here."""
+    the device: nothing is read back here. With a ``shard`` this rank runs
+    its rows of every minibatch; the loss, the gradients and the returned
+    statistics and losses are the global batch's (module docstring). With
+    ``replicas`` > 1 that many ranks each run the whole of every minibatch
+    (an unsharded step); their gradients are averaged, so that every rank
+    applies the same update even where a kernel's sums are not
+    deterministic (the atomic adds of an embedding's backward on a GPU)."""
     model.train()
     params = opt.params
     total, losses = None, []
     steps = idx.shape[0] if max_steps is None else min(max_steps, idx.shape[0])
     for b in range(steps):
-        batch = _gather(arrays, idx[b])
-        logits = _apply_model(model, batch, bundle, generator)
-        lg, y, lvalid = _loss_inputs(logits, batch, valid[b])
+        batch = _gather(arrays, _rows(idx[b], shard))
+        aux: List[torch.Tensor] = []
+        logits = _apply_model(model, batch, bundle, generator, shard, aux)
+        lg, y, lvalid = _loss_inputs(logits, batch, _rows(valid[b], shard))
         loss, stats = _loss_and_stats(lg, y, lvalid, bundle.task,
                                       bundle.num_classes)
+        count = stats["count"]
+        if shard is not None:
+            # this rank's sum over the global count: the ranks' losses, and
+            # their gradients, sum to the global batch's
+            count = _all_reduce_(count.detach().clone())
+            loss = stats["loss_sum"] / count.clamp(min=1.0)
+        if aux:
+            # the mean of the layers' Switch losses; every rank holds the
+            # same global value, so each adds its share
+            loss = loss + moe_aux_weight * (sum(aux) / len(aux)) / (
+                1 if shard is None else shard.size)
         grads = torch.autograd.grad(loss, params)
+        if shard is not None:
+            grads = _all_reduce_grads(grads)
+        elif replicas > 1:
+            grads = _all_reduce_grads(grads, mean_over=replicas)
         # the gradient norm BEFORE clipping, as a per-epoch mean
-        has = (stats["count"] > 0).to(torch.float32)
+        has = (count > 0).to(torch.float32)
         stats["gn_sum"] = opt.step(grads) * has
         stats["gn_cnt"] = has
         total = _add_stats(total, stats)
         losses.append(loss.detach())
-    return total, torch.stack(losses)
+    losses = torch.stack(losses)
+    if shard is not None:
+        gn = {k: total.pop(k) for k in ("gn_sum", "gn_cnt")}
+        total = all_reduce_metrics({**total, "losses": losses}, shard)
+        losses = total.pop("losses")
+        total |= gn
+    return total, losses
 
 
 @torch.no_grad()
-def eval_epoch(model, arrays, idx, valid, bundle: DatasetBundle):
-    """Summed statistics of a deterministic pass, on the device."""
+def eval_epoch(model, arrays, idx, valid, bundle: DatasetBundle,
+               shard: Optional[BatchShard] = None):
+    """Summed statistics of a deterministic pass, on the device; with a
+    ``shard``, over this rank's rows of every batch, then all-reduced."""
     model.eval()
     total = None
     for b in range(idx.shape[0]):
-        batch = _gather(arrays, idx[b])
+        batch = _gather(arrays, _rows(idx[b], shard))
         logits = _apply_model(model, batch, bundle)
-        lg, y, lvalid = _loss_inputs(logits, batch, valid[b])
+        lg, y, lvalid = _loss_inputs(logits, batch, _rows(valid[b], shard))
         _, stats = _loss_and_stats(lg, y, lvalid, bundle.task,
                                    bundle.num_classes)
         total = _add_stats(total, stats)
-    return total
+    return total if shard is None else all_reduce_metrics(total, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -399,16 +493,30 @@ class RunLogger:
             self.wandb.finish()
 
 
+class _NoLog:
+    """The logger of a rank other than 0: rank 0 writes the run's log."""
+
+    def log(self, d: Dict[str, Any]):
+        pass
+
+    def finish(self):
+        pass
+
+
 def _check_parallel(config: dict) -> None:
+    """Refuse the mesh axes the port does not have yet: only 'data' is
+    ported (ROADMAP queue A, item 9: TP, the SP ring, PP and EP are next)."""
     parallel = config.get("parallel", {}) or {}
     for key in ("model_axis", "seq_shards", "pipe_stages", "expert_shards"):
         if int(parallel.get(key, 1)) > 1:
             raise NotImplementedError(
                 f"parallel.{key} > 1 is not ported yet (ROADMAP queue A, "
-                "item 9: parallel/); the port trains on one GPU")
+                "item 9: TP, the SP ring, PP and EP come with the next slice); "
+                "the port trains data-parallel only")
     if parallel.get("ep_manual"):
-        raise NotImplementedError("parallel.ep_manual is not ported yet "
-                                  "(ROADMAP queue A, item 9)")
+        raise NotImplementedError("parallel.ep_manual (the manual all-to-all MoE "
+                                  "dispatch) is not ported yet (ROADMAP queue A, "
+                                  "item 9: EP)")
 
 
 def _example_graphs(dataset_cfg: dict, task: str, seed: int) -> str:
@@ -433,13 +541,20 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
           verbose: bool = True,
           device: Optional[str | torch.device] = None) -> TrainResult:
     """Train ``model_name`` as ``config`` says. ``device=None`` means cuda
-    and raises when there is no GPU; pass ``"cpu"`` to train on the CPU."""
+    and raises when there is no GPU; pass ``"cpu"`` to train on the CPU.
+    With an initialised process group of several ranks, the run is
+    data-parallel over them (module docstring)."""
     device = resolve_device(device)
     dataset_cfg = config["dataset"]
     train_cfg = config.get("train", {})
     output_cfg = config.get("output", {})
     wandb_cfg = config.get("wandb", {"use": False})
     _check_parallel(config)
+    mesh = make_mesh()
+    if mesh.size == 1:
+        mesh = None
+    main = mesh is None or mesh.rank == 0
+    verbose = verbose and main
 
     seed = int(train_cfg.get("seed", 0))
     epochs = int(train_cfg.get("epochs", 100))
@@ -447,7 +562,12 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     lr = float(train_cfg.get("lr", 1e-3))
     task = dataset_cfg["task"]
 
-    bundle = build_dataset(model_name, dataset_cfg, seed, limit=limit)
+    if main:   # generates a missing corpus and writes the bundle cache
+        bundle = build_dataset(model_name, dataset_cfg, seed, limit=limit)
+    if mesh is not None:
+        dist.barrier()
+    if not main:
+        bundle = build_dataset(model_name, dataset_cfg, seed, limit=limit)
     n_train = bundle.n("train")
     if n_train == 0:
         raise RuntimeError("No training examples found. Did you run the task generator?")
@@ -456,7 +576,11 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     # throughput in examples
     packed_train = "seg" in bundle.splits["train"]
     n_train_examples = int(bundle.meta.get("n_examples_train", n_train))
-    train_bs = train_batch_size(bundle, batch_size)
+    train_bs, sharded = data_parallel_rows(mesh.size if mesh else 1, batch_size,
+                                           train_batch_size(bundle, batch_size),
+                                           packed_train)
+    train_shard = shard_batch_spec(mesh, train_bs) if sharded else None
+    eval_shard = shard_batch_spec(mesh, batch_size) if sharded else None
     if verbose:
         print(f"#train: {n_train} | #val: {bundle.n('val')} | #test: {bundle.n('test')}")
         if packed_train:
@@ -488,7 +612,8 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
         wandb_name = run_name
     else:
         wandb_name = f"{run_name} ({'+'.join(dataset_cfg.get('train_algorithms', []))})"
-    logger = RunLogger(out_dir, run_name, wandb_cfg, config, wandb_name=wandb_name)
+    logger = (RunLogger(out_dir, run_name, wandb_cfg, config, wandb_name=wandb_name)
+              if main else _NoLog())
     logger.log({"model/num_parameters": num_params})
 
     zinc = task == "zinc"
@@ -542,6 +667,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     # The epoch count rounds UP to a multiple of K, as in the reference.
     k_disp = max(1, int(train_cfg.get("epochs_per_dispatch", 1)))
     metric_key, metric_name = ("mae", "mae") if zinc else ("accuracy", "acc")
+    moe_aux_weight = float(config.get("model", {}).get("moe_aux_weight", 0.01))
 
     epoch = start_epoch
     while epoch <= epochs:
@@ -552,8 +678,13 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             ep_start = time.time()
             idx = on_device(make_batches(n_train, train_bs, shuffle_rng)[0])
             tr_stats, losses = train_epoch(model, opt, dev_splits["train"], idx,
-                                           train_valid, bundle, generator)
-            va_stats = eval_epoch(model, dev_splits["val"], vidx, vvalid, bundle)
+                                           train_valid, bundle, generator,
+                                           shard=train_shard,
+                                           moe_aux_weight=moe_aux_weight,
+                                           replicas=1 if sharded or mesh is None
+                                           else mesh.size)
+            va_stats = eval_epoch(model, dev_splits["val"], vidx, vvalid, bundle,
+                                  eval_shard)
             # the epoch's one read from the device
             tr_host, va_host, loss_host = _to_host(tr_stats, va_stats,
                                                    {"losses": losses})
@@ -610,14 +741,15 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             best_val = va_metrics[blk_ep]
             best = blk_best
             time_to_best = time.time() - t0
-            save_checkpoint(best_path, {
-                "params": params_to_flax(best["params"]),
-                "batch_stats": batch_stats_to_flax(best["params"]),
-                "opt_state": opt_state_from_torch(
-                    best["opt"], names, with_schedule=schedule is not None),
-                "epoch": epoch + blk_ep, "best_val": best_val,
-                "config": config, "vocab": bundle.vocab,
-                "serve": serving_meta(model_name, bundle)})
+            if main:
+                save_checkpoint(best_path, {
+                    "params": params_to_flax(best["params"]),
+                    "batch_stats": batch_stats_to_flax(best["params"]),
+                    "opt_state": opt_state_from_torch(
+                        best["opt"], names, with_schedule=schedule is not None),
+                    "epoch": epoch + blk_ep, "best_val": best_val,
+                    "config": config, "vocab": bundle.vocab,
+                    "serve": serving_meta(model_name, bundle)})
         epoch += k_disp
 
     total_time = time.time() - t0
@@ -629,7 +761,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     # eval-only (epochs=0 + resume): no epoch ran, so score the val split here
     if epochs < start_epoch and best is not None and bundle.n("val"):
         va = _epoch_metrics(_to_host(eval_epoch(
-            model, dev_splits["val"], vidx, vvalid, bundle))[0], task)
+            model, dev_splits["val"], vidx, vvalid, bundle, eval_shard))[0], task)
         va_metric = va[metric_key]
         logger.log({"val/loss": va["loss"], f"val/{metric_name}": va_metric})
         if verbose:
@@ -641,7 +773,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     else:
         tidx, tvalid = eval_batches["test"]
         te = _epoch_metrics(_to_host(eval_epoch(
-            model, dev_splits["test"], tidx, tvalid, bundle))[0], task)
+            model, dev_splits["test"], tidx, tvalid, bundle, eval_shard))[0], task)
 
     if verbose:
         print("\n" + "=" * 80 + "\nTEST RESULTS\n" + "=" * 80)
@@ -670,6 +802,8 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             test_log["test/mae"] = te.get("mae", 0)
     logger.log(test_log)
     logger.finish()
+    if mesh is not None:   # rank 0's checkpoint and log are on disk for all
+        dist.barrier()
 
     return TrainResult(best_val=best_val, test_metrics=te, history=history,
                        params=params_to_flax(model.state_dict()),

@@ -237,13 +237,13 @@ def test_hi_lo_rounding_holds_the_bf16_tolerance(d, p_drop):
     assert ((single.float() - ro).abs() > BF16_RTOL * ro.abs() + O_ATOL).any()
 
 
-def _check_kernel(q, k, v, seg, p_drop, seed):
+def _check_kernel(q, k, v, seg, p_drop, seed, bh_offset=0):
     """The kernel against its plain version on the same inputs: O within one
     bf16 rounding (bf16) or 2e-5 relative (f32), LSE within 1e-4; pad rows
     exactly zero with LSE -1e30."""
-    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed, bh_offset)
     ro, rl = fa.flash_attention_reference(q.float(), k.float(), v.float(), seg,
-                                          p_drop, seed)
+                                          p_drop, seed, bh_offset)
     torch.cuda.synchronize()
     rel = BF16_RTOL if q.dtype == torch.bfloat16 else 2e-5
     assert ((o.float() - ro).abs() <= rel * ro.abs() + O_ATOL).all()
@@ -254,21 +254,23 @@ def _check_kernel(q, k, v, seg, p_drop, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("p_drop,bh_offset", [(0.0, 0), (0.1, 0), (0.1, 6)])
 @pytest.mark.parametrize("l", [300, 130])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-def test_kernel_matches_plain(d, dtype, l, p_drop):
+def test_kernel_matches_plain(d, dtype, l, p_drop, bh_offset):
     """The CUDA kernel against its plain version on the card, contiguous
     q, k, v: row 0 packed, row 1 all pad, row 2 one-token segments and a
-    segment across the 64-row tile border; L not a multiple of 64."""
+    segment across the 64-row tile border; L not a multiple of 64.
+    ``bh_offset`` 6: the rows of rank 1 of two, whose dropout masks are
+    rows 6-11 of the global batch's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to("cuda", dt)
                for a in _qkv((3, l, 2, d), seed=d + l))
     seg = torch.from_numpy(_edge_segs(3, l)).cuda()
-    _check_kernel(q, k, v, seg, p_drop, 99)
+    _check_kernel(q, k, v, seg, p_drop, 99, bh_offset)
 
 
 def _fused_qkv_views(shape, seed, device="cpu", dtype=torch.float32):

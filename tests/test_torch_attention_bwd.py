@@ -233,11 +233,11 @@ def test_hi_lo_rounding_holds_the_bf16_tolerance(d, p_drop):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["fused", "odd"])
-@pytest.mark.parametrize("p_drop", [0.0, 0.1])
+@pytest.mark.parametrize("p_drop,bh_offset", [(0.0, 0), (0.1, 0), (0.1, 6)])
 @pytest.mark.parametrize("l", [300, 130])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-def test_backward_kernels_match_plain(d, dtype, l, p_drop, layout):
+def test_backward_kernels_match_plain(d, dtype, l, p_drop, bh_offset, layout):
     """The dQ and dK/dV kernels against the plain backward on the card:
     row 0 packed, row 1 all pad, row 2 one-token segments and a segment
     across the 64-row tile border; L not a multiple of 64. ``fused``: q, k,
@@ -245,7 +245,7 @@ def test_backward_kernels_match_plain(d, dtype, l, p_drop, layout):
     operand a view with an odd row stride and offset (no cp.async piece
     fits, so the bf16 kernels stage it by plain loads). Within one bf16
     rounding (bf16) or 1e-4 relative (f32); pad rows exactly zero; dK/dV
-    bit-equal on two runs."""
+    bit-equal on two runs. ``bh_offset`` 6: the rows of rank 1 of two."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dt = getattr(torch, dtype)
@@ -263,12 +263,13 @@ def test_backward_kernels_match_plain(d, dtype, l, p_drop, layout):
     else:
         q, k, v, do = (normal(b, l, h, d + 1)[..., 1:] for _ in range(4))
     seg = torch.from_numpy(_edge_segs(b, l)).cuda()
-    o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, 99)
-    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, 99)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, 99)
-    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, p_drop, 99)
+    args = (p_drop, 99, bh_offset)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, *args)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, *args)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, *args)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, *args)
     ref = fa.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
-                                           o, lse, do.float(), p_drop, 99)
+                                           o, lse, do.float(), *args)
     torch.cuda.synchronize()
     rel = 4e-3 if dtype == "bfloat16" else 1e-4
     pad = seg == 0

@@ -353,10 +353,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     bad["train"]["mu_dtype"] = "float16"
     with pytest.raises(ValueError, match="mu_dtype"):
         trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
-    moe = copy.deepcopy(config)
-    moe["model"]["moe_experts"] = 2
-    with pytest.raises(NotImplementedError, match="MoE"):
-        trainer.train(moe, "agtt", limit=8, verbose=False, device="cpu")
+    bad = {**config, "parallel": {"expert_shards": 1, "ep_manual": True}}
+    with pytest.raises(NotImplementedError, match="ep_manual"):
+        trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
 
 
 def test_make_batches_matches_jax():
