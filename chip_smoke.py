@@ -124,7 +124,25 @@ Phases; any failure exits non-zero before the last line is printed:
    the full splits (launch counts as in phase 6), its first 4 steps are held
    against the CPU's (2e-3), its best checkpoint serves the trainer's own
    logits, and ``[time]`` lines profile its steady train steps.
-10. One JSON line of every kernel (name, launches, errors, times, bound),
+10. The other mesh axes, each through ``train()`` on two spawned ranks (as
+   in phase 9) against one process, at f32 and at bf16, 2 epochs:
+   tensor parallelism (``model_axis: 2``) at agtt_zinc width on packed
+   rows; sequence parallelism (``seq_shards: 2``, the ring) at ibtt_zinc
+   width on unpacked rows (``max_len`` 1024; the stand-in's longest row
+   sets the width, 256); the pipeline (``pipe_stages: 2``,
+   ``pipe_microbatches: 2``) at agtt_zinc width; expert parallelism at
+   agtt_zinc width with ``moe_experts: 4`` and ``expert_shards: 2``, auto
+   and ``ep_manual``. Each run: every rank reports the same metrics; the
+   kernels' launch counters on each rank are what the schedule implies
+   (TP, PP and EP: the one process's; SP: none, the ring runs no kernel);
+   losses finite and falling; the first 4 step losses within 1e-4
+   relative (f32) or 2e-3 (bf16) of the one process's; the best checkpoint,
+   gathered whole by the ranks, served on cuda by one process within 1e-6 of
+   the logits of the model the ranks' ``train()`` returned. Examples/s and
+   seconds an epoch are printed beside the card. On four cards or more the
+   ranks run over NCCL, a card each, and a four-rank run of data 2 x model
+   2 (agtt_zinc width, f32) is held to one process the same way.
+11. One JSON line of every kernel (name, launches, errors, times, bound),
    then the result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -1559,7 +1577,7 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
     from glearning_benchmark_tpu_torch.ops import flash_attention as fa
     from glearning_benchmark_tpu_torch.parallel import host_shard_bounds, initialize_distributed
     from glearning_benchmark_tpu_torch.parallel.multiproc import multiprocess_zinc_vocab
-    from glearning_benchmark_tpu_torch.train.trainer import train
+    from glearning_benchmark_tpu_torch.train.trainer import _apply_model, train
 
     dev = initialize_distributed("cuda", backend, init)
     results = {"device": str(dev), "backend": dist.get_backend()}
@@ -1575,39 +1593,49 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
         res = train(job["config"], job["model"], limit=job["limit"], verbose=False,
                     device=dev)
         torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        # the model train() returned (whole, on this rank) on the first val rows
+        val = res.bundle.splits["val"]
+        batch = {k: torch.from_numpy(v[:CPU_CHECK_ROWS]).to(dev) for k, v in val.items()}
+        res.model.eval()
+        with torch.no_grad():
+            logits = _apply_model(res.model, batch, res.bundle).float().cpu()
         results[job["name"]] = {
             "history": res.history, "steps": [s.tolist() for s in res.step_losses],
-            "launches": dict(fa.LAUNCHES), "seconds": time.perf_counter() - t0,
-            "sharded": sharding(res.bundle, job["config"], world)}
+            "launches": launches, "seconds": time.perf_counter() - t0,
+            "sharded": sharding(res.bundle, job["config"], world), "logits": logits}
     torch.save(results, f"{out}.{rank}")
     dist.destroy_process_group()
 
 
 def sharding(bundle, config: dict, ranks: int) -> tuple:
-    """(whether a run's minibatches shard over ``ranks``, as ``train()``
-    decides it, and a line that says so)."""
+    """(whether a run's minibatches shard over the 'data' axis that
+    ``ranks`` leave the config's other axes, as ``train()`` decides it, and
+    a line that says so)."""
     from glearning_benchmark_tpu_torch.train.trainer import (data_parallel_rows,
                                                              train_batch_size)
 
+    other = math.prod(int(v) for k, v in config.get("parallel", {}).items()
+                      if k in ("model_axis", "seq_shards", "pipe_stages", "expert_shards"))
     bs = int(config["train"]["batch_size"])
-    rows, sharded = data_parallel_rows(ranks, bs, train_batch_size(bundle, bs),
+    rows, sharded = data_parallel_rows(ranks // other, bs, train_batch_size(bundle, bs),
                                        "seg" in bundle.splits["train"])
     return sharded, (f"{'sharded' if sharded else 'NOT sharded'}: batch {bs}, train "
-                     f"rows {rows} over {ranks} ranks")
+                     f"rows {rows} over a data axis of {ranks // other}")
 
 
-def run_ranks(jobs: list, tmp: str) -> list:
-    """Run ``jobs`` on ``DP_RANKS`` spawned ranks: NCCL when every rank has
+def run_ranks(jobs: list, tmp: str, ranks: int = DP_RANKS, name: str = "dp") -> list:
+    """Run ``jobs`` on ``ranks`` spawned ranks: NCCL when every rank has
     a card of its own, else gloo with CUDA tensors (NCCL refuses two ranks
     on one card). Any rank's failure fails the phase; no rank outlives it."""
     import multiprocessing as mp
 
-    backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
-    init = f"file://{tmp}/dp.rdzv"
-    out = os.path.join(tmp, "dp_result")
+    backend = "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+    init = f"file://{tmp}/{name}.rdzv"
+    out = os.path.join(tmp, f"{name}_result")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=dp_worker, args=(r, DP_RANKS, backend, init, jobs, out))
-             for r in range(DP_RANKS)]
+    procs = [ctx.Process(target=dp_worker, args=(r, ranks, backend, init, jobs, out))
+             for r in range(ranks)]
     t0 = time.perf_counter()
     try:
         for proc in procs:
@@ -1620,11 +1648,11 @@ def run_ranks(jobs: list, tmp: str) -> list:
                 proc.kill()
                 proc.join()
     codes = [proc.exitcode for proc in procs]
-    log(f"[dp] {DP_RANKS} ranks over {backend} on {torch.cuda.device_count()} visible "
+    log(f"[{name}] {ranks} ranks over {backend} on {torch.cuda.device_count()} visible "
         f"card(s): exit codes {codes}, {time.perf_counter() - t0:.1f} s")
-    if codes != [0] * DP_RANKS:
-        raise AssertionError(f"a data-parallel rank failed: exit codes {codes}")
-    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(DP_RANKS)]
+    if codes != [0] * ranks:
+        raise AssertionError(f"a rank failed: exit codes {codes}")
+    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(ranks)]
 
 
 def _metrics(history: list) -> list:
@@ -1767,6 +1795,137 @@ def dp_moe_phase(fa, tmp: str, gt_root: str, graphs, seg_train, gen, p: float,
     trained_checkpoint_serves(res, moe_cfg, graphs)
     train_step_breakdown(res, moe_cfg)
     return errs, berrs, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the other mesh axes (TP, the SP ring, PP, EP)
+# ---------------------------------------------------------------------------
+
+MESH_EPOCHS = 2
+MESH_LIMIT = 2048         # ZINC train graphs of the TP, PP and EP runs
+SP_LIMIT = 512            # of the SP runs (ibtt_zinc width, unpacked)
+SP_BATCH = 32
+MESH_STEP_RTOL = 1e-4     # f32 first steps, as phase 9 (bf16: STEP_LOSS_ATOL)
+
+
+def mesh_runs(tmp: str, bs: int) -> dict:
+    """{name: (model, config, limit, ranks)} of phase 10; ``bs`` is a batch
+    size whose packed row batch divides over two (the pipeline's
+    microbatches, the manual EP rows)."""
+    zinc_root = os.path.join(tmp, "ZINC")
+    out = os.path.join(tmp, "runs_mesh")
+    moe = {**AGTT_ZINC_MODEL, "moe_experts": MOE_EXPERTS}
+    axes = {"tp": ("agtt", AGTT_ZINC_MODEL, True, {"model_axis": 2}),
+            "sp": ("ibtt", IBTT_ZINC_MODEL, False, {"seq_shards": 2}),
+            "pp": ("agtt", AGTT_ZINC_MODEL, True, {"pipe_stages": 2, "pipe_microbatches": 2}),
+            "ep": ("agtt", moe, True, {"expert_shards": 2}),
+            "ep_manual": ("agtt", moe, True, {"expert_shards": 2, "ep_manual": True})}
+    runs = {}
+    for axis, (model_name, model_cfg, pack, par) in axes.items():
+        for dt in ("float32", "bfloat16"):
+            name = f"{axis}_{dt}"
+            cfg = train_config(model_name, {**model_cfg, "compute_dtype": dt}, zinc_root,
+                               os.path.join(out, name), pack, MESH_EPOCHS,
+                               batch_size=SP_BATCH if axis == "sp" else bs)
+            cfg["parallel"] = par
+            runs[name] = (model_name, cfg, SP_LIMIT if axis == "sp" else MESH_LIMIT,
+                          DP_RANKS)
+    if torch.cuda.device_count() >= 4:
+        model_name, cfg, limit, _ = runs["tp_float32"]
+        cfg = {**cfg, "output": {**cfg["output"], "out_dir": os.path.join(out, "dm")}}
+        runs["data2_model2_float32"] = (model_name, cfg, limit, 4)
+    return runs
+
+
+def mesh_against_single(name: str, ranks: list, cfg: dict, single,
+                        single_launches: dict, graphs, card: str) -> None:
+    """Phase 10's checks of one run (module docstring)."""
+    import numpy as np
+
+    from glearning_benchmark_tpu_torch.serve import Predictor
+
+    got = [r[name] for r in ranks]
+    for r, g in enumerate(got[1:], 1):
+        if _metrics(g["history"]) != _metrics(got[0]["history"]):
+            raise AssertionError(f"{name}: rank {r} disagrees with rank 0")
+    want = ({k: 0 for k in single_launches} if name.startswith("sp_")
+            else single_launches)
+    for r, g in enumerate(got):
+        if g["launches"] != want:
+            raise AssertionError(f"{name}: rank {r} kernel launches {g['launches']}, "
+                                 f"expected {want}")
+    layout = (f"{len(got)} ranks sharing one card (not a scaling figure)"
+              if torch.cuda.device_count() < len(got) else f"{len(got)} ranks, a card each")
+    for h, w in zip(got[0]["history"], single.history):
+        log(f"[mesh] {name} epoch {h['epoch']}: train loss {h['train/loss']:.6f} "
+            f"(one process {w['train/loss']:.6f}), val loss {h['val/loss']:.6f} "
+            f"({w['val/loss']:.6f}); {h['throughput/graphs_per_sec']:.1f} examples/s, "
+            f"{h['time/epoch_duration']:.2f} s an epoch on {layout} (one process "
+            f"{w['throughput/graphs_per_sec']:.1f}, {w['time/epoch_duration']:.2f} s) "
+            f"on {card}")
+    steps = np.array(got[0]["steps"][0][:CPU_CHECK_STEPS])
+    want_steps = np.asarray(single.step_losses[0][:CPU_CHECK_STEPS])
+    if name.endswith("float32"):
+        ok = bool(np.allclose(steps, want_steps, rtol=MESH_STEP_RTOL, atol=0))
+    else:
+        ok = bool(np.abs(steps - want_steps).max() <= STEP_LOSS_ATOL)
+    hist = got[0]["history"]
+    finite = all(math.isfinite(v) for g in got for h in g["history"]
+                 for v in (h["train/loss"], h["val/loss"]))
+    falls = hist[-1]["train/loss"] < hist[0]["train/loss"]
+    # the best checkpoint the ranks gathered, served by one process
+    path = os.path.join(cfg["output"]["out_dir"], f"best_{cfg['output']['run_name']}")
+    pred = Predictor.from_checkpoint(path, max_batch=MAX_BATCH, device="cuda")
+    served = pred.predict_graphs(graphs[:CPU_CHECK_ROWS])["pred"]
+    err = float(abs(served - got[0]["logits"].numpy()).max())
+    log(f"[mesh] {name}: first {len(steps)} step losses {steps.tolist()} against one "
+        f"process {want_steps.tolist()}; launches a rank {got[0]['launches']}; the "
+        f"gathered best checkpoint served by one process against the ranks' model: "
+        f"max|d| {err:.3e} (atol {SERVED_LOGIT_ATOL:g}); rank 0 call "
+        f"{got[0]['seconds']:.1f} s; parallel {cfg['parallel']}")
+    if not (finite and falls and ok and err <= SERVED_LOGIT_ATOL
+            and len(hist) == len(single.history)):
+        raise AssertionError(f"{name}: the ranks disagree with one process "
+                             f"(finite {finite}, falls {falls}, steps {ok}, served {err})")
+
+
+def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
+    """Phase 10 (module docstring). Returns the launches by path."""
+    import copy
+
+    from glearning_benchmark_tpu_torch.train.datasets import build_dataset
+
+    ds = train_config("agtt", AGTT_ZINC_MODEL, os.path.join(tmp, "ZINC"), "", True, 1)
+    bs = even_row_batch(build_dataset("agtt", ds["dataset"], ZINC_TRAIN["seed"],
+                                      limit=MESH_LIMIT), ZINC_TRAIN["batch_size"])
+    runs = mesh_runs(tmp, bs)
+    log(f"[mesh] {len(runs)} runs of {MESH_EPOCHS} epochs: agtt_zinc width on "
+        f"{MESH_LIMIT} stand-in graphs a split, batch size {bs}; ibtt_zinc width "
+        f"on {SP_LIMIT}, batch size {SP_BATCH}")
+    launches, single = {}, {}
+    for name, (model_name, cfg, limit, _) in runs.items():
+        if name.startswith("data2"):       # the same run as tp_float32's
+            single[name] = single["tp_float32"]
+            continue
+        one = copy.deepcopy(cfg)
+        one.pop("parallel")
+        one["output"]["out_dir"] += "_one_process"
+        single[name], launches[f"train_{name}_one_process"] = train_phase(
+            fa, model_name, one, limit, card)
+    for world in sorted({r[3] for r in runs.values()}):
+        jobs = [{"kind": "train", "name": name, "model": m, "config": cfg, "limit": limit}
+                for name, (m, cfg, limit, w) in runs.items() if w == world]
+        ranks = run_ranks(jobs, tmp, ranks=world, name=f"mesh{world}")
+        log(f"[mesh] rank devices {[r['device'] for r in ranks]}, backend "
+            f"{ranks[0]['backend']}")
+        for job in jobs:
+            name = job["name"]
+            one = "tp_float32" if name.startswith("data2") else name
+            mesh_against_single(name, ranks, job["config"], single[name],
+                                launches[f"train_{one}_one_process"], graphs, card)
+            for r, rank in enumerate(ranks):
+                launches[f"train_{name}_rank{r}"] = rank[name]["launches"]
+    return launches
 
 
 def main() -> int:
@@ -1996,7 +2155,13 @@ def main() -> int:
         berrs += dberrs
         log(f"[phase] data parallelism and MoE {time.perf_counter() - t0:.1f} s")
 
-    # phase 10: the kernels line, then the result
+        # phase 10: the other mesh axes (TP, the SP ring, PP, EP), two ranks
+        # against one process
+        t0 = time.perf_counter()
+        dp_launches.update(mesh_phase(fa, tmp, graphs, card))
+        log(f"[phase] mesh axes {time.perf_counter() - t0:.1f} s")
+
+    # phase 11: the kernels line, then the result
     src = "glearning_benchmark_tpu_torch/csrc/"
     ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

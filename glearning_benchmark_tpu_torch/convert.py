@@ -32,7 +32,7 @@ either trainer resumes in the other.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,26 +74,35 @@ def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
+    """(the flax path of a torch parameter's ``state_dict`` key, whether its
+    flax leaf is the transpose of the tensor): ``layer_0.qkv.weight`` ->
+    (("layer_0", "qkv", "kernel"), True)."""
+    *mod, name = key.split(".")
+    transposed = False
+    if name == "weight":
+        if mod[-1] in _EMBEDS:
+            name = "embedding"
+        elif _is_norm(mod[-1]):
+            name = "scale"
+        else:
+            name, transposed = "kernel", True
+    elif name not in ("bias",) + _AS_IS:
+        raise ValueError(f"unknown torch parameter {key!r}")
+    return tuple(mod) + (name,), transposed
+
+
 def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """torch ``state_dict`` -> nested flax ``params`` tree of CPU tensors
     (``train.checkpoint.save_checkpoint`` writes it). BatchNorm running
     statistics are left out: :func:`batch_stats_to_flax` takes them."""
     flat = {}
     for key, t in state_dict.items():
-        *mod, name = key.split(".")
-        t = t.detach().cpu()
-        if name in _STATS.values():
+        if key.rsplit(".", 1)[-1] in _STATS.values():
             continue
-        if name == "weight":
-            if mod[-1] in _EMBEDS:
-                name = "embedding"
-            elif _is_norm(mod[-1]):
-                name = "scale"
-            else:
-                name, t = "kernel", t.transpose(0, 1)
-        elif name not in ("bias",) + _AS_IS:
-            raise ValueError(f"unknown torch parameter {key!r}")
-        flat["/".join(mod + [name])] = t.contiguous()
+        path, transposed = flax_path(key)
+        t = t.detach().cpu()
+        flat["/".join(path)] = (t.transpose(0, 1) if transposed else t).contiguous()
     return _unflatten(flat)
 
 

@@ -25,8 +25,33 @@ token of the batch. Under data parallelism that batch is the global one,
 as GSPMD computes it in the reference: with a ``shard`` the three sums are
 all-reduced over its group with autograd through the reduction
 (``torch.distributed.nn.functional.all_reduce``), so every rank gets the
-same value; its gradient reaches each rank's own tokens. The expert-parallel
-manual dispatch (``ep_manual``) comes with the EP slice.
+same value; its gradient reaches each rank's own tokens.
+
+Expert parallelism, as the JAX package lays it out:
+
+- auto (``parallel.expert_shards``): the parameter rule splits the expert
+  stacks over 'expert' (``parallel.mesh.shard_params`` sets ``ep_axis``). A
+  rank routes its 'data' rows (the router is replicated), computes its
+  E/ep experts for them, and the combine is summed over 'expert'
+  (``comm.psum``), where GSPMD partitions the batched matmuls in the
+  reference;
+- manual (``parallel.ep_manual``, ``ep_mesh``): :func:`_manual_ep_ffn`,
+  the reference's ``shard_map`` body: rows shard over data x expert, the
+  capacity slots go to their experts' owners and back through two
+  ``all_to_all`` exchanges.
+
+Both draw the expert hidden layer's dropout from the global [E, B, C, f]
+index of each element (the rank's experts on axis 0, its rows on axis 1),
+so they drop what one process drops. The reference's manual path draws a
+per-device threefry Bernoulli instead (``moe.py:97-102``, ROADMAP §C).
+
+Sequence-parallel (``seq_axis``), a rank holds a block of every row's
+tokens: a token's place in its expert's queue adds the counts of the
+blocks before it (all-gathered over 'seq'), the capacity is the whole
+row's, and the aux sums run over 'seq' too. Each rank applies the experts
+to the slots of its own tokens only (the others' slots are zero rows whose
+outputs its combine never reads), so the expert weights' gradients are the
+sums over the token blocks, as for every other layer.
 """
 
 from __future__ import annotations
@@ -38,7 +63,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import cheap_dropout
+from ..parallel.comm import all_gather, all_to_all, psum
 from ..parallel.dist import global_sum
+from ..parallel.tp import dense
 
 _TRUNC_STD = 0.02        # flax truncated_normal(0.02): router, w1, w2
 
@@ -48,12 +75,61 @@ def _trunc(t: torch.Tensor, generator: Optional[torch.Generator]) -> None:
                           b=2.0 * _TRUNC_STD, generator=generator)
 
 
+def _manual_ep_ffn(mesh, x, dispatch, top_p, w1, b1, w2, b2, *, dtype, p_drop,
+                   seed=None, shard=None):
+    """Expert FFN with explicit all-to-all dispatch over the 'expert' axis.
+
+    This rank's rows: x [B_loc, L, d], dispatch [B_loc, L, E, C], top_p
+    [B_loc, L]; its experts: w1 [E_loc, d, f] ... The capacity slots of the
+    rows go to their experts' owners (split experts, concatenate rows), the
+    owners run their experts on the rows of every rank of the 'expert'
+    axis, and the outputs come back (split rows, concatenate experts), as
+    ``moe.py:93`` and ``:107`` exchange them. ``shard`` places the rows in
+    the global batch (rows over data x expert); ``seed`` turns on the
+    hidden layer's dropout."""
+    if set(mesh.axis_names) != {"data", "expert"}:
+        raise ValueError("manual EP dispatch needs a ('data','expert') mesh, "
+                         f"got {mesh.axis_names}")
+    ep = int(mesh.shape["expert"])
+    dp = int(mesh.shape["data"])
+    b = x.shape[0] if shard is None else shard.total
+    e = dispatch.shape[2]
+    if b % (dp * ep):
+        raise ValueError(f"batch {b} must divide over data*expert = "
+                         f"{dp}*{ep} for manual EP dispatch")
+    if e % ep:
+        raise ValueError(f"n_experts {e} must divide over expert_shards {ep}")
+    axis = mesh.axis("expert")
+    b_loc, e_loc = x.shape[0], w1.shape[0]
+    cap, d = dispatch.shape[3], x.shape[2]
+    xin = torch.einsum("blec,bld->ebcd", dispatch.to(dtype), x.to(dtype))  # [E, B_loc, C, d]
+    xin = all_to_all(xin, axis, 0, 1)                             # [E_loc, ep*B_loc, C, d]
+    rows = xin.shape[1]
+    h = torch.baddbmm(b1.to(dtype)[:, None, :], xin.reshape(e_loc, rows * cap, d),
+                      w1.to(dtype))
+    h = F.relu(h).view(e_loc, rows, cap, -1)
+    if seed is not None:
+        # the rows of every rank of this 'expert' slice: one contiguous block
+        start = 0 if shard is None else shard.start - axis.index * b_loc
+        h = cheap_dropout(seed, h, p_drop, batch_axis=1, batch_offset=start, batch_total=b,
+                          place={0: (axis.index * e_loc, e)})
+    h = torch.baddbmm(b2.to(dtype)[:, None, :], h.reshape(e_loc, rows * cap, -1),
+                      w2.to(dtype)).view(e_loc, rows, cap, d)
+    h = all_to_all(h, axis, 1, 0)                                 # [E, B_loc, C, d]
+    combine = (dispatch * top_p[..., None, None]).to(dtype)
+    return torch.einsum("blec,ebcd->bld", combine, h)
+
+
 class SwitchFFN(nn.Module):
-    """Top-1 Switch FFN over ``n_experts`` experts of width ``d_ff``."""
+    """Top-1 Switch FFN over ``n_experts`` experts of width ``d_ff``.
+    ``ep_mesh`` selects the manual all-to-all dispatch; ``seq_axis`` the
+    sequence-parallel routing (module docstring)."""
+
+    ep_axis = None       # set when the expert stacks are split over 'expert'
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int,
                  capacity_factor: float = 1.25, p_drop: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ep_mesh=None, seq_axis=None):
         super().__init__()
         if n_experts < 1:
             raise ValueError(f"n_experts must be at least 1, got {n_experts}")
@@ -61,6 +137,8 @@ class SwitchFFN(nn.Module):
         self.capacity_factor = capacity_factor
         self.p_drop = p_drop
         self.dtype = dtype
+        self.ep_mesh = ep_mesh
+        self.seq_axis = seq_axis
         self.router = nn.Linear(d_model, n_experts)
         self.w1 = nn.Parameter(torch.empty(n_experts, d_model, d_ff))
         self.b1 = nn.Parameter(torch.zeros(n_experts, d_ff))
@@ -87,16 +165,22 @@ class SwitchFFN(nn.Module):
         rows of the global batch these are."""
         b, l, d = x.shape
         e = self.n_experts
-        cap = max(1, int(self.capacity_factor * l / e))
+        seq = self.seq_axis
+        cap = max(1, int(self.capacity_factor * l * (1 if seq is None else seq.size) / e))
         vf = valid.to(torch.float32)
 
-        logits = F.linear(x.float(), self.router.weight, self.router.bias)
+        logits = dense(self.router, x.float(), torch.float32)
         probs = torch.softmax(logits, dim=-1)                         # [B, L, E]
         top = probs.argmax(dim=-1)                                    # [B, L]
         top_p = probs.gather(-1, top[..., None])[..., 0]
         onehot = F.one_hot(top, e).to(torch.float32) * vf[..., None]
         # each token's place in its expert's queue of the row, first come
-        pos = torch.cumsum(onehot, dim=1) * onehot - 1.0              # [B, L, E]
+        queue = torch.cumsum(onehot, dim=1)
+        if seq is not None:
+            # after the tokens of the row's earlier blocks
+            counts = all_gather(onehot.sum(1)[None], seq, 0)          # [s, B, E]
+            queue = queue + counts[:seq.index].sum(0)[:, None, :]
+        pos = queue * onehot - 1.0                                    # [B, L, E]
         keep = (pos >= 0) & (pos < cap)
         pos_oh = F.one_hot(pos.clamp(0, cap - 1).to(torch.int64), cap).to(torch.float32) \
             * keep[..., None].to(torch.float32)
@@ -108,22 +192,35 @@ class SwitchFFN(nn.Module):
             sums = global_sum(torch.cat([onehot.sum((0, 1)),
                                          (probs * vf[..., None]).sum((0, 1)),
                                          vf.sum()[None]]), shard)
+            if seq is not None:
+                sums = psum(sums, seq)
             # the reference counts in the compute dtype: a bf16 count rounds
             denom = sums[-1].to(self.dtype).float().clamp(min=1.0)
             aux = e * torch.sum((sums[:e] / denom) * (sums[e:2 * e] / denom))
 
         dt = self.dtype
+        if self.ep_mesh is not None:
+            return _manual_ep_ffn(self.ep_mesh, x, dispatch, top_p, self.w1, self.b1,
+                                  self.w2, self.b2, dtype=dt, p_drop=self.p_drop,
+                                  seed=seed, shard=shard), aux
+        e_loc, e0, ax = e, 0, self.ep_axis
+        if ax is not None:      # this rank's experts of the stacks split over 'expert'
+            e_loc = self.w1.shape[0]
+            e0 = ax.index * e_loc
+            dispatch = dispatch[:, :, e0:e0 + e_loc]
         disp = dispatch.to(dt)
         xin = torch.einsum("blec,bld->ebcd", disp, x.to(dt))           # [E, B, C, d]
-        h = torch.baddbmm(self.b1.to(dt)[:, None, :], xin.reshape(e, b * cap, d),
+        h = torch.baddbmm(self.b1.to(dt)[:, None, :], xin.reshape(e_loc, b * cap, d),
                           self.w1.to(dt))
-        h = F.relu(h).view(e, b, cap, -1)
+        h = F.relu(h).view(e_loc, b, cap, -1)
         if seed is not None:
             # the batch is axis 1 of [E, B, C, f]: a rank's words are strided
             h = cheap_dropout(seed, h, self.p_drop, batch_axis=1,
                               batch_offset=0 if shard is None else shard.start,
-                              batch_total=None if shard is None else shard.total)
-        h = torch.baddbmm(self.b2.to(dt)[:, None, :], h.reshape(e, b * cap, -1),
-                          self.w2.to(dt)).view(e, b, cap, d)
+                              batch_total=None if shard is None else shard.total,
+                              place=None if ax is None else {0: (e0, e)})
+        h = torch.baddbmm(self.b2.to(dt)[:, None, :], h.reshape(e_loc, b * cap, -1),
+                          self.w2.to(dt)).view(e_loc, b, cap, d)
         combine = (dispatch * top_p[..., None, None]).to(dt)          # [B, L, E, C]
-        return torch.einsum("blec,ebcd->bld", combine, h), aux
+        out = torch.einsum("blec,ebcd->bld", combine, h)
+        return (out if ax is None else psum(out, ax)), aux

@@ -35,6 +35,26 @@ Under data parallelism a forward is handed its ``shard`` of the global
 batch (``parallel.mesh.BatchShard``): every dropout mask is then the rows
 of the global mask that the rank holds, so a run on N ranks draws the
 masks of the same run on one process.
+
+The other mesh axes, as the JAX package's ``sp_mesh``/``ep_mesh`` fields
+and its parameter rule set them up:
+
+- tensor parallelism: ``parallel.mesh.shard_params`` splits the ``Dense``
+  and ``Embed`` features over 'model'; each sharded layer computes its
+  columns and all-gathers them (``parallel/tp.py``), the rest runs
+  replicated;
+- sequence parallelism (``sp_mesh``, a mesh with a 'seq' axis): the encoder
+  stack, from the embedding sum to the last layer, runs on the rank's
+  contiguous L/s tokens, with :func:`..ops.ring_attention.ring_attention`
+  in place of the flash kernels; its dropout masks are the token block of
+  the global masks; the final hidden states are all-gathered over 'seq'
+  before the readout, which needs every position. Packed rows are refused;
+- expert parallelism: the MoE expert stacks split over 'expert' (the
+  parameter rule), and with ``ep_mesh`` the manual all-to-all dispatch
+  (:mod:`.moe`).
+
+The pipeline (PP) runs these same layers in another schedule
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +69,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import cheap_dropout
 from ..ops.flash_attention import flash_attention
+from ..ops.ring_attention import ring_attention, seq_block
+from ..parallel.comm import all_gather
+from ..parallel.tp import dense as _dense
 from .moe import SwitchFFN
 
 LN_EPS = 1e-6            # flax nn.LayerNorm default
@@ -69,12 +92,6 @@ def _lecun_normal_(lin: nn.Linear, generator: Optional[torch.Generator]) -> None
     nn.init.zeros_(lin.bias)
 
 
-def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: inputs and parameters promoted to the
-    compute dtype."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
-
-
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return norm(x.float())
 
@@ -89,7 +106,8 @@ class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, d_ff: int,
                  dtype: torch.dtype = torch.float32, p_attn: float = 0.0,
                  p_res: float = 0.0, p_ffn: float = 0.0, moe_experts: int = 0,
-                 moe_capacity: float = 1.25, p_moe: float = 0.0):
+                 moe_capacity: float = 1.25, p_moe: float = 0.0, seq_axis=None,
+                 ep_mesh=None):
         super().__init__()
         if d_model % nhead:
             raise ValueError(f"d_model {d_model} is not a multiple of "
@@ -97,11 +115,13 @@ class EncoderLayer(nn.Module):
         self.nhead = nhead
         self.dtype = dtype
         self.p_attn, self.p_res, self.p_ffn = p_attn, p_res, p_ffn
+        self.seq_axis = seq_axis
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out_proj = nn.Linear(d_model, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         if moe_experts > 0:
-            self.moe = SwitchFFN(d_model, d_ff, moe_experts, moe_capacity, p_moe, dtype)
+            self.moe = SwitchFFN(d_model, d_ff, moe_experts, moe_capacity, p_moe, dtype,
+                                 ep_mesh=ep_mesh, seq_axis=seq_axis)
         else:
             self.ff1 = nn.Linear(d_model, d_ff)
             self.ff2 = nn.Linear(d_ff, d_model)
@@ -126,22 +146,28 @@ class EncoderLayer(nn.Module):
         the MoE aux loss of a training forward or None). ``seeds``
         (attention, out_proj, ReLU, ff2) turns dropout on; None is the
         deterministic forward. ``shard``: the rows' place in the global
-        batch (module docstring)."""
+        batch (module docstring). Sequence-parallel (``seq_axis``), x is
+        this rank's token block and seg its key mask."""
         b, l, d = x.shape
         h = self.nhead
         s_attn, s_out, s_relu, s_ff2 = seeds if seeds is not None else (None,) * 4
         row0 = 0 if shard is None else shard.start
+        seq = self.seq_axis
+        # a sequence-parallel rank's masks are its token block of the global masks
+        place = None if seq is None else {1: (seq.index * l, seq.size * l)}
         # q|k|v along the last axis (jnp.split order); each stays a strided
         # view of qkv, which the kernels read in place
-        q, k, v = _dense(self.qkv, x, self.dtype).split(d, dim=-1)
-        attn = flash_attention(q.unflatten(-1, (h, d // h)),
-                               k.unflatten(-1, (h, d // h)),
-                               v.unflatten(-1, (h, d // h)), seg=seg,
-                               p_drop=self.p_attn if seeds is not None else 0.0,
-                               seed=s_attn, bh_offset=row0 * h)
+        q, k, v = (t.unflatten(-1, (h, d // h))
+                   for t in _dense(self.qkv, x, self.dtype).split(d, dim=-1))
+        p_attn = self.p_attn if seeds is not None else 0.0
+        if seq is not None:
+            attn = ring_attention(seq, q, k, v, seg > 0, p_attn, s_attn, bh_offset=row0 * h)
+        else:
+            attn = flash_attention(q, k, v, seg=seg, p_drop=p_attn, seed=s_attn,
+                                   bh_offset=row0 * h)
         attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
         if seeds is not None:
-            attn = cheap_dropout(s_out, attn, self.p_res, batch_offset=row0)
+            attn = cheap_dropout(s_out, attn, self.p_res, batch_offset=row0, place=place)
         x = _layer_norm(self.norm1, x + attn.float())
         aux = None
         if hasattr(self, "moe"):
@@ -149,10 +175,10 @@ class EncoderLayer(nn.Module):
         else:
             y = F.relu(_dense(self.ff1, x, self.dtype))
             if seeds is not None:
-                y = cheap_dropout(s_relu, y, self.p_ffn, batch_offset=row0)
+                y = cheap_dropout(s_relu, y, self.p_ffn, batch_offset=row0, place=place)
             y = _dense(self.ff2, y, self.dtype)
         if seeds is not None:
-            y = cheap_dropout(s_ff2, y, self.p_res, batch_offset=row0)
+            y = cheap_dropout(s_ff2, y, self.p_res, batch_offset=row0, place=place)
         return _layer_norm(self.norm2, x + y.float()), aux
 
 
@@ -232,7 +258,10 @@ class SimpleTransformer(nn.Module):
     ``remat`` recomputes each encoder layer in the backward pass instead of
     keeping its activations. ``moe_experts`` > 0 makes every layer's FFN a
     Switch MoE FFN of that many experts at capacity factor
-    ``moe_capacity``."""
+    ``moe_capacity``. ``sp_mesh`` (a mesh with a 'seq' axis) makes the
+    encoder stack sequence-parallel; ``ep_mesh`` (a ('data', 'expert')
+    mesh) gives the MoE FFNs the manual all-to-all dispatch (module
+    docstring)."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, nhead: int = 8,
                  nlayers: int = 4, d_ff: int = 512, p_drop: float = 0.1,
@@ -245,6 +274,7 @@ class SimpleTransformer(nn.Module):
                  resid_p_drop: Optional[float] = None,
                  ffn_p_drop: Optional[float] = None,
                  moe_experts: int = 0, moe_capacity: float = 1.25,
+                 sp_mesh=None, ep_mesh=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if compute_dtype not in ("float32", "bfloat16"):
@@ -259,6 +289,9 @@ class SimpleTransformer(nn.Module):
         self.bos_id = bos_id
         self.query_offsets = tuple(query_offsets)
         self.compute_dtype = compute_dtype
+        self.moe_experts = moe_experts
+        self.sp_mesh = sp_mesh
+        self.seq_axis = None if sp_mesh is None else sp_mesh.axis("seq")
         cdtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos = nn.Embedding(max_pos, d_model)
@@ -272,7 +305,7 @@ class SimpleTransformer(nn.Module):
             self.add_module(f"layer_{i}",
                             EncoderLayer(d_model, nhead, d_ff, cdtype,
                                          p_attn, p_res, p_ffn, moe_experts,
-                                         moe_capacity, p_drop))
+                                         moe_capacity, p_drop, self.seq_axis, ep_mesh))
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         readout_width = 3 * d_model if use_query_nodes else d_model
         self.cls = nn.Linear(readout_width, num_classes)
@@ -309,8 +342,20 @@ class SimpleTransformer(nn.Module):
         CPU generator) gives the forward's dropout seeds. ``shard`` places
         the rows in the global batch (data parallelism); a training forward
         of an MoE model appends its layers' aux losses to ``aux``."""
-        h = transformer_embed(self.embed, self.pos, x, pos)
-        seg_ids = (attn_mask if seg is None else seg).to(torch.int32).contiguous()
+        seq = self.seq_axis
+        if seq is not None:
+            if seg is not None:
+                raise ValueError("sequence-parallel ring attention does not "
+                                 "support packed rows (disable dataset.pack)")
+            # this rank's contiguous block of tokens, at its global positions
+            ls = seq_block(x.shape[1], seq)
+            lo = seq.index * ls
+            h = transformer_embed(self.embed, self.pos, x[:, lo:lo + ls],
+                                  torch.arange(lo, lo + ls, device=x.device)[None, :])
+            seg_ids = attn_mask[:, lo:lo + ls].to(torch.int32).contiguous()
+        else:
+            h = transformer_embed(self.embed, self.pos, x, pos)
+            seg_ids = (attn_mask if seg is None else seg).to(torch.int32).contiguous()
         seeds = [None] * self.nlayers
         if self.training and self.has_dropout:
             if generator is None:
@@ -329,6 +374,8 @@ class SimpleTransformer(nn.Module):
                 h, layer_aux = layer(h, seg_ids, layer_seeds, shard)
             if layer_aux is not None and aux is not None:
                 aux.append(layer_aux)
+        if seq is not None:
+            h = all_gather(h, seq, 1)
         return transformer_readout(
             lambda t: _layer_norm(self.norm, t), self.cls, h, x, attn_mask,
             task=self.task, use_query_nodes=self.use_query_nodes,

@@ -1,25 +1,29 @@
-"""Masked multi-head attention and the counter-hash dropout, plain PyTorch.
+"""Masked multi-head attention and the dropout streams, plain PyTorch.
 
-Port of ``glearning_benchmark_tpu/ops/attention.py``: ``_hash1_u32``,
-``hash_keep_mask``, ``cheap_dropout`` and ``multi_head_attention``. The
-keep masks equal the JAX package's bit for bit for the same u32 seed: u32
-arithmetic is carried in int64 tensors (``flash_attention._mul_u32``), the
-word index is linearised over the whole tensor, and the four bytes of word
-``w`` cover the blocked positions ``w, w + S/4, w + 2S/4, w + 3S/4`` of the
-last axis. The seed is an explicit ``int``, not a framework key.
-``multi_head_attention`` is the eager reference of the XLA attention path;
-the model's attention goes through :mod:`.flash_attention`. The threefry
-generator ``dropout_keep_mask`` is not ported: the sequence-parallel ring
-attention that draws from it comes with the SP slice (ROADMAP queue A,
-item 9).
+Port of ``glearning_benchmark_tpu/ops/attention.py``: ``dropout_keep_mask``,
+``_hash1_u32``, ``hash_keep_mask``, ``cheap_dropout`` and
+``multi_head_attention``. The keep masks equal the JAX package's bit for
+bit for the same key or u32 seed: u32 arithmetic is carried in int64
+tensors (``flash_attention._mul_u32``), the word index is linearised over
+the whole tensor, and the four bytes of word ``w`` cover the blocked
+positions ``w, w + S/4, w + 2S/4, w + 3S/4`` of the last axis.
+``dropout_keep_mask`` draws its words from threefry2x32 as
+``jax.random.bits`` does with ``jax_threefry_partitionable`` (the default
+of jax 0.9), from the key's two u32 words (``jax.random.key_data``); the
+hash helpers take an explicit ``int`` seed. ``multi_head_attention`` is the
+eager reference of the XLA attention path; the model's attention goes
+through :mod:`.flash_attention` (and, sequence-parallel, through
+:mod:`.ring_attention`).
 
-Under data parallelism the JAX package draws each mask over the whole
-global tensor, and a device holds rows of it. The helpers here take the
-same view: ``batch_offset`` is the global index of this tensor's first
-row along ``batch_axis``, and ``batch_total`` the global batch (needed only
-when the batch is not the leading axis, as in the MoE expert tensor
-[E, B, C, f], whose rows of one rank are strided words of the global
-tensor). With one process every offset is 0 and the masks are unchanged.
+Under a mesh the JAX package draws each mask over the whole global tensor,
+and a device holds a block of it. The helpers here take the same view:
+``batch_offset`` is the global index of this tensor's first row along
+``batch_axis``, and ``batch_total`` the global batch (needed only when the
+batch is not the leading axis, as in the MoE expert tensor [E, B, C, f],
+whose rows of one rank are strided words of the global tensor); ``place``
+gives any other axes' (offset, global size), as a sequence-parallel rank's
+token block (axis 1) or an expert-parallel rank's experts (axis 0). With
+one process every offset is 0 and the masks are unchanged.
 
 ``hash_dropout`` has no JAX counterpart: it stands in for flax's
 ``nn.Dropout`` (threefry Bernoulli masks) in the graph models, with the
@@ -29,11 +33,61 @@ CPU and the GPU draw the same mask for the same seed.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .flash_attention import _U32, _keep_threshold, _mul_u32
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _U32
+
+
+def threefry2x32(key: Sequence[int], x0: torch.Tensor, x1: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds) of the count words (x0, x1) under the key
+    (k0, k1), as ``jax._src.prng._threefry2x32_lowering`` computes it."""
+    k0, k1 = int(key[0]) & _U32, int(key[1]) & _U32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & _U32, (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _U32
+    return x0, x1
+
+
+def random_bits(key: Sequence[int], shape, device: torch.device | str = "cpu"
+                ) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` with partitionable threefry:
+    element ``i`` (row-major) is ``x0 ^ x1`` of threefry2x32 over the count
+    words (i >> 32, i & 0xFFFFFFFF); u32 values in an int64 tensor."""
+    n = 1
+    for size in shape:
+        n *= size
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(key, idx >> 32, idx & _U32)
+    return (x0 ^ x1).view(tuple(shape))
+
+
+def dropout_keep_mask(key: Sequence[int], shape, rate: float,
+                      device: torch.device | str = "cpu") -> Tuple[torch.Tensor, float]:
+    """The JAX package's ``dropout_keep_mask``: keep mask bool[shape] and
+    the quantised rate round(rate * 256) / 256 the caller rescales by. One
+    threefry word of ``key`` (its two u32 words) covers four blocked bytes
+    of the last axis; a byte at or above the threshold keeps."""
+    thresh = _quantised_threshold(rate)
+    shape = tuple(shape)
+    if thresh <= 0:
+        return torch.ones(shape, dtype=torch.bool, device=device), 0.0
+    s_last = shape[-1]
+    words = random_bits(key, shape[:-1] + ((s_last + 3) // 4,), device)
+    keep = torch.cat([((words >> s) & 0xFF) >= thresh for s in (0, 8, 16, 24)], dim=-1)
+    return keep[..., :s_last], thresh / 256.0
 
 
 def _hash1_u32(seed_u32: int, idx: torch.Tensor) -> torch.Tensor:
@@ -58,10 +112,13 @@ def _quantised_threshold(rate: float) -> int:
 
 
 def _global_index(shape, device, batch_axis: int, batch_offset: int,
-                  batch_total: Optional[int]) -> torch.Tensor:
+                  batch_total: Optional[int],
+                  place: Optional[Dict[int, Tuple[int, int]]] = None) -> torch.Tensor:
     """int64 linear index (mod 2**32) of every element of a tensor of
     ``shape`` inside the global tensor whose ``batch_axis`` has
-    ``batch_total`` rows, of which this one holds ``batch_offset ..``."""
+    ``batch_total`` rows, of which this one holds ``batch_offset ..``, and
+    whose axes in ``place`` ({axis: (offset, global size)}) hold this
+    tensor's block at that offset."""
     shape = tuple(shape)
     n = 1
     for size in shape:
@@ -73,43 +130,50 @@ def _global_index(shape, device, batch_axis: int, batch_offset: int,
             raise ValueError("a batch axis that is not the leading one needs "
                              "batch_total")
         batch_total = batch_offset + shape[batch_axis]
-    total = int(batch_total)
-    if batch_offset < 0 or batch_offset + shape[batch_axis] > total:
-        raise ValueError(f"rows {batch_offset}..{batch_offset + shape[batch_axis]} "
-                         f"lie outside a global batch of {total}")
+    at = {batch_axis: (int(batch_offset), int(batch_total))}
+    for ax, (offset, total) in (place or {}).items():
+        if ax == batch_axis or not 0 <= ax < len(shape) - 1:
+            raise ValueError(f"place axis {ax} is the batch axis or out of range "
+                             f"for {shape} (the last axis holds the words)")
+        at[ax] = (int(offset), int(total))
+    for ax, (offset, total) in at.items():
+        if offset < 0 or offset + shape[ax] > total:
+            raise ValueError(f"block {offset}..{offset + shape[ax]} of axis {ax} "
+                             f"lies outside its global size {total}")
     arange = dict(dtype=torch.int64, device=device)
-    if batch_axis == 0 or total == shape[batch_axis]:
+    if all(total == shape[ax] for ax, (_, total) in at.items() if ax != 0):
         # one contiguous run of the global tensor's indices
-        start = batch_offset * (n // shape[0]) if batch_axis == 0 and n else 0
+        start = at[0][0] * (n // shape[0]) if 0 in at and n else 0
         return (torch.arange(n, **arange) + start) & _U32
     idx = torch.zeros((), **arange)
     stride = 1
     for ax in range(len(shape) - 1, -1, -1):
-        at = torch.arange(shape[ax], **arange)
-        if ax == batch_axis:
-            at = at + batch_offset
-        idx = idx + at.view((-1,) + (1,) * (len(shape) - 1 - ax)) * stride
-        stride *= total if ax == batch_axis else shape[ax]
+        offset, total = at.get(ax, (0, shape[ax]))
+        pos = torch.arange(shape[ax], **arange) + offset
+        idx = idx + pos.view((-1,) + (1,) * (len(shape) - 1 - ax)) * stride
+        stride *= total
     return idx.reshape(-1) & _U32
 
 
 def hash_keep_mask(seed_u32: int, shape, rate: float,
                    device: torch.device | str = "cpu", *, batch_axis: int = 0,
-                   batch_offset: int = 0, batch_total: Optional[int] = None
+                   batch_offset: int = 0, batch_total: Optional[int] = None,
+                   place: Optional[Dict[int, Tuple[int, int]]] = None
                    ) -> Tuple[torch.Tensor, float]:
     """Counter-hash keep mask in the blocked-byte layout. Returns
     ``(keep bool[shape], effective_rate)`` with the rate quantised to
     ``round(rate * 256) / 256``; the caller rescales by the effective rate.
-    ``batch_axis``/``batch_offset``/``batch_total`` place the tensor in a
-    global one (module docstring); the mask is then its rows of the
-    global mask."""
+    ``batch_axis``/``batch_offset``/``batch_total`` and ``place`` place the
+    tensor in a global one (module docstring); the mask is then its block of
+    the global mask."""
     shape = tuple(shape)
     thresh = _quantised_threshold(rate)
     if thresh <= 0:
         return torch.ones(shape, dtype=torch.bool, device=device), 0.0
     s_last = shape[-1]
     wshape = shape[:-1] + ((s_last + 3) // 4,)
-    idx = _global_index(wshape, device, batch_axis, int(batch_offset), batch_total)
+    idx = _global_index(wshape, device, batch_axis, int(batch_offset), batch_total,
+                        place)
     words = _hash1_u32(int(seed_u32) & _U32, idx).view(wshape)
     keep = torch.cat([((words >> s) & 0xFF) >= thresh
                       for s in (0, 8, 16, 24)], dim=-1)
@@ -118,7 +182,8 @@ def hash_keep_mask(seed_u32: int, shape, rate: float,
 
 def cheap_dropout(seed_u32: int, x: torch.Tensor, rate: float, *,
                   batch_axis: int = 0, batch_offset: int = 0,
-                  batch_total: Optional[int] = None) -> torch.Tensor:
+                  batch_total: Optional[int] = None,
+                  place: Optional[Dict[int, Tuple[int, int]]] = None) -> torch.Tensor:
     """Inverted dropout on activations by :func:`hash_keep_mask` (the same
     placement arguments): kept elements are divided by ``1 - p'`` in x's
     dtype, dropped ones are zero."""
@@ -126,7 +191,7 @@ def cheap_dropout(seed_u32: int, x: torch.Tensor, rate: float, *,
         return x
     keep, p_eff = hash_keep_mask(seed_u32, x.shape, rate, device=x.device,
                                  batch_axis=batch_axis, batch_offset=batch_offset,
-                                 batch_total=batch_total)
+                                 batch_total=batch_total, place=place)
     return torch.where(keep, x / (1.0 - p_eff), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 

@@ -19,7 +19,8 @@ import torch
 import torch.distributed as dist
 
 from ..tokenization.vocab import SPECIAL
-from .mesh import Mesh
+from .comm import psum
+from .mesh import Axis, BatchShard, Mesh
 
 
 def comm_device() -> torch.device:
@@ -31,23 +32,33 @@ def comm_device() -> torch.device:
 
 
 def global_sum(t: torch.Tensor, shard) -> torch.Tensor:
-    """``t`` summed over the ranks of ``shard`` (a ``mesh.BatchShard``)
-    with autograd through the reduction: its backward all-reduces the
-    gradient, so each rank's inputs get the gradient of every rank's use of
-    the sum. Without a shard, ``t`` itself."""
+    """``t`` summed over the ranks that hold the other row blocks of
+    ``shard`` (a ``mesh.BatchShard``) with autograd through the reduction
+    (``comm.psum``): its backward all-reduces the gradient, so each rank's
+    inputs get the gradient of every rank's use of the sum. Without a
+    shard, ``t`` itself."""
     if shard is None:
         return t
-    from torch.distributed.nn.functional import all_reduce
+    return psum(t, _axis(shard))
 
-    return all_reduce(t)
+
+def _axis(where) -> Axis:
+    """The axis a reduction runs over: a shard's row axis, or a mesh's
+    'data' axis."""
+    if isinstance(where, BatchShard):
+        if where.axis is None:
+            raise ValueError("a BatchShard reduces over its axis; this one has none")
+        return where.axis
+    return where.axis("data")
 
 
 def psum_histogram(local_counts: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """All-reduce (sum) a count vector over the 'data' axis of ``mesh``."""
-    if mesh.size == 1:
+    axis = _axis(mesh)
+    if axis.size == 1:
         return local_counts.clone()
     out = local_counts.to(comm_device(), copy=True)
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=axis.group)
     return out.to(local_counts.device)
 
 
@@ -103,15 +114,16 @@ def distributed_vocab_counts(
 def all_reduce_metrics(stats: Dict[str, torch.Tensor], mesh
                        ) -> Dict[str, torch.Tensor]:
     """Sum a dict of metric sufficient statistics over the 'data' axis of
-    ``mesh`` (a ``Mesh``, or a ``BatchShard`` of its ranks): one all-reduce
-    of their concatenation, in f32."""
-    if mesh.size == 1 or not stats:
+    ``mesh`` (a ``Mesh``, or a ``BatchShard``: over its row axis): one
+    all-reduce of their concatenation, in f32."""
+    axis = _axis(mesh)
+    if axis.size == 1 or not stats:
         return dict(stats)
     keys = list(stats)
     flat = torch.cat([stats[k].detach().reshape(-1).to(torch.float32) for k in keys])
     dev = flat.device
     flat = flat.to(comm_device())
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=axis.group)
     flat = flat.to(dev)
     out, at = {}, 0
     for k in keys:

@@ -26,7 +26,7 @@ through ``torch._foreach_*``; no hand-written kernel is involved.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -67,13 +67,16 @@ class ClippedAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(...))`` over a
     fixed list of parameters. ``names`` are their ``state_dict`` keys, kept
     so that ``convert.py`` can lay the state out as the JAX package's
-    checkpoints do."""
+    checkpoints do. ``split_axes`` gives, for each parameter, the mesh axis
+    (``parallel.mesh.Axis``) its tensor is split over, or None: the global
+    norm then sums a split parameter's squares over its axis and counts a
+    whole one once (its gradient is the same on every rank)."""
 
     def __init__(self, names: Sequence[str], params: Sequence[torch.Tensor],
                  learning_rate: Union[float, Callable[[int], float]],
                  weight_decay: float = 1e-4, mu_dtype: str = "bfloat16",
                  max_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, split_axes: Optional[Sequence] = None):
         if mu_dtype not in MU_DTYPES:
             raise ValueError(f"train.mu_dtype must be one of "
                              f"{sorted(MU_DTYPES)}, got {mu_dtype!r}")
@@ -90,6 +93,8 @@ class ClippedAdamW:
         self.mu = [torch.zeros_like(p, dtype=MU_DTYPES[mu_dtype])
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self.split_axes = None if split_axes is None or not any(split_axes) \
+            else list(split_axes)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -97,8 +102,7 @@ class ClippedAdamW:
         gradients' global norm before clipping, a 0-dim tensor on their
         device; nothing is read back to the host."""
         grads = [g.float() for g in grads]
-        gnorm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        gnorm = self.global_norm(grads)
         # below max_norm the gradients pass unchanged (g / 1 * max_norm / max_norm)
         clipped = gnorm >= self.max_norm
         denom = torch.where(clipped, gnorm, torch.ones_like(gnorm))
@@ -128,6 +132,22 @@ class ClippedAdamW:
         for m, m32 in zip(self.mu, mu32):
             m.copy_(m32)
         return gnorm
+
+    def global_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The gradients' global L2 norm, over the whole parameters."""
+        norms = torch.stack(torch._foreach_norm(list(grads)))
+        if self.split_axes is None:
+            return torch.linalg.vector_norm(norms)
+        from ..parallel.comm import psum
+
+        sq = norms * norms
+        whole = [i for i, axis in enumerate(self.split_axes) if axis is None]
+        total = sq[whole].sum()
+        for names in sorted({axis.names for axis in self.split_axes if axis is not None}):
+            idx = [i for i, axis in enumerate(self.split_axes)
+                   if axis is not None and axis.names == names]
+            total = total + psum(sq[idx].sum(), self.split_axes[idx[0]])
+        return torch.sqrt(total)
 
     # -- state, for snapshots and checkpoints ------------------------------
 

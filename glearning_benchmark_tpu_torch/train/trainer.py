@@ -35,24 +35,46 @@ group of several ranks is initialised (``parallel.initialize_distributed``,
 e.g. under torchrun), every rank builds the same model from the same seed,
 draws the same shuffles and dropout seeds, and takes its contiguous block
 of every minibatch's rows (a packed row batch is first rounded to a
-multiple of the ranks). The loss is the global batch's: each rank's sum
-over its examples divided by the count all-reduced over the ranks, so the
-gradients all-reduced by sum are the single-process gradient, whatever
-valid examples each rank holds; the global norm is clipped (and reported)
-after that all-reduce. Dropout masks are the rank's rows of the global
-masks, BatchNorm statistics and the MoE loss are reduced over the global
-batch, and the epoch's train, val and test statistics are all-reduced, so
-every rank picks the same best epoch. A minibatch that does not divide by
-the ranks runs unsharded, as in the reference: every rank computes all of
-it, and the ranks average their gradients so that no rank drifts from
-the others where GPU sums are not deterministic. Only rank 0 writes the
-dataset cache, the log and the checkpoints; the others wait for it at a
-barrier.
+multiple of the 'data' axis). Dropout masks are the rank's rows of the
+global masks, BatchNorm statistics and the MoE loss are reduced over the
+global batch, and the epoch's train, val and test statistics are
+all-reduced over the rows, so every rank picks the same best epoch. A
+minibatch that does not divide over 'data' runs unsharded, as in the
+reference: every rank of the axis computes all of it. Only rank 0 writes
+the dataset cache, the log and the checkpoints; the others wait for it at
+a barrier.
 
-Not ported: the ``parallel.*`` axes other than 'data' and the manual EP
-dispatch (the next slice, ROADMAP queue A, item 9; any such key raises),
-profiler traces (``train.profile_epochs``), W&B histograms and the images
-of ``train/viz.py`` (the confusion matrix; the example-graph log is text).
+The other ``parallel.*`` axes run on the JAX package's mesh
+(``parallel/mesh.py``), under its guards, with the same messages:
+``model_axis`` (TP: the parameter rule splits features over 'model'),
+``seq_shards`` (SP: the ring, unpacked rows only), ``pipe_stages`` with
+``pipe_microbatches`` (PP: ``parallel/pipeline.py``), ``expert_shards``
+(EP: the expert stacks over 'expert') and ``ep_manual`` (rows over data x
+expert, the all-to-all dispatch). Asking for an axis the ranks cannot
+hold raises; nothing falls back to one process.
+
+Gradients: a rank's loss is its share of the global loss, its sum over the
+examples it holds divided by the valid count summed over EVERY rank. The
+ranks that hold the same rows (the 'model', 'seq', 'pipe' and, auto,
+'expert' ranks, and all ranks of an unsharded minibatch) each take an equal
+share, and the collectives' backwards pass shares on (``parallel/comm.py``).
+So each gradient is summed over every mesh axis its parameter is not split
+over: the replicated parameters over the whole mesh, the 'model'-split
+ones over every axis but 'model', the expert stacks over every axis but
+'expert'. A computation that several ranks repeat is summed too (its
+copies' shares add up to one gradient), so every rank applies the same
+update bit for bit even where the card's sums are not deterministic (the
+atomic adds of an embedding's backward), and one rule, read off the
+parameter rule, serves every axis. The global norm is clipped (and reported) after those sums,
+counting a split parameter's squares over its axis. The best epoch's
+parameters and optimizer state are gathered whole before each checkpoint,
+so checkpoints keep the one-process layout (``convert.py``, serving and
+``--resume`` are unchanged; a resumed run takes its shards again), and
+``TrainResult.model`` is the whole model on one process.
+
+Not ported: profiler traces (``train.profile_epochs``), W&B histograms and
+the images of ``train/viz.py`` (the confusion matrix; the example-graph
+log is text).
 """
 
 from __future__ import annotations
@@ -74,8 +96,11 @@ from ..convert import (batch_stats_to_flax, load_flax_params, opt_state_from_tor
 from ..models.gps import GPSModel
 from ..models.mpnn import MPNN
 from ..models.transformer import SimpleTransformer
+from ..parallel.comm import psum
 from ..parallel.dist import all_reduce_metrics
-from ..parallel.mesh import BatchShard, make_mesh, shard_batch_spec
+from ..parallel.mesh import (Axis, BatchShard, Mesh, ParamShard, gather_tensor, make_mesh,
+                             shard_batch_spec, shard_params, shard_tensor)
+from ..parallel.pipeline import pp_transformer_forward
 from ..tokenization.vocab import SPECIAL
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint, serving_meta
@@ -114,7 +139,9 @@ def attention_dropout_rate(p_drop: float, use_flash: bool) -> float:
 
 
 def build_model(model_name: str, config: dict, bundle: DatasetBundle,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
+                generator: Optional[torch.Generator] = None,
+                sp_mesh: Optional[Mesh] = None, ep_mesh: Optional[Mesh] = None
+                ) -> nn.Module:
     """Build the model a checkpoint of ``model_name`` was trained as, with
     the JAX package's config defaults. ``generator`` seeds the initial
     parameters. For the token models, ``model.remat`` recomputes encoder
@@ -122,7 +149,9 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
     Attention always runs through the flash-attention kernels (their plain
     versions on the CPU); ``model.use_flash`` only sets the rate they drop
     attention probabilities at (:func:`attention_dropout_rate`). GPS reads
-    its widths from the config's ``gt:`` block."""
+    its widths from the config's ``gt:`` block. ``sp_mesh`` and ``ep_mesh``
+    make a token model sequence-parallel or give it the manual EP dispatch
+    (``models/transformer.py``)."""
     model_cfg = config.get("model", {})
     task = bundle.task
     if model_name == "mpnn":
@@ -186,6 +215,7 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
         remat=bool(model_cfg.get("remat", seq_len >= 1024)),
         moe_experts=int(model_cfg.get("moe_experts", 0)),
         moe_capacity=float(model_cfg.get("moe_capacity", 1.25)),
+        sp_mesh=sp_mesh, ep_mesh=ep_mesh,
         generator=generator,
     )
 
@@ -197,10 +227,19 @@ def build_model(model_name: str, config: dict, bundle: DatasetBundle,
 def _apply_model(model, batch: Dict[str, torch.Tensor], bundle: DatasetBundle,
                  generator: Optional[torch.Generator] = None,
                  shard: Optional[BatchShard] = None,
-                 aux: Optional[list] = None) -> torch.Tensor:
+                 aux: Optional[list] = None, pp: Optional[dict] = None) -> torch.Tensor:
     """Logits of one gathered batch: [B] / [B, C] for unpacked rows and
     graphs, [B, K] / [B, K, C] for packed rows. ``shard``: the rows' place
-    in the global batch; a token model's MoE aux losses go to ``aux``."""
+    in the global batch; a token model's MoE aux losses go to ``aux``;
+    ``pp`` ({"mesh", "n_micro"}) runs the pipelined forward."""
+    if pp is not None:
+        packed = ({k: batch[k] for k in ("seg", "pos", "pos_bos", "pos_u", "pos_v")}
+                  if "seg" in batch else {})
+        mask = batch["seg"] > 0 if "seg" in batch else batch["mask"]
+        return pp_transformer_forward(
+            pp["mesh"], model, batch["ids"], mask, q_token_id=bundle.q_token_id,
+            n_micro=pp["n_micro"], generator=generator, shard=shard,
+            global_batch=None if shard is None else shard.total, **packed)
     if bundle.kind == "graphs":
         adj = batch["adj"].to(torch.float32)   # stored uint8
         return model(batch["node_feat"], adj, batch["mask"], etype=batch.get("eadj"),
@@ -295,12 +334,14 @@ def data_parallel_rows(ranks: int, batch_size: int, train_bs: int,
     return train_bs, batch_size % ranks == 0 and train_bs % ranks == 0
 
 
-def build_optimizer(model: nn.Module, train_cfg: dict, steps_per_epoch: int):
+def build_optimizer(model: nn.Module, train_cfg: dict, steps_per_epoch: int,
+                    shards: Optional[Dict[str, ParamShard]] = None):
     """(``ClippedAdamW`` over the model's parameters, schedule or None) as
     ``train_cfg`` asks: ``scheduler: cosine_with_warmup`` warms up over
     ``num_warmup_epochs`` (default 5) epochs, then decays over the rest of
     ``epochs``; the AdamW first moment is stored in bf16 by default, f32 on
-    request (``mu_dtype``)."""
+    request (``mu_dtype``). ``shards``: the split parameters, whose squares
+    the global norm sums over their axes."""
     lr = float(train_cfg.get("lr", 1e-3))
     schedule = None
     if train_cfg.get("scheduler", "none") == "cosine_with_warmup":
@@ -311,7 +352,9 @@ def build_optimizer(model: nn.Module, train_cfg: dict, steps_per_epoch: int):
     named = dict(model.named_parameters())
     opt = ClippedAdamW(list(named), list(named.values()), schedule or lr,
                        weight_decay=float(train_cfg.get("weight_decay", 1e-4)),
-                       mu_dtype=train_cfg.get("mu_dtype", "bfloat16"))
+                       mu_dtype=train_cfg.get("mu_dtype", "bfloat16"),
+                       split_axes=[shards[k].axis if k in (shards or {}) else None
+                                   for k in named])
     return opt, schedule
 
 
@@ -324,22 +367,48 @@ def _rows(t: torch.Tensor, shard: Optional[BatchShard]) -> torch.Tensor:
     return t if shard is None else t[shard.start:shard.stop]
 
 
-def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    dist.all_reduce(t)
+def _all_reduce_(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``t`` summed in place over ``axis``."""
+    with torch.no_grad():
+        t.copy_(psum(t, axis))
     return t
 
 
-def _all_reduce_grads(grads, mean_over: int = 0) -> List[torch.Tensor]:
-    """Sum the ranks' gradients (or, with ``mean_over`` ranks, average
-    them), all in one flat all-reduce."""
-    flat = _all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
-    if mean_over:
-        flat /= mean_over
-    out, at = [], 0
-    for g in grads:
-        out.append(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
-    return out
+@dataclass
+class Layout:
+    """How a run lies on the mesh: ``mesh`` (None: one process), the rows'
+    ``train_shard``/``eval_shard`` (None: every rank computes all rows), the
+    split parameters ``shards`` (by ``state_dict`` key) and the pipeline
+    ``pp`` ({"mesh", "n_micro"} or None)."""
+
+    mesh: Optional[Mesh] = None
+    train_shard: Optional[BatchShard] = None
+    eval_shard: Optional[BatchShard] = None
+    shards: Dict[str, ParamShard] = field(default_factory=dict)
+    pp: Optional[dict] = None
+
+    def grad_groups(self, names: List[str]) -> List[Tuple[Axis, List[int]]]:
+        """(axis, parameter indices) pairs: each gradient is summed over
+        every mesh axis its parameter is not split over (module docstring)."""
+        groups: Dict[tuple, Tuple[Axis, List[int]]] = {}
+        for i, name in enumerate(names):
+            sh = self.shards.get(name)
+            axis = self.mesh.but(sh.axis.names[0]) if sh else self.mesh.axis()
+            groups.setdefault(axis.names, (axis, []))[1].append(i)
+        return [g for g in groups.values() if g[0].size > 1]
+
+
+def _sum_grads(grads, groups: List[Tuple[Axis, List[int]]]) -> List[torch.Tensor]:
+    """Sum each group's gradients over its axis, one flat all-reduce a
+    group."""
+    grads = list(grads)
+    for axis, idx in groups:
+        flat = psum(torch.cat([grads[i].reshape(-1) for i in idx]), axis)
+        at = 0
+        for i in idx:
+            grads[i] = flat[at:at + grads[i].numel()].view_as(grads[i])
+            at += grads[i].numel()
+    return grads
 
 
 def _add_stats(total: Optional[dict], stats: dict) -> dict:
@@ -378,44 +447,43 @@ def _epoch_metrics(stats: Dict[str, np.ndarray], task: str) -> Dict[str, Any]:
 
 def train_epoch(model, opt: ClippedAdamW, arrays, idx, valid,
                 bundle: DatasetBundle, generator: Optional[torch.Generator],
-                max_steps: Optional[int] = None, shard: Optional[BatchShard] = None,
-                moe_aux_weight: float = 0.01, replicas: int = 1):
+                max_steps: Optional[int] = None, layout: Optional[Layout] = None,
+                moe_aux_weight: float = 0.01):
     """One pass over the minibatches ``idx``/``valid`` ([nb, bs] device
     tensors). Returns (summed statistics, per-step losses [steps]), both on
-    the device: nothing is read back here. With a ``shard`` this rank runs
-    its rows of every minibatch; the loss, the gradients and the returned
-    statistics and losses are the global batch's (module docstring). With
-    ``replicas`` > 1 that many ranks each run the whole of every minibatch
-    (an unsharded step); their gradients are averaged, so that every rank
-    applies the same update even where a kernel's sums are not
-    deterministic (the atomic adds of an embedding's backward on a GPU)."""
+    the device: nothing is read back here. On a mesh (``layout``) this rank
+    runs its rows of every minibatch, its loss is its share of the global
+    batch's and its gradients are summed as the module docstring says; the
+    returned statistics and losses are the global batch's."""
     model.train()
     params = opt.params
+    layout = layout or Layout()
+    mesh, shard = layout.mesh, layout.train_shard
+    groups = layout.grad_groups(opt.names) if mesh is not None else []
     total, losses = None, []
     steps = idx.shape[0] if max_steps is None else min(max_steps, idx.shape[0])
     for b in range(steps):
         batch = _gather(arrays, _rows(idx[b], shard))
         aux: List[torch.Tensor] = []
-        logits = _apply_model(model, batch, bundle, generator, shard, aux)
+        logits = _apply_model(model, batch, bundle, generator, shard, aux, layout.pp)
         lg, y, lvalid = _loss_inputs(logits, batch, _rows(valid[b], shard))
         loss, stats = _loss_and_stats(lg, y, lvalid, bundle.task,
                                       bundle.num_classes)
         count = stats["count"]
-        if shard is not None:
-            # this rank's sum over the global count: the ranks' losses, and
-            # their gradients, sum to the global batch's
-            count = _all_reduce_(count.detach().clone())
+        if mesh is not None:
+            # this rank's share: its sum over the count of every rank (the
+            # ranks holding the same rows each count them once)
+            count = _all_reduce_(count.detach().clone(), mesh.axis())
             loss = stats["loss_sum"] / count.clamp(min=1.0)
         if aux:
             # the mean of the layers' Switch losses; every rank holds the
             # same global value, so each adds its share
             loss = loss + moe_aux_weight * (sum(aux) / len(aux)) / (
-                1 if shard is None else shard.size)
-        grads = torch.autograd.grad(loss, params)
-        if shard is not None:
-            grads = _all_reduce_grads(grads)
-        elif replicas > 1:
-            grads = _all_reduce_grads(grads, mean_over=replicas)
+                1 if mesh is None else mesh.size)
+        # a pipeline stage leaves the other stages' layers unused: zeros
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
+        grads = _sum_grads(grads, groups)
         # the gradient norm BEFORE clipping, as a per-epoch mean
         has = (count > 0).to(torch.float32)
         stats["gn_sum"] = opt.step(grads) * has
@@ -423,24 +491,26 @@ def train_epoch(model, opt: ClippedAdamW, arrays, idx, valid,
         total = _add_stats(total, stats)
         losses.append(loss.detach())
     losses = torch.stack(losses)
+    if mesh is not None:
+        losses = _all_reduce_(losses, mesh.axis())   # the shares sum to each step's loss
     if shard is not None:
         gn = {k: total.pop(k) for k in ("gn_sum", "gn_cnt")}
-        total = all_reduce_metrics({**total, "losses": losses}, shard)
-        losses = total.pop("losses")
-        total |= gn
+        total = all_reduce_metrics(total, shard) | gn
     return total, losses
 
 
 @torch.no_grad()
 def eval_epoch(model, arrays, idx, valid, bundle: DatasetBundle,
-               shard: Optional[BatchShard] = None):
-    """Summed statistics of a deterministic pass, on the device; with a
-    ``shard``, over this rank's rows of every batch, then all-reduced."""
+               layout: Optional[Layout] = None):
+    """Summed statistics of a deterministic pass, on the device; on a mesh,
+    over this rank's rows of every batch, then all-reduced over the rows."""
     model.eval()
+    layout = layout or Layout()
+    shard = layout.eval_shard
     total = None
     for b in range(idx.shape[0]):
         batch = _gather(arrays, _rows(idx[b], shard))
-        logits = _apply_model(model, batch, bundle)
+        logits = _apply_model(model, batch, bundle, shard=shard, pp=layout.pp)
         lg, y, lvalid = _loss_inputs(logits, batch, _rows(valid[b], shard))
         _, stats = _loss_and_stats(lg, y, lvalid, bundle.task,
                                    bundle.num_classes)
@@ -503,20 +573,83 @@ class _NoLog:
         pass
 
 
-def _check_parallel(config: dict) -> None:
-    """Refuse the mesh axes the port does not have yet: only 'data' is
-    ported (ROADMAP queue A, item 9: TP, the SP ring, PP and EP are next)."""
+def _check_parallel(config: dict, model_name: str) -> dict:
+    """The JAX trainer's guards on the ``parallel`` block that read only the
+    config (``train/trainer.py:586-631``), with its messages; returns the
+    block's values."""
     parallel = config.get("parallel", {}) or {}
-    for key in ("model_axis", "seq_shards", "pipe_stages", "expert_shards"):
-        if int(parallel.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"parallel.{key} > 1 is not ported yet (ROADMAP queue A, "
-                "item 9: TP, the SP ring, PP and EP come with the next slice); "
-                "the port trains data-parallel only")
-    if parallel.get("ep_manual"):
-        raise NotImplementedError("parallel.ep_manual (the manual all-to-all MoE "
-                                  "dispatch) is not ported yet (ROADMAP queue A, "
-                                  "item 9: EP)")
+    tokens = model_name in ("ibtt", "agtt")
+    seq_shards = int(parallel.get("seq_shards", 1))
+    if seq_shards > 1 and not tokens:
+        raise ValueError("parallel.seq_shards applies to the token "
+                         "transformers (ibtt/agtt); graph-native models "
+                         "have no sequence axis")
+    pipe_stages = int(parallel.get("pipe_stages", 1))
+    if pipe_stages > 1 and not tokens:
+        raise ValueError("parallel.pipe_stages applies to the token "
+                         "transformers (ibtt/agtt); graph-native models "
+                         "have no layer pipeline")
+    expert_shards = int(parallel.get("expert_shards", 1))
+    moe_experts = int(config.get("model", {}).get("moe_experts", 0))
+    if expert_shards > 1:
+        if not tokens:
+            raise ValueError("parallel.expert_shards applies to the token "
+                             "transformers (ibtt/agtt); the graph-native "
+                             "models have no MoE FFN")
+        if moe_experts <= 0:
+            raise ValueError("parallel.expert_shards requires model.moe_experts")
+        if moe_experts % expert_shards != 0:
+            raise ValueError(
+                f"model.moe_experts={moe_experts} must divide over "
+                f"parallel.expert_shards={expert_shards} (otherwise the "
+                "expert stacks stay replicated while the mesh still gives "
+                "up data-parallel width)")
+    ep_manual = bool(parallel.get("ep_manual", False))
+    if ep_manual and expert_shards <= 1:
+        raise ValueError("parallel.ep_manual requires parallel.expert_shards")
+    if pipe_stages > 1 and moe_experts > 0:
+        raise ValueError("parallel.pipe_stages with model.moe_experts is "
+                         "unsupported (the pipeline's layer scan cannot "
+                         "capture the MoE aux-loss sow)")
+    return {"model_axis": int(parallel.get("model_axis", 1)), "seq_shards": seq_shards,
+            "pipe_stages": pipe_stages, "expert_shards": expert_shards,
+            "ep_manual": ep_manual,
+            "n_micro": int(parallel.get("pipe_microbatches", pipe_stages))}
+
+
+def _layout(mesh: Optional[Mesh], par: dict, model, batch_size: int, train_bs: int,
+            packed_train: bool) -> Tuple[int, Layout]:
+    """(train row batch, Layout) of a run, with the JAX trainer's guards on
+    the mesh and the batches (``train/trainer.py:638-640``, ``:670-680``,
+    ``:687-701``)."""
+    if mesh is None:
+        return train_bs, Layout()
+    data = mesh.shape["data"]
+    train_bs, sharded = data_parallel_rows(data, batch_size, train_bs, packed_train)
+    rows = mesh.axis("data")
+    if par["ep_manual"]:
+        # every batch shards over data x expert, which both must divide
+        width = data * mesh.shape["expert"]
+        for bs_check, what in ((train_bs, "train batch"), (batch_size, "eval batch")):
+            if bs_check % width != 0:
+                raise ValueError(f"{what} {bs_check} not divisible by "
+                                 f"data*expert mesh width {width} "
+                                 "(parallel.ep_manual)")
+        rows, sharded = mesh.axis("data", "expert"), True
+    pp = None
+    if par["pipe_stages"] > 1:
+        n_micro = par["n_micro"]
+        if model.nlayers % par["pipe_stages"] != 0:
+            raise ValueError(f"model.nlayers={model.nlayers} must divide over "
+                             f"pipe_stages={par['pipe_stages']}")
+        for bs_check, what in ((train_bs, "train batch"), (batch_size, "eval batch")):
+            if bs_check % n_micro != 0:
+                raise ValueError(f"{what} {bs_check} not divisible by "
+                                 f"pipe_microbatches={n_micro}")
+        pp = {"mesh": mesh, "n_micro": n_micro}
+    return train_bs, Layout(
+        mesh, shard_batch_spec(mesh, train_bs, rows) if sharded else None,
+        shard_batch_spec(mesh, batch_size, rows) if sharded else None, {}, pp)
 
 
 def _example_graphs(dataset_cfg: dict, task: str, seed: int) -> str:
@@ -537,6 +670,20 @@ def _snapshot(model, opt: ClippedAdamW) -> dict:
             "opt": opt.state()}
 
 
+def _whole(snapshot: dict, names: List[str], shards: Dict[str, ParamShard]) -> dict:
+    """A snapshot with every split tensor gathered whole (a collective:
+    every rank calls it), in the one-process layout."""
+    if not shards:
+        return snapshot
+    params = {k: gather_tensor(v, shards[k]) if k in shards else v
+              for k, v in snapshot["params"].items()}
+    opt = dict(snapshot["opt"])
+    for which in ("mu", "nu"):
+        opt[which] = [gather_tensor(t, shards[k]) if k in shards else t
+                      for k, t in zip(names, opt[which])]
+    return {"params": params, "opt": opt}
+
+
 def train(config: dict, model_name: str, limit: Optional[int] = None,
           verbose: bool = True,
           device: Optional[str | torch.device] = None) -> TrainResult:
@@ -549,11 +696,9 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     train_cfg = config.get("train", {})
     output_cfg = config.get("output", {})
     wandb_cfg = config.get("wandb", {"use": False})
-    _check_parallel(config)
-    mesh = make_mesh()
-    if mesh.size == 1:
-        mesh = None
-    main = mesh is None or mesh.rank == 0
+    par = _check_parallel(config, model_name)
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    main = world == 1 or dist.get_rank() == 0
     verbose = verbose and main
 
     seed = int(train_cfg.get("seed", 0))
@@ -564,7 +709,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
 
     if main:   # generates a missing corpus and writes the bundle cache
         bundle = build_dataset(model_name, dataset_cfg, seed, limit=limit)
-    if mesh is not None:
+    if world > 1:
         dist.barrier()
     if not main:
         bundle = build_dataset(model_name, dataset_cfg, seed, limit=limit)
@@ -576,11 +721,19 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     # throughput in examples
     packed_train = "seg" in bundle.splits["train"]
     n_train_examples = int(bundle.meta.get("n_examples_train", n_train))
-    train_bs, sharded = data_parallel_rows(mesh.size if mesh else 1, batch_size,
-                                           train_batch_size(bundle, batch_size),
-                                           packed_train)
-    train_shard = shard_batch_spec(mesh, train_bs) if sharded else None
-    eval_shard = shard_batch_spec(mesh, batch_size) if sharded else None
+    if par["seq_shards"] > 1 and packed_train:
+        raise ValueError("parallel.seq_shards requires dataset.pack: "
+                         "false (ring attention has no segment mask)")
+    mesh = make_mesh(par["model_axis"], par["seq_shards"], par["pipe_stages"],
+                     par["expert_shards"])
+    mesh = None if mesh.size == 1 else mesh
+
+    generator = torch.Generator().manual_seed(seed)  # init, then dropout seeds
+    model = build_model(model_name, config, bundle, generator=generator,
+                        sp_mesh=mesh if par["seq_shards"] > 1 else None,
+                        ep_mesh=mesh if par["ep_manual"] else None).to(device)
+    train_bs, layout = _layout(mesh, par, model, batch_size,
+                               train_batch_size(bundle, batch_size), packed_train)
     if verbose:
         print(f"#train: {n_train} | #val: {bundle.n('val')} | #test: {bundle.n('test')}")
         if packed_train:
@@ -589,15 +742,30 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
                   f"density), row batch {train_bs}")
         if task != "zinc" and bundle.kind == "graphs":
             print(_example_graphs(dataset_cfg, task, seed))
-
-    generator = torch.Generator().manual_seed(seed)  # init, then dropout seeds
-    model = build_model(model_name, config, bundle, generator=generator).to(device)
-    steps_per_epoch = max(1, (n_train + train_bs - 1) // train_bs)
-    opt, schedule = build_optimizer(model, train_cfg, steps_per_epoch)
-    names, params = opt.names, opt.params
-    num_params = sum(p.numel() for p in params)
+    num_params = sum(p.numel() for p in model.parameters())
     if verbose:
         print(f"Model parameters: {num_params:,}")
+
+    out_dir = output_cfg.get("out_dir", f"runs_{model_name}")
+    run_name = output_cfg.get("run_name", f"{model_name}-{task}")
+    best_path = os.path.join(out_dir, f"best_{run_name}")
+    ckpt = None
+    if train_cfg.get("resume"):
+        # train.resume_path overrides the default out_dir/best_<run> location
+        ckpt_path = train_cfg.get("resume_path") or best_path
+        ckpt = load_checkpoint(ckpt_path)
+        if ckpt is None and verbose:
+            print(f"[warn] no checkpoint at {ckpt_path}; starting fresh")
+        if ckpt is not None and ckpt.get("params") is not None:
+            load_flax_params(model, ckpt["params"], ckpt.get("batch_stats"))
+        else:
+            ckpt = None
+    # the run's parameters: the whole model's, then this rank's shards
+    if mesh is not None:
+        layout.shards = shard_params(mesh, model)
+    steps_per_epoch = max(1, (n_train + train_bs - 1) // train_bs)
+    opt, schedule = build_optimizer(model, train_cfg, steps_per_epoch, layout.shards)
+    names = opt.names
 
     def on_device(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -606,8 +774,6 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     dev_splits = {s: {k: on_device(v) for k, v in arrays.items()}
                   for s, arrays in bundle.splits.items()}
 
-    out_dir = output_cfg.get("out_dir", f"runs_{model_name}")
-    run_name = output_cfg.get("run_name", f"{model_name}-{task}")
     if task == "zinc":
         wandb_name = run_name
     else:
@@ -620,33 +786,29 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     better = (lambda a, b: a < b) if zinc else (lambda a, b: a > b)
     best_val = float("inf") if zinc else -1.0
     start_epoch = 1
-    best_path = os.path.join(out_dir, f"best_{run_name}")
-    if train_cfg.get("resume"):
-        # train.resume_path overrides the default out_dir/best_<run> location
-        ckpt_path = train_cfg.get("resume_path") or best_path
-        ckpt = load_checkpoint(ckpt_path)
-        if ckpt is None and verbose:
-            print(f"[warn] no checkpoint at {ckpt_path}; starting fresh")
-        if ckpt is not None and ckpt.get("params") is not None:
-            load_flax_params(model, ckpt["params"], ckpt.get("batch_stats"))
-            if ckpt.get("opt_state"):
-                # AdamW moments and step counts, cast to this optimizer's
-                # dtypes: mu precision is a storage choice, not state
-                state = opt_state_to_torch(ckpt["opt_state"], names,
-                                           with_schedule=schedule is not None)
-                if state is not None:
-                    opt.load_state(state)
-                elif verbose:
-                    print("[warn] checkpoint opt_state does not match the "
-                          "optimizer; resuming with a fresh optimizer state")
+    if ckpt is not None:
+        if ckpt.get("opt_state"):
+            # AdamW moments and step counts, cast to this optimizer's
+            # dtypes: mu precision is a storage choice, not state
+            state = opt_state_to_torch(ckpt["opt_state"], names,
+                                       with_schedule=schedule is not None)
+            if state is not None:
+                for which in ("mu", "nu"):   # this rank's blocks
+                    state[which] = [shard_tensor(t, layout.shards[k])
+                                    if k in layout.shards else t
+                                    for k, t in zip(names, state[which])]
+                opt.load_state(state)
             elif verbose:
-                print("[warn] checkpoint has no opt_state; resuming with a "
-                      "fresh optimizer state")
-            best_val = float(ckpt.get("best_val", best_val))
-            start_epoch = int(ckpt.get("epoch", 0)) + 1
-            if verbose:
-                print(f"Resumed from epoch {start_epoch - 1} "
-                      f"(best_val={best_val:.4f})")
+                print("[warn] checkpoint opt_state does not match the "
+                      "optimizer; resuming with a fresh optimizer state")
+        elif verbose:
+            print("[warn] checkpoint has no opt_state; resuming with a "
+                  "fresh optimizer state")
+        best_val = float(ckpt.get("best_val", best_val))
+        start_epoch = int(ckpt.get("epoch", 0)) + 1
+        if verbose:
+            print(f"Resumed from epoch {start_epoch - 1} "
+                  f"(best_val={best_val:.4f})")
     # resumed: the loaded params ARE the best so far
     best = _snapshot(model, opt) if start_epoch > 1 else None
     history: List[Dict[str, Any]] = []
@@ -679,12 +841,8 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             idx = on_device(make_batches(n_train, train_bs, shuffle_rng)[0])
             tr_stats, losses = train_epoch(model, opt, dev_splits["train"], idx,
                                            train_valid, bundle, generator,
-                                           shard=train_shard,
-                                           moe_aux_weight=moe_aux_weight,
-                                           replicas=1 if sharded or mesh is None
-                                           else mesh.size)
-            va_stats = eval_epoch(model, dev_splits["val"], vidx, vvalid, bundle,
-                                  eval_shard)
+                                           layout=layout, moe_aux_weight=moe_aux_weight)
+            va_stats = eval_epoch(model, dev_splits["val"], vidx, vvalid, bundle, layout)
             # the epoch's one read from the device
             tr_host, va_host, loss_host = _to_host(tr_stats, va_stats,
                                                    {"losses": losses})
@@ -741,12 +899,13 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             best_val = va_metrics[blk_ep]
             best = blk_best
             time_to_best = time.time() - t0
+            whole = _whole(best, names, layout.shards)
             if main:
                 save_checkpoint(best_path, {
-                    "params": params_to_flax(best["params"]),
-                    "batch_stats": batch_stats_to_flax(best["params"]),
+                    "params": params_to_flax(whole["params"]),
+                    "batch_stats": batch_stats_to_flax(whole["params"]),
                     "opt_state": opt_state_from_torch(
-                        best["opt"], names, with_schedule=schedule is not None),
+                        whole["opt"], names, with_schedule=schedule is not None),
                     "epoch": epoch + blk_ep, "best_val": best_val,
                     "config": config, "vocab": bundle.vocab,
                     "serve": serving_meta(model_name, bundle)})
@@ -761,7 +920,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     # eval-only (epochs=0 + resume): no epoch ran, so score the val split here
     if epochs < start_epoch and best is not None and bundle.n("val"):
         va = _epoch_metrics(_to_host(eval_epoch(
-            model, dev_splits["val"], vidx, vvalid, bundle, eval_shard))[0], task)
+            model, dev_splits["val"], vidx, vvalid, bundle, layout))[0], task)
         va_metric = va[metric_key]
         logger.log({"val/loss": va["loss"], f"val/{metric_name}": va_metric})
         if verbose:
@@ -773,7 +932,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     else:
         tidx, tvalid = eval_batches["test"]
         te = _epoch_metrics(_to_host(eval_epoch(
-            model, dev_splits["test"], tidx, tvalid, bundle, eval_shard))[0], task)
+            model, dev_splits["test"], tidx, tvalid, bundle, layout))[0], task)
 
     if verbose:
         print("\n" + "=" * 80 + "\nTEST RESULTS\n" + "=" * 80)
@@ -802,8 +961,15 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             test_log["test/mae"] = te.get("mae", 0)
     logger.log(test_log)
     logger.finish()
-    if mesh is not None:   # rank 0's checkpoint and log are on disk for all
+    if world > 1:   # rank 0's checkpoint and log are on disk for all
         dist.barrier()
+    if layout.shards or getattr(model, "sp_mesh", None) or getattr(model, "ep_mesh", None):
+        # the whole model, on one process
+        state = _whole({"params": model.state_dict(), "opt": opt.state()}, names,
+                       layout.shards)["params"]
+        model = build_model(model_name, config, bundle,
+                            generator=torch.Generator().manual_seed(seed)).to(device)
+        model.load_state_dict(state)
 
     return TrainResult(best_val=best_val, test_metrics=te, history=history,
                        params=params_to_flax(model.state_dict()),

@@ -40,16 +40,17 @@ def test_host_shard_bounds_match_jax():
 
 
 def test_mesh_is_the_data_axis_only():
+    """One process: the JAX package's ('data', 'model') mesh of one rank,
+    every parameter replicated; an axis the one rank cannot hold raises."""
     mesh = parallel.make_mesh()
-    assert mesh.shape == {"data": 1} and mesh.axis_names == ("data",)
-    assert parallel.replicated_spec(mesh) is None
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert mesh.axis_names == ("data", "model")
+    assert parallel.replicated_spec(mesh) == ()
     for key in ("model_axis", "seq_shards", "pipe_stages", "expert_shards"):
-        with pytest.raises(NotImplementedError, match="next slice"):
+        with pytest.raises(ValueError, match="do not divide"):
             parallel.make_mesh(**{key: 2})
-    with pytest.raises(NotImplementedError, match="next slice"):
-        parallel.param_shard_spec(mesh, (), torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        parallel.shard_params(mesh, {})
+    assert parallel.param_shard_spec(mesh, ("dense", "kernel"), torch.zeros(4, 8)) == ()
+    assert parallel.shard_params(mesh, torch.nn.Linear(4, 8)) == {}
     # rank r's contiguous block, as P("data") gives device r
     blocks = [parallel.shard_batch_spec(Mesh(r, 4), 12) for r in range(4)]
     assert [(s.start, s.stop, s.total, s.size) for s in blocks] == \

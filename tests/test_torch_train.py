@@ -345,16 +345,24 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     config = _config(str(tmp_path), "x", True)
     with pytest.raises(RuntimeError, match="CUDA"):
         trainer.train(config, "agtt", limit=8, verbose=False)     # default: cuda
-    for key in ("model_axis", "seq_shards", "pipe_stages", "expert_shards"):
+    # one process holds no second rank: an axis asked for raises, never
+    # runs unsharded
+    for key in ("model_axis", "seq_shards", "pipe_stages"):
         bad = {**config, "parallel": {key: 2}}
-        with pytest.raises(NotImplementedError, match="parallel"):
+        if key == "seq_shards":
+            bad["dataset"] = {**config["dataset"], "pack": False}
+        with pytest.raises(ValueError, match="do not divide"):
             trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
+    bad = {**config, "parallel": {"expert_shards": 2},
+           "model": {**config["model"], "moe_experts": 2}}
+    with pytest.raises(ValueError, match="do not divide"):
+        trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
     bad = copy.deepcopy(config)
     bad["train"]["mu_dtype"] = "float16"
     with pytest.raises(ValueError, match="mu_dtype"):
         trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
     bad = {**config, "parallel": {"expert_shards": 1, "ep_manual": True}}
-    with pytest.raises(NotImplementedError, match="ep_manual"):
+    with pytest.raises(ValueError, match="ep_manual requires"):
         trainer.train(bad, "agtt", limit=8, verbose=False, device="cpu")
 
 
