@@ -142,7 +142,20 @@ Phases; any failure exits non-zero before the last line is printed:
    seconds an epoch are printed beside the card. On four cards or more the
    ranks run over NCCL, a card each, and a four-rank run of data 2 x model
    2 (agtt_zinc width, f32) is held to one process the same way.
-11. One JSON line of every kernel (name, launches, errors, times, bound),
+11. The tools. The head-dim-128 instances of the forward, dQ and dK/dV
+   kernels, bf16 and f32, and a head dim between instances (12, zero-padded
+   to 16) against their plain versions at the mfu_bench rows [64, 1024, 8,
+   D] with packed segments at p 26/256 (the tolerances of phases 3-4),
+   timed beside the plain versions and SDPA, with each head-dim-128
+   instance's shared memory, registers and spills as `cudaFuncGetAttributes` reports
+   them. Then ``glearning_benchmark_tpu_torch.bench`` whole (its last line
+   must parse with a positive value, the byte-exactness checks held and the
+   device encoder timed); ``tools.mfu_bench`` at d_model 256, 512 and 1024
+   with a block of 4 steps (every row ``valid`` with 0 < mfu <= 1, the
+   attention kernels launched); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
+   and xl; ``tools.serve_bench`` for agtt and MPNN at buckets 1 and 256
+   (1-epoch checkpoints on phase 7's corpus, 3 warm requests).
+12. One JSON line of every kernel (name, launches, errors, times, bound),
    then the result line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -160,6 +173,9 @@ import tempfile
 import time
 
 import torch
+
+from glearning_benchmark_tpu_torch.ops.flash_attention import allowed_pairs, bound, bound_bwd
+from glearning_benchmark_tpu_torch.utils.card import cuda_ms, nvidia_smi
 
 # the `model:` blocks of configs/agtt_zinc.yaml and configs/ibtt_zinc.yaml
 # (a CPU test holds them equal; the card's machine need not have PyYAML)
@@ -278,49 +294,8 @@ LOGIT_ATOL = 5e-3
 # in batches of another size; the logits are f32 of magnitude about 1
 SERVED_LOGIT_ATOL = 1e-6
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
-# FLOP/s, f32 FLOP/s outside the tensor cores; SFU exp2 16 per SM per clock
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-SFU_PER_SM_CLK = 16
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, readings: int = 2) -> list:
-    """Device ms per call of ``fn`` over ``iters`` back-to-back calls, read
-    ``readings`` times one after the other. The device first spins for at
-    least 20 ms and for three times the host's own time to enqueue the
-    calls (timed on one call), so the host has queued them before the first
-    one starts: the time is the device's, not the host's enqueue rate. The
-    number kept is the least reading; every reading is printed beside it."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin_cycles = int(max(40e6, 3 * host_s * iters * 2e9))   # 2e9: above the SM clock
-    out = []
-    for _ in range(readings):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin_cycles)
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        out.append(t0.elapsed_time(t1) / iters)
-    return out
 
 
 def fmt_ms(readings: list) -> str:
@@ -464,35 +439,6 @@ def dropout_pattern(fa, seed: int, p_drop: float) -> None:
             raise AssertionError(f"kernel dropout keep pattern differs: {dtype} D {d}")
 
 
-def allowed_pairs(seg: torch.Tensor, h: int) -> int:
-    """(query, key) pairs the mask allows, over all heads."""
-    pairs = 0
-    for row in seg.cpu():
-        counts = torch.bincount(row[row > 0])
-        pairs += int((counts.long() ** 2).sum())
-    return pairs * h
-
-
-def bound(q, seg) -> dict:
-    """Least time the card could take for this call: bytes the data needs
-    (q, k, v rows of valid tokens, seg, O and LSE) over HBM bandwidth, and
-    the operations on the allowed (query, key) pairs: 4 D FLOPs (q.k and
-    p.v) over the input type's peak, one exp over the SFU rate."""
-    b, l, h, d = q.shape
-    pairs = allowed_pairs(seg, h)
-    valid = int((seg > 0).sum())
-    isz = q.element_size()
-    nbytes = 3 * valid * h * d * isz + b * l * 4 + b * l * h * d * isz + b * h * l * 4
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
-    t = {"bytes": nbytes / HBM_BYTES_S * 1e3,
-         "flops": 4 * pairs * d / PEAK_FLOPS[q.dtype] * 1e3,
-         "exp": pairs / (sms * SFU_PER_SM_CLK * clock_hz) * 1e3}
-    by = max(t, key=t.get)
-    return {"bound_ms": t[by], "bound_by": "bytes" if by == "bytes" else "operations",
-            "parts_ms": t, "pairs": pairs, "bytes": nbytes}
-
-
 def fmt_bound(bd: dict) -> str:
     return (f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (bytes "
             f"{bd['parts_ms']['bytes']:.4f}, flops {bd['parts_ms']['flops']:.4f}, "
@@ -530,18 +476,26 @@ def strided_do(shape, dtype, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(b, h, l, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
 
 
-def compare_bwd(name, fa, q, k, v, seg, do, p_drop=0.0, seed=0, bh_offset=0) -> dict:
+def compare_bwd(name, fa, q, k, v, seg, do, p_drop=0.0, seed=0, bh_offset=0,
+                chunk=None) -> dict:
     """Both backward kernels against ``flash_attention_bwd_reference`` on
-    the same inputs (O and LSE from the forward kernel). Returns the max
-    abs error per kernel."""
+    the same inputs (O and LSE from the forward kernel), the plain version
+    on ``chunk`` rows at a time (all at once by default), each at its place
+    in the batch*head index space. Returns the max abs error per kernel."""
     args = (p_drop, seed, bh_offset)
     o, lse = fa.flash_attention_fwd(q, k, v, seg, *args)
     dq, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, *args)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, *args)
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta, *args)
     torch.cuda.synchronize()
-    rq, rk, rv = fa.flash_attention_bwd_reference(
-        q.float(), k.float(), v.float(), seg, o, lse, do.float(), *args)
+    chunk = chunk or q.shape[0]
+    h = q.shape[2]
+    parts = [fa.flash_attention_bwd_reference(
+        q[i:i + chunk].float(), k[i:i + chunk].float(), v[i:i + chunk].float(),
+        seg[i:i + chunk], o[i:i + chunk], lse[i:i + chunk], do[i:i + chunk].float(),
+        p_drop, seed, bh_offset + i * h) for i in range(0, q.shape[0], chunk)]
+    rq, rk, rv = (torch.cat([p[j] for p in parts]) for j in range(3))
+    del parts
     rdelta = fa.flash_attention_delta(o, do)
     errs, ok = {}, True
     for what, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
@@ -589,59 +543,37 @@ def compare_bwd_autograd(fa, seg, gen: torch.Generator, p_drop: float, seed: int
         raise AssertionError("backward disagrees with autograd through the plain forward")
 
 
-def bound_bwd(q, seg, which: str) -> dict:
-    """Least time the card could take for one backward kernel on these
-    inputs. Bytes: the rows of valid tokens of q, k, v, dO (and O for the dQ
-    kernel, whose prologue sums delta), LSE, delta and seg read, the
-    outputs written in full (dQ and delta, or dK and dV). Operations on the
-    allowed pairs: 6 D (dQ) or 8 D (dK/dV) FLOPs over the input type's
-    peak, one exp over the SFU rate."""
-    b, l, h, d = q.shape
-    pairs = allowed_pairs(seg, h)
-    valid = int((seg > 0).sum())
-    isz = q.element_size()
-    row_reads = 5 if which == "dq" else 4
-    small = b * h * l * 4
-    nbytes = (row_reads * valid * h * d * isz + b * l * 4 + 2 * small
-              + (1 if which == "dq" else 2) * b * l * h * d * isz)
-    flops_per_pair = (6 if which == "dq" else 8) * d
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
-    t = {"bytes": nbytes / HBM_BYTES_S * 1e3,
-         "flops": flops_per_pair * pairs / PEAK_FLOPS[q.dtype] * 1e3,
-         "exp": pairs / (sms * SFU_PER_SM_CLK * clock_hz) * 1e3}
-    by = max(t, key=t.get)
-    return {"bound_ms": t[by], "bound_by": "bytes" if by == "bytes" else "operations",
-            "parts_ms": t, "pairs": pairs, "bytes": nbytes}
-
-
-def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str) -> dict:
+def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str,
+             iters: int = 50, plain_iters: int = 5) -> dict:
     """Times of the two backward kernels, of the plain backward (one
     function for dQ, dK and dV together) and of the backward of
     ``scaled_dot_product_attention`` with the same boolean mask (also all
-    three gradients; no dropout, its stream could not match)."""
+    three gradients; no dropout, its stream could not match); and of the
+    forward, the plain forward and SDPA's forward. ``iters`` calls of each
+    kernel and of SDPA a reading, ``plain_iters`` of each plain version."""
     o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed)
     _, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed)
     ms = {"flash_attn_bwd_dq": cuda_ms(lambda: fa.flash_attention_bwd_dq(
-              q, k, v, seg, o, lse, do, p_drop, seed), 50),
+              q, k, v, seg, o, lse, do, p_drop, seed), iters),
           "flash_attn_bwd_dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv(
-              q, k, v, seg, o, lse, do, delta, p_drop, seed), 50)}
-    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, seed), 50)
-    fwd_plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seg, p_drop, seed), 5)
+              q, k, v, seg, o, lse, do, delta, p_drop, seed), iters)}
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, seed), iters)
+    fwd_plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seg, p_drop, seed),
+                           plain_iters)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
-        q, k, v, seg, o, lse, do, p_drop, seed), 5)
+        q, k, v, seg, o, lse, do, p_drop, seed), plain_iters)
     allow = ((seg[:, None, :, None] == seg[:, None, None, :])
              & (seg[:, None, None, :] != 0))
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     with torch.no_grad():
         lib_fwd_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=allow), 50)
+            qt, kt, vt, attn_mask=allow), iters)
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow)
     dot = do.transpose(1, 2)
     def sdpa_bwd():
         return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-    lib_ms = cuda_ms(sdpa_bwd, 50)
+    lib_ms = cuda_ms(sdpa_bwd, iters)
     log(f"[kernel] sdpa backward ran as: {device_kernels(sdpa_bwd)} ({sdpa_flags()})")
     res = {}
     for name, which in (("flash_attn_bwd_dq", "dq"), ("flash_attn_bwd_dkv", "dkv")):
@@ -1928,6 +1860,124 @@ def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the tools (head dim 128 and a padded head dim, the north-star
+# bench, the step MFU, the attention A/B, serving)
+# ---------------------------------------------------------------------------
+
+MFU_SHAPE = (64, 1024, 8, 128)   # tools/mfu_bench.py's d_model 1024 rows: B, L, H, D
+PADDED_HEAD_DIM = 12
+MFU_STEPS = 4                    # the timed block (and a half block of 2)
+AB_SHAPES = "ibtt-zinc,agtt-zinc,xl"
+SERVE_FAMILIES = (("agtt", "agtt_graph_token"), ("mpnn", "mpnn_graph_token"))
+SERVE_BUCKETS = (1, 256)
+SERVE_REPS = 3
+
+
+def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> tuple:
+    """The head-dim-128 instances (bf16 and f32) and a padded head dim (12,
+    bf16 and f32) against their plain versions at the mfu_bench rows with
+    packed segments at the training rate ``p``, then timed; the resources
+    of each head-dim-128 instance. Returns (forward errors, backward
+    errors, timings by shape, resources)."""
+    b, l, h, d = MFU_SHAPE
+    seg = packed_seg(b, l, cgen)
+    errs, berrs, timing = [], [], {}
+    for dim in (d, PADDED_HEAD_DIM):
+        shape = (b, l, h, dim)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"d{dim} {str(dtype)[6:]}"
+            errs.append(compare(f"mfu rows {name}", fa, *qkv_views(shape, dtype, gen), seg,
+                                p_drop=p, seed=11, chunk=8))
+            berrs.append(compare_bwd(f"mfu rows {name}", fa, *qkv_views(shape, dtype, gen),
+                                     seg, strided_do(shape, dtype, gen), p, 11, chunk=8))
+            # the f32 instances at head dim 128 spill (tens of ms a call): fewer calls
+            slow = dtype == torch.float32 and dim == d
+            timing[f"mfu_d{dim * h}_rows_{str(dtype)[6:]}_p{p}"] = time_bwd(
+                fa, *qkv_views(shape, dtype, gen), seg, strided_do(shape, dtype, gen), p, 11,
+                f"mfu rows {name}", iters=3 if slow else 20, plain_iters=2)
+            torch.cuda.empty_cache()
+    resources = {}
+    for name in fa.SOURCES:
+        for dtype in (torch.bfloat16, torch.float32):
+            attrs = fa.kernel_attrs(name, d, dtype, dropout=True)
+            resources[f"{name}_d{d}_{str(dtype)[6:]}"] = attrs
+            log(f"[kernel] {name} head dim {d} {str(dtype)[6:]} (dropout): "
+                f"{attrs['static_smem_bytes']} B static + {attrs['dynamic_smem_bytes']} B "
+                f"dynamic shared memory, {attrs['registers']} registers, "
+                f"{attrs['local_bytes']} B spilled a thread")
+    return errs, berrs, timing, resources
+
+
+def captured(fn, argv: list) -> list:
+    """The JSON lines ``fn(argv)`` prints, parsed, in order."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def tools_phase(fa, tmp: str, gt_root: str, gen, cgen, p: float, card: str) -> tuple:
+    """Phase 11 (module docstring). Returns (forward errors, backward errors,
+    timings by shape, head-dim-128 resources, the mfu runs' launches)."""
+    from glearning_benchmark_tpu_torch import bench
+    from glearning_benchmark_tpu_torch.tools import flash_ab, mfu_bench, serve_bench
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    errs, berrs, timing, resources = head_dim_rows(fa, gen, cgen, p)
+    log(f"[phase] tools: head dims 128 and {PADDED_HEAD_DIM} {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    line = captured(bench.main, ["--out", os.path.join(tmp, "bench.json")])[-1]
+    if not (line["metric"] == "zinc_tokenize_graphs_per_sec" and line["value"] > 0
+            and line["byte_exact"] and line["device_encode_graphs_per_sec"] > 0):
+        raise AssertionError(f"bench: unexpected last line {line}")
+    log(f"[tools] bench: {line['value']:.1f} graphs/s, vs_baseline {line['vs_baseline']:.2f}, "
+        f"device encoder {line['device_encode_graphs_per_sec']:.1f} graphs/s, byte-exact; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    rows = captured(mfu_bench.main, ["--steps", str(MFU_STEPS),
+                                     "--out", os.path.join(tmp, "mfu.json")])[:-1]
+    launches = {"mfu_bench": dict(fa.LAUNCHES)}
+    for row in rows:
+        if not (row["valid"] and 0 < row["mfu"] <= 1):
+            raise AssertionError(f"mfu_bench d_model {row['d_model']}: not a valid row: {row}")
+    if [r["d_model"] for r in rows] != [256, 512, 1024]:
+        raise AssertionError("mfu_bench did not run the three widths")
+    if min(launches["mfu_bench"].values()) == 0:
+        raise AssertionError(f"mfu_bench ran no attention kernel: {launches}")
+    log(f"[tools] mfu_bench: " + "; ".join(
+        f"d_model {r['d_model']} step {r['step_s'] * 1e3:.2f} ms, mfu {r['mfu']:.4f}, "
+        f"mfu_vs_measured {r['mfu_vs_measured']:.4f}" for r in rows)
+        + f"; launches {launches['mfu_bench']}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ab = captured(flash_ab.main, ["--shapes", AB_SHAPES, "--out", os.path.join(tmp, "ab.json")])
+    for row in ab[:-1]:
+        if not (row["kernel_fwdbwd_ms"] > 0 and row["max_abs_diff_kernel_vs_sdpa"] < 2 ** -6):
+            raise AssertionError(f"flash_ab {row['shape']}: {row}")
+    log(f"[tools] flash_ab {AB_SHAPES}: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for family, config in SERVE_FAMILIES:
+        res = serve_bench.bench_family(
+            family, GRAPH_CONFIGS[config], torch.device("cuda"), SERVE_BUCKETS, SERVE_REPS,
+            epochs=1, out_dir=os.path.join(tmp, "serve_bench"), corpus_root=gt_root)
+        if [r["batch"] for r in res["rows"]] != list(SERVE_BUCKETS):
+            raise AssertionError(f"serve_bench {family}: {res}")
+    log(f"[tools] serve_bench {[f for f, _ in SERVE_FAMILIES]} buckets {SERVE_BUCKETS}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return errs, berrs, timing, resources, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2161,7 +2211,17 @@ def main() -> int:
         dp_launches.update(mesh_phase(fa, tmp, graphs, card))
         log(f"[phase] mesh axes {time.perf_counter() - t0:.1f} s")
 
-    # phase 11: the kernels line, then the result
+        # phase 11: the tools (head dims 128 and 12, bench, mfu_bench,
+        # flash_ab, serve_bench)
+        t0 = time.perf_counter()
+        terrs, tberrs, htiming, resources, tool_launches = tools_phase(
+            fa, tmp, gt_root, gen, cgen, p_train, card)
+        errs += terrs
+        berrs += tberrs
+        dp_launches.update(tool_launches)
+        log(f"[phase] tools {time.perf_counter() - t0:.1f} s")
+
+    # phase 12: the kernels line, then the result
     src = "glearning_benchmark_tpu_torch/csrc/"
     ref = "glearning_benchmark_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2182,7 +2242,10 @@ def main() -> int:
             ("ibtt_served", ibtt_timing), ("agtt_dense", dense_timing),
             *((f"{rows}", t["flash_attn_fwd"]) for rows, t in gtiming.items()
               if "flash_attn_fwd" in t),
-            ("ibtt_graph_token_test_rows", gtiming["ibtt_graph_token_test_rows"]))}}]
+            ("ibtt_graph_token_test_rows", gtiming["ibtt_graph_token_test_rows"]),
+            *((rows, t["flash_attn_fwd"]) for rows, t in htiming.items()))},
+        "instances_d128": {k: v for k, v in resources.items()
+                           if k.startswith("flash_attn_fwd_")}}]
     for name, line in (("flash_attn_bwd_dq", "164"), ("flash_attn_bwd_dkv", "204")):
         t = btiming[name]
         kernels.append({
@@ -2196,7 +2259,10 @@ def main() -> int:
                                     {**graph_launches, **dp_launches}.items()}},
             "by_shape": {rows: {key: bt[name][key] for key in keys} for rows, bt in (
                 (f"ibtt_train_rows_p{p_train}", ibtt_btiming),
-                *((rows, bt) for rows, bt in gtiming.items() if name in bt))}})
+                *((rows, bt) for rows, bt in gtiming.items() if name in bt),
+                *htiming.items())},
+            "instances_d128": {k: v for k, v in resources.items()
+                               if k.startswith(name + "_d")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -46,8 +46,9 @@
 //     ldmatrix.trans. P keep/(1-p) and dS are not bf16: rounding them would
 //     cost 2^-9 relative where gradients cancel, beyond the elementwise
 //     4e-3 the kernel is held to. So each is split into bf16 hi + lo and
-//     both are multiplied (about 2^-17 relative); at these widths the
-//     tensor cores have room for the second product.
+//     both are multiplied (about 2^-17 relative), at head dims 64 and 128
+//     into hi + mid + lo (about 2^-25; `split_terms`); the tensor cores
+//     have room for the second product.
 // dK is accumulated unscaled and multiplied by `scale` once before the
 // cast; dV is not scaled.
 //
@@ -58,6 +59,15 @@
 // between the products. Warp-level mma lets each warp skip the queries
 // that may not attend its own 16 keys and keeps P and dS in registers
 // between the products.
+//
+// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`); the
+// wrapper zero-pads any other head dim up to 128 to the next of them and
+// hands the kernel the scale of the true one. At 128 the bf16 route's two
+// double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
+// memory, so that route keeps them in dynamic shared memory there
+// (`MmaTiles`, `launch_dyn`); the f32 route's tiles shrink to 32
+// rows there (`f32_tile`) and its per-thread arrays of 128 floats spill to
+// local memory: right, not fast (PERF.md gives the times).
 //
 // f32 (the FP32-pipe route). Tensor cores take no f32 input, and TF32
 // would not hold f32 accuracy. One block of 128 threads owns 128 keys, one
@@ -79,9 +89,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int DP = D < 16 ? 16 : D;  // mma depth: D padded to 16
   constexpr int KD = DP / 16;          // k-steps of k.q and v.dO
   constexpr int NT = (D + 7) / 8;      // n-tiles of 8 head columns of dK, dV
-  constexpr int LD = DP + 8;           // shared row stride: no bank conflicts
-  __shared__ __align__(16) bf16 qs[2][kMmaTile][LD];
-  __shared__ __align__(16) bf16 dos[2][kMmaTile][LD];
+  constexpr int LD = mma_ld(D);        // shared row stride: no bank conflicts
+  auto& qs = mma_tiles<LD>().a;        // [2][kMmaTile][LD]
+  auto& dos = mma_tiles<LD>().b;
   __shared__ float lses[2][kMmaTile];
   __shared__ float deltas[2][kMmaTile];
   __shared__ int32_t segs[2][kMmaTile];
@@ -228,13 +238,13 @@ __global__ void __launch_bounds__(kMmaThreads)
           ds[n][e] = pr * (dp[n][e] * keepf - deltas[buf][j]);
         }
       }
-      uint32_t ph[4], pl[4], sh[4], sl[4];
+      SplitA<split_terms(D)> pa, sa;
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        split_bf16x2(pd[n][0], pd[n][1], ph[2 * n], pl[2 * n]);
-        split_bf16x2(pd[n][2], pd[n][3], ph[2 * n + 1], pl[2 * n + 1]);
-        split_bf16x2(ds[n][0], ds[n][1], sh[2 * n], sl[2 * n]);
-        split_bf16x2(ds[n][2], ds[n][3], sh[2 * n + 1], sl[2 * n + 1]);
+        split_bf16x2(pd[n][0], pd[n][1], pa, 2 * n);
+        split_bf16x2(pd[n][2], pd[n][3], pa, 2 * n + 1);
+        split_bf16x2(ds[n][0], ds[n][1], sa, 2 * n);
+        split_bf16x2(ds[n][2], ds[n][3], sa, 2 * n + 1);
       }
 #pragma unroll
       for (int n2 = 0; n2 < (NT + 1) / 2; ++n2) {
@@ -243,15 +253,11 @@ __global__ void __launch_bounds__(kMmaThreads)
         const int col = n2 * 16 + (lane >> 4) * 8;
         ldsm_x4_trans(gb, &dos[buf][r][col]);
         ldsm_x4_trans(qb, &qs[buf][r][col]);
-        mma_bf16(dv[2 * n2], ph, gb[0], gb[1]);
-        mma_bf16(dv[2 * n2], pl, gb[0], gb[1]);
-        mma_bf16(dk[2 * n2], sh, qb[0], qb[1]);
-        mma_bf16(dk[2 * n2], sl, qb[0], qb[1]);
+        mma_bf16_split(dv[2 * n2], pa, gb[0], gb[1]);
+        mma_bf16_split(dk[2 * n2], sa, qb[0], qb[1]);
         if (2 * n2 + 1 < NT) {
-          mma_bf16(dv[2 * n2 + 1], ph, gb[2], gb[3]);
-          mma_bf16(dv[2 * n2 + 1], pl, gb[2], gb[3]);
-          mma_bf16(dk[2 * n2 + 1], sh, qb[2], qb[3]);
-          mma_bf16(dk[2 * n2 + 1], sl, qb[2], qb[3]);
+          mma_bf16_split(dv[2 * n2 + 1], pa, gb[2], gb[3]);
+          mma_bf16_split(dk[2 * n2 + 1], sa, qb[2], qb[3]);
         }
       }
     }
@@ -282,14 +288,15 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 
 // The f32 route (see the header note): one key per thread.
-template <int D, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
     attn_bwd_dkv_kernel_f32(const BwdParams p) {
-  __shared__ __align__(16) float qs[kF32Tile][D];
-  __shared__ __align__(16) float dos[kF32Tile][D];
-  __shared__ float lse2s[kF32Tile];
-  __shared__ float deltas[kF32Tile];
-  __shared__ int32_t segs[kF32Tile];
+  constexpr int T = f32_tile(D);  // queries per shared-memory tile
+  __shared__ __align__(16) float qs[T][D];
+  __shared__ __align__(16) float dos[T][D];
+  __shared__ float lse2s[T];
+  __shared__ float deltas[T];
+  __shared__ int32_t segs[T];
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -330,17 +337,17 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
   const float* gp = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
   const float* delta_bh = p.delta + static_cast<int64_t>(bh) * p.L;
-  for (int l0 = q_first; l0 < qend; l0 += kF32Tile) {
-    for (int i = threadIdx.x; i < kF32Tile; i += kF32Rows)
+  for (int l0 = q_first; l0 < qend; l0 += T) {
+    for (int i = threadIdx.x; i < T; i += kF32Rows)
       segs[i] = (l0 + i < qend) ? seg_b[l0 + i] : 0;
     __syncthreads();
     bool mine = false;
     if (sk != 0) {
 #pragma unroll
-      for (int i = 0; i < kF32Tile; ++i) mine |= (segs[i] == sk);
+      for (int i = 0; i < T; ++i) mine |= (segs[i] == sk);
     }
     if (__syncthreads_or(mine)) {
-      for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Rows) {
+      for (int e = threadIdx.x; e < T * D; e += kF32Rows) {
         const int i = e / D;
         const int d = e - i * D;
         const bool ok = l0 + i < qend;
@@ -348,7 +355,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
         qs[i][d] = ok ? qp[r * p.q_sl + d] : 0.f;
         dos[i][d] = ok ? gp[r * p.do_sl + d] : 0.f;
       }
-      for (int i = threadIdx.x; i < kF32Tile; i += kF32Rows) {
+      for (int i = threadIdx.x; i < T; i += kF32Rows) {
         const bool ok = l0 + i < qend;
         lse2s[i] = ok ? lse_bh[l0 + i] * kLog2e : 0.f;
         deltas[i] = ok ? delta_bh[l0 + i] : 0.f;
@@ -356,7 +363,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
       __syncthreads();
       if (mine) {
 #pragma unroll 2
-        for (int i = 0; i < kF32Tile; ++i) {
+        for (int i = 0; i < T; ++i) {
           if (segs[i] != sk) continue;  // sk != 0, so a pad query never matches
           float dot = 0.f;
           float dp = 0.f;
@@ -398,35 +405,37 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
   }
 }
 
+// The instance a launch runs (its dynamic shared bytes: bf16 route).
+template <int D>
+const void* kernel_of(int is_bf16, int dropout) {
+  if (!is_bf16) return reinterpret_cast<const void*>(attn_bwd_dkv_kernel_f32<D>);
+  return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_mma<D, true>)
+                 : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_mma<D, false>);
+}
+
 template <int D>
 void launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     const int vec = rows_vectorizable(p.q, p.q_sb, p.q_sl, p.q_sh, D) &&
                     rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D);
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+    constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
     if (p.dropout)
-      attn_bwd_dkv_kernel_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(p, vec);
+      launch_dyn(attn_bwd_dkv_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
     else
-      attn_bwd_dkv_kernel_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(p, vec);
+      launch_dyn(attn_bwd_dkv_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
   } else {
-    // head dims up to 16 fit four blocks (16 warps) per SM in registers
-    constexpr int kMinBlocks = D <= 16 ? 4 : 1;
     const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
-    attn_bwd_dkv_kernel_f32<D, kMinBlocks><<<grid, kF32Rows, 0, stream>>>(p);
+    attn_bwd_dkv_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
   }
 }
 
 int dispatch_d(int head_dim, const BwdParams& p, int is_bf16,
                cudaStream_t stream) {
-  switch (head_dim) {
-    case 4: launch<4>(p, is_bf16, stream); break;
-    case 8: launch<8>(p, is_bf16, stream); break;
-    case 16: launch<16>(p, is_bf16, stream); break;
-    case 32: launch<32>(p, is_bf16, stream); break;
-    case 64: launch<64>(p, is_bf16, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_head_dim(head_dim, [&](auto d) {
+    launch<decltype(d)::value>(p, is_bf16, stream);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -439,4 +448,17 @@ extern "C" int flash_attn_bwd_dkv(const flash::BwdParams* params, int head_dim,
   flash::BwdParams p = *params;
   p.scale_log2 = p.scale * flash::kLog2e;
   return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The resources of the instance a launch at (head_dim, is_bf16, dropout)
+// runs: out[4] = static shared bytes, dynamic shared bytes, registers a
+// thread, local (spilled) bytes a thread. Returns a cudaError_t.
+extern "C" int flash_attn_bwd_dkv_attrs(int head_dim, int is_bf16, int dropout,
+                                        int* out) {
+  return flash::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return flash::func_attrs(
+        kernel_of<D>(is_bf16, dropout),
+        is_bf16 ? static_cast<int>(flash::mma_dyn_smem<flash::mma_ld(D)>()) : 0, out);
+  });
 }

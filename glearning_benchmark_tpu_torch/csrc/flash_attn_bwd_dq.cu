@@ -46,8 +46,9 @@
 //     through ldmatrix.trans: no shared-memory round trip. dS is not bf16:
 //     rounding it would cost 2^-9 relative where gradients cancel, beyond
 //     the elementwise 4e-3 the kernel is held to. So dS is split into bf16
-//     hi + lo and both are multiplied (about 2^-17 relative); at these
-//     widths the tensor cores have room for the second product.
+//     hi + lo and both are multiplied (about 2^-17 relative), at head dims
+//     64 and 128 into hi + mid + lo (about 2^-25; `split_terms`); the
+//     tensor cores have room for the second product.
 // dQ is accumulated unscaled and multiplied by `scale` once before the
 // cast. delta is summed by two lanes a row over dO and O in the prologue.
 //
@@ -58,6 +59,15 @@
 // between the products. Warp-level mma lets each warp skip the keys its
 // own 16 rows may not attend and keeps P and dS in registers between the
 // products.
+//
+// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`); the
+// wrapper zero-pads any other head dim up to 128 to the next of them and
+// hands the kernel the scale of the true one. At 128 the bf16 route's two
+// double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
+// memory, so that route keeps them in dynamic shared memory there
+// (`MmaTiles`, `launch_dyn`); the f32 route's tiles shrink to 32
+// rows there (`f32_tile`) and its per-thread arrays of 128 floats spill to
+// local memory: right, not fast (PERF.md gives the times).
 //
 // f32 (the FP32-pipe route). Tensor cores take no f32 input, and TF32
 // would not hold f32 accuracy. One block of 128 threads owns 128 query
@@ -80,9 +90,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int DP = D < 16 ? 16 : D;  // mma depth: D padded to 16
   constexpr int KD = DP / 16;          // k-steps of q.k and dO.v
   constexpr int NT = (D + 7) / 8;      // n-tiles of 8 head columns of dQ
-  constexpr int LD = DP + 8;           // shared row stride: no bank conflicts
-  __shared__ __align__(16) bf16 ks[2][kMmaTile][LD];
-  __shared__ __align__(16) bf16 vs[2][kMmaTile][LD];
+  constexpr int LD = mma_ld(D);        // shared row stride: no bank conflicts
+  auto& ks = mma_tiles<LD>().a;        // [2][kMmaTile][LD]
+  auto& vs = mma_tiles<LD>().b;
   __shared__ int32_t segs[2][kMmaTile];
   __shared__ float delta_s[kMmaRows];
 
@@ -242,22 +252,18 @@ __global__ void __launch_bounds__(kMmaThreads)
           ds[n][e] = pr * (dpv - dlt[i]);
         }
       }
-      uint32_t ah[4], al[4];
-      split_bf16x2(ds[0][0], ds[0][1], ah[0], al[0]);
-      split_bf16x2(ds[0][2], ds[0][3], ah[1], al[1]);
-      split_bf16x2(ds[1][0], ds[1][1], ah[2], al[2]);
-      split_bf16x2(ds[1][2], ds[1][3], ah[3], al[3]);
+      SplitA<split_terms(D)> sa;
+      split_bf16x2(ds[0][0], ds[0][1], sa, 0);
+      split_bf16x2(ds[0][2], ds[0][3], sa, 1);
+      split_bf16x2(ds[1][0], ds[1][1], sa, 2);
+      split_bf16x2(ds[1][2], ds[1][3], sa, 3);
 #pragma unroll
       for (int n2 = 0; n2 < (NT + 1) / 2; ++n2) {
         uint32_t kb[4];
         ldsm_x4_trans(kb, &ks[buf][c + (lane & 7) + ((lane >> 3) & 1) * 8]
                              [n2 * 16 + (lane >> 4) * 8]);
-        mma_bf16(acc[2 * n2], ah, kb[0], kb[1]);
-        mma_bf16(acc[2 * n2], al, kb[0], kb[1]);
-        if (2 * n2 + 1 < NT) {
-          mma_bf16(acc[2 * n2 + 1], ah, kb[2], kb[3]);
-          mma_bf16(acc[2 * n2 + 1], al, kb[2], kb[3]);
-        }
+        mma_bf16_split(acc[2 * n2], sa, kb[0], kb[1]);
+        if (2 * n2 + 1 < NT) mma_bf16_split(acc[2 * n2 + 1], sa, kb[2], kb[3]);
       }
     }
     __syncthreads();  // buf is restaged at t + 2
@@ -282,12 +288,13 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 
 // The f32 route (see the header note): one query row per thread.
-template <int D, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
     attn_bwd_dq_kernel_f32(const BwdParams p) {
-  __shared__ __align__(16) float ks[kF32Tile][D];
-  __shared__ __align__(16) float vs[kF32Tile][D];
-  __shared__ int32_t segs[kF32Tile];
+  constexpr int T = f32_tile(D);  // keys per shared-memory tile
+  __shared__ __align__(16) float ks[T][D];
+  __shared__ __align__(16) float vs[T][D];
+  __shared__ int32_t segs[T];
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -334,17 +341,17 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
 
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  for (int s0 = k_first; s0 < kend; s0 += kF32Tile) {
-    for (int j = threadIdx.x; j < kF32Tile; j += kF32Rows)
+  for (int s0 = k_first; s0 < kend; s0 += T) {
+    for (int j = threadIdx.x; j < T; j += kF32Rows)
       segs[j] = (s0 + j < kend) ? seg_b[s0 + j] : 0;
     __syncthreads();
     bool mine = false;
     if (sq != 0) {
 #pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) mine |= (segs[j] == sq);
+      for (int j = 0; j < T; ++j) mine |= (segs[j] == sq);
     }
     if (__syncthreads_or(mine)) {
-      for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Rows) {
+      for (int e = threadIdx.x; e < T * D; e += kF32Rows) {
         const int j = e / D;
         const int d = e - j * D;
         const bool ok = s0 + j < kend;
@@ -355,7 +362,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
       __syncthreads();
       if (mine) {
 #pragma unroll 2
-        for (int j = 0; j < kF32Tile; ++j) {
+        for (int j = 0; j < T; ++j) {
           if (segs[j] != sq) continue;  // sq != 0, so a pad key never matches
           float dot = 0.f;
           float dp = 0.f;
@@ -387,35 +394,37 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
   for (int d = 0; d < D; ++d) dqp[d] = acc[d] * p.scale;
 }
 
+// The instance a launch runs (its dynamic shared bytes: bf16 route).
+template <int D>
+const void* kernel_of(int is_bf16, int dropout) {
+  if (!is_bf16) return reinterpret_cast<const void*>(attn_bwd_dq_kernel_f32<D>);
+  return dropout ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_mma<D, true>)
+                 : reinterpret_cast<const void*>(attn_bwd_dq_kernel_mma<D, false>);
+}
+
 template <int D>
 void launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
                     rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+    constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
     if (p.dropout)
-      attn_bwd_dq_kernel_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(p, vec);
+      launch_dyn(attn_bwd_dq_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
     else
-      attn_bwd_dq_kernel_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(p, vec);
+      launch_dyn(attn_bwd_dq_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
   } else {
-    // head dims up to 16 fit four blocks (16 warps) per SM in registers
-    constexpr int kMinBlocks = D <= 16 ? 4 : 1;
     const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
-    attn_bwd_dq_kernel_f32<D, kMinBlocks><<<grid, kF32Rows, 0, stream>>>(p);
+    attn_bwd_dq_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
   }
 }
 
 int dispatch_d(int head_dim, const BwdParams& p, int is_bf16,
                cudaStream_t stream) {
-  switch (head_dim) {
-    case 4: launch<4>(p, is_bf16, stream); break;
-    case 8: launch<8>(p, is_bf16, stream); break;
-    case 16: launch<16>(p, is_bf16, stream); break;
-    case 32: launch<32>(p, is_bf16, stream); break;
-    case 64: launch<64>(p, is_bf16, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_head_dim(head_dim, [&](auto d) {
+    launch<decltype(d)::value>(p, is_bf16, stream);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -427,4 +436,17 @@ extern "C" int flash_attn_bwd_dq(const flash::BwdParams* params, int head_dim,
   flash::BwdParams p = *params;
   p.scale_log2 = p.scale * flash::kLog2e;
   return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The resources of the instance a launch at (head_dim, is_bf16, dropout)
+// runs: out[4] = static shared bytes, dynamic shared bytes, registers a
+// thread, local (spilled) bytes a thread. Returns a cudaError_t.
+extern "C" int flash_attn_bwd_dq_attrs(int head_dim, int is_bf16, int dropout,
+                                       int* out) {
+  return flash::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return flash::func_attrs(
+        kernel_of<D>(is_bf16, dropout),
+        is_bf16 ? static_cast<int>(flash::mma_dyn_smem<flash::mma_ld(D)>()) : 0, out);
+  });
 }

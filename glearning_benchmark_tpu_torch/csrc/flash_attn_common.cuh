@@ -1,8 +1,8 @@
 // Shared by the flash-attention kernels (forward, dQ, dK/dV): constants,
 // type conversion, the dropout counter hash, the segment-range scans, the
 // backward kernels' parameter block, and the tensor-core building blocks of
-// the three kernels' bf16 route (mma.sync, ldmatrix, cp.async, the hi + lo
-// bf16 split).
+// the three kernels' bf16 route (mma.sync, ldmatrix, cp.async, the bf16
+// split of a second product's operand).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +10,8 @@
 #include <stdint.h>
 
 #include <climits>
+#include <cstddef>
+#include <type_traits>
 
 namespace flash {
 
@@ -79,6 +81,91 @@ constexpr int kMmaTile = 64;   // rows of the other axis per shared-memory tile
 constexpr int kMmaThreads = 128;
 constexpr int kF32Rows = 128;  // f32 route: rows of the block's own axis, one per thread
 constexpr int kF32Tile = 64;   // f32 route: rows of the other axis per tile
+
+// The head dims with a kernel instance (ops/flash_attention.py HEAD_DIMS);
+// the wrappers zero-pad any other head dim up to 128 to the next of them.
+template <typename F>
+int with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 route: shared row stride of a tile, D padded to the mma depth 16 and
+// by 8 bf16 more, so that ldmatrix is free of bank conflicts.
+__host__ __device__ constexpr int mma_ld(int d) { return (d < 16 ? 16 : d) + 8; }
+
+// f32 route: rows of the other axis per tile. At head dim 128 two f32 tiles
+// of 64 rows would take 64 KB, past the 48 KB of static shared memory a
+// block may declare; tiles of 32 rows take 32 KB.
+__host__ __device__ constexpr int f32_tile(int d) { return d > 64 ? 32 : kF32Tile; }
+
+// f32 route: head dims up to 16 fit four blocks (16 warps) per SM in registers.
+__host__ __device__ constexpr int f32_min_blocks(int d) { return d <= 16 ? 4 : 1; }
+
+// The bf16 route's two double-buffered operand tiles ([2][kMmaTile][LD]
+// bf16 each: K and V, or q and dO). Where they fit the 48 KB a block may
+// declare statically they are static shared memory, as up to head dim 64;
+// at head dim 128 they take 69,632 bytes and live in dynamic shared memory
+// (Hopper gives a block up to 227 KB of it), which the launch asks for
+// (`mma_dyn_smem`, `launch_dyn`).
+template <int LD>
+struct MmaTiles {
+  __nv_bfloat16 a[2][kMmaTile][LD];
+  __nv_bfloat16 b[2][kMmaTile][LD];
+};
+
+constexpr size_t kStaticSmem = 48 * 1024;
+
+// Dynamic shared bytes a launch of the bf16 route at row stride LD asks for.
+template <int LD>
+__host__ __device__ constexpr size_t mma_dyn_smem() {
+  return sizeof(MmaTiles<LD>) > kStaticSmem ? sizeof(MmaTiles<LD>) : 0;
+}
+
+template <int LD>
+__device__ __forceinline__ MmaTiles<LD>& mma_tiles() {
+  if constexpr (mma_dyn_smem<LD>() == 0) {
+    __shared__ __align__(16) MmaTiles<LD> tiles;
+    return tiles;
+  } else {
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    return *reinterpret_cast<MmaTiles<LD>*>(dyn_smem);
+  }
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory, first raising
+// its limit where they pass the 48 KB a launch may take by default. An
+// error of either call is left for cudaGetLastError() after the launch.
+template <typename... KArgs, typename... Args>
+void launch_dyn(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem,
+                cudaStream_t stream, Args... args) {
+  if (smem > kStaticSmem)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  kernel<<<grid, threads, smem, stream>>>(args...);
+}
+
+// A kernel instance's resources, as cudaFuncGetAttributes reports them:
+// static shared bytes, the dynamic shared bytes its launch asks for,
+// registers a thread and local (spilled) bytes a thread. Returns a
+// cudaError_t.
+inline int func_attrs(const void* fn, int dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = dyn_smem;
+  out[2] = a.numRegs;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
 
 // Mirrored field by field by `_BwdParams` (a ctypes.Structure) in
 // ops/flash_attention.py. q, k, v, dout are [B, L, H, D] with a contiguous
@@ -206,15 +293,44 @@ __device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* p) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(*p));
 }
 
-// (x, y) as two bf16 terms hi + lo, each packed as one A-fragment register:
-// hi + lo equals (x, y) to about 2^-17 relative, against 2^-9 for hi alone.
-__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+// The A operand of a second product (P~ or dS, f32 in the accumulator
+// registers) as N bf16 terms, each packed as A-fragment registers:
+// - N = 2, hi + lo: about 2^-17 relative;
+// - N = 3, hi + mid + lo: about 2^-25, as exact as the f32 plain version's
+//   products.
+// hi alone (2^-9) breaks the elementwise 4e-3 where a sum cancels; hi + lo
+// can miss it where a sum of terms near 1 cancels to 1e-4 of them (one dV
+// element in 67 million at head dim 128, PERF.md). The kernels take N = 3
+// at head dims 64 and 128 and N = 2 below (`split_terms`), where the third
+// product would cost up to 18% of the time of the earlier PRs' rows.
+__host__ __device__ constexpr int split_terms(int d) { return d >= 64 ? 3 : 2; }
+
+template <int N>
+struct SplitA {
+  uint32_t t[N][4];  // t[0] hi, then the smaller terms
+};
+
+// Element r of the fragment `a` from (x, y): its N bf16x2 terms.
+template <int N>
+__device__ __forceinline__ void split_bf16x2(float x, float y, SplitA<N>& a, int r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    a.t[i][r] = *reinterpret_cast<const uint32_t*>(&h);
+    if (i + 1 < N) {
+      const float2 hf = __bfloat1622float2(h);
+      x -= hf.x;
+      y -= hf.y;
+    }
+  }
+}
+
+// acc += (sum of the N terms of a) . b for one m16n8k16 tile, largest first.
+template <int N>
+__device__ __forceinline__ void mma_bf16_split(float (&acc)[4], const SplitA<N>& a,
+                                               uint32_t b0, uint32_t b1) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_bf16(acc, a.t[i], b0, b1);
 }
 
 // An A fragment (16 rows x 16 of depth, from column c0) read straight from

@@ -24,7 +24,8 @@
 // 16]: about 9% of the tokens valid, so writing O is most of it) and at the
 // packed training rows; on dense rows by the exps on the SFU (16 per SM per
 // clock). chip_smoke.py computes both from its inputs. Tensor-core FLOPs are
-// never the limit at head dims 4-64.
+// never the limit at head dims 4-64; at 128 on dense rows they come near the
+// exps.
 //
 // Design, bf16 (the tensor-core route). Nothing of the Pallas grid carries
 // over (a sequential key axis with VMEM carries, Z=8 folded batch*head
@@ -52,7 +53,9 @@
 //     P~ is not bf16: one bf16 rounding (2^-9) on top of O's own rounding
 //     breaks the elementwise 4e-3 against the f32 plain version where
 //     p v cancels, so P~ is split into bf16 hi + lo and both are multiplied
-//     (about 2^-17; tests/test_torch_attention.py emulates both ways).
+//     (about 2^-17), at head dims 64 and 128 into hi + mid + lo (about
+//     2^-25; `split_terms`; tests/test_torch_attention.py emulates both
+//     splits against one rounding).
 //   - Epilogue: l summed across the quad in a fixed order, O = acc / l cast
 //     to bf16 and staged in shared memory, then stored in 16-byte pieces
 //     (8 at D = 4), pad rows as exact zeros; LSE = m + log l in f32.
@@ -66,6 +69,15 @@
 // between the products (mask, max, exp, hash) and the bytes. Warp-level
 // mma lets each warp skip the keys its own 16 rows may not attend and keeps
 // P in registers between the two products.
+//
+// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`); the
+// wrapper zero-pads any other head dim up to 128 to the next of them and
+// hands the kernel the scale of the true one. At 128 the bf16 route's two
+// double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
+// memory, so that route keeps them in dynamic shared memory there
+// (`MmaTiles`, `launch_dyn`); the f32 route's tiles shrink to 32
+// rows there (`f32_tile`) and its per-thread arrays of 128 floats spill to
+// local memory: right, not fast (PERF.md gives the times).
 //
 // f32 (the FP32-pipe route). Tensor cores take no f32 input, and TF32 would
 // not hold f32 accuracy. One block of 128 threads takes 128 query rows, one
@@ -137,9 +149,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int DP = D < 16 ? 16 : D;  // mma depth: D padded to 16
   constexpr int KD = DP / 16;          // k-steps of q.k
   constexpr int NT = (D + 7) / 8;      // n-tiles of 8 head columns of O
-  constexpr int LD = DP + 8;           // shared row stride: no bank conflicts
-  __shared__ __align__(16) bf16 ks[2][kMmaTile][LD];
-  __shared__ __align__(16) bf16 vs[2][kMmaTile][LD];
+  constexpr int LD = mma_ld(D);        // shared row stride: no bank conflicts
+  auto& ks = mma_tiles<LD>().a;        // [2][kMmaTile][LD]
+  auto& vs = mma_tiles<LD>().b;
   __shared__ int32_t segs[2][kMmaTile];
 
   const int tid = threadIdx.x;
@@ -301,22 +313,18 @@ __global__ void __launch_bounds__(kMmaThreads)
           s[n][e] = pr;
         }
       }
-      uint32_t ph[4], pl[4];
-      split_bf16x2(s[0][0], s[0][1], ph[0], pl[0]);
-      split_bf16x2(s[0][2], s[0][3], ph[1], pl[1]);
-      split_bf16x2(s[1][0], s[1][1], ph[2], pl[2]);
-      split_bf16x2(s[1][2], s[1][3], ph[3], pl[3]);
+      SplitA<split_terms(D)> pa;
+      split_bf16x2(s[0][0], s[0][1], pa, 0);
+      split_bf16x2(s[0][2], s[0][3], pa, 1);
+      split_bf16x2(s[1][0], s[1][1], pa, 2);
+      split_bf16x2(s[1][2], s[1][3], pa, 3);
 #pragma unroll
       for (int n2 = 0; n2 < (NT + 1) / 2; ++n2) {
         uint32_t vb[4];
         ldsm_x4_trans(vb, &vs[buf][c + (lane & 7) + ((lane >> 3) & 1) * 8]
                              [n2 * 16 + (lane >> 4) * 8]);
-        mma_bf16(acc[2 * n2], ph, vb[0], vb[1]);
-        mma_bf16(acc[2 * n2], pl, vb[0], vb[1]);
-        if (2 * n2 + 1 < NT) {
-          mma_bf16(acc[2 * n2 + 1], ph, vb[2], vb[3]);
-          mma_bf16(acc[2 * n2 + 1], pl, vb[2], vb[3]);
-        }
+        mma_bf16_split(acc[2 * n2], pa, vb[0], vb[1]);
+        if (2 * n2 + 1 < NT) mma_bf16_split(acc[2 * n2 + 1], pa, vb[2], vb[3]);
       }
     }
     __syncthreads();  // buf is restaged at t + 2; after the last tile, ks is free
@@ -350,12 +358,13 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // The f32 route (see the header note): one query row per thread.
-template <int D, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
+template <int D>
+__global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
     attn_fwd_kernel_f32(const Params p) {
-  __shared__ __align__(16) float ks[kF32Tile][D];
-  __shared__ __align__(16) float vs[kF32Tile][D];
-  __shared__ int32_t segs[kF32Tile];
+  constexpr int T = f32_tile(D);  // keys per shared-memory tile
+  __shared__ __align__(16) float ks[T][D];
+  __shared__ __align__(16) float vs[T][D];
+  __shared__ int32_t segs[T];
 
   const int bh = blockIdx.x;
   const int b = bh / p.H;
@@ -388,17 +397,17 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
 
   const float* kp = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vp = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  for (int s0 = k_first; s0 < kend; s0 += kF32Tile) {
-    for (int j = threadIdx.x; j < kF32Tile; j += kF32Rows)
+  for (int s0 = k_first; s0 < kend; s0 += T) {
+    for (int j = threadIdx.x; j < T; j += kF32Rows)
       segs[j] = (s0 + j < kend) ? seg_b[s0 + j] : 0;
     __syncthreads();
     bool mine = false;
     if (sq != 0) {
 #pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) mine |= (segs[j] == sq);
+      for (int j = 0; j < T; ++j) mine |= (segs[j] == sq);
     }
     if (__syncthreads_or(mine)) {
-      for (int e = threadIdx.x; e < kF32Tile * D; e += kF32Rows) {
+      for (int e = threadIdx.x; e < T * D; e += kF32Rows) {
         const int j = e / D;
         const int d = e - j * D;
         const bool ok = s0 + j < kend;
@@ -411,7 +420,7 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
         // online softmax over chunks of kChunk keys: only kChunk logits
         // live in registers at a time
 #pragma unroll 1
-        for (int c = 0; c < kF32Tile; c += kChunk) {
+        for (int c = 0; c < T; c += kChunk) {
           float s[kChunk];
           float m_new = m;
           bool any = false;
@@ -462,34 +471,36 @@ __global__ void __launch_bounds__(kF32Rows, MIN_BLOCKS)
       l > 0.f ? (m + log2f(l)) * kLn2 : kNegInf;
 }
 
+// The instance a launch runs and its dynamic shared bytes (bf16 route).
+template <int D>
+const void* kernel_of(int is_bf16, int dropout) {
+  if (!is_bf16) return reinterpret_cast<const void*>(attn_fwd_kernel_f32<D>);
+  return dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, true>)
+                 : reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, false>);
+}
+
 template <int D>
 void launch(const Params& p, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
                     rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+    constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
     if (p.dropout)
-      attn_fwd_kernel_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(p, vec);
+      launch_dyn(attn_fwd_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
     else
-      attn_fwd_kernel_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(p, vec);
+      launch_dyn(attn_fwd_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
   } else {
-    // head dims up to 16 fit four blocks (16 warps) per SM in registers
-    constexpr int kMinBlocks = D <= 16 ? 4 : 1;
     const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
-    attn_fwd_kernel_f32<D, kMinBlocks><<<grid, kF32Rows, 0, stream>>>(p);
+    attn_fwd_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
   }
 }
 
 int dispatch_d(int head_dim, const Params& p, int is_bf16, cudaStream_t stream) {
-  switch (head_dim) {
-    case 4: launch<4>(p, is_bf16, stream); break;
-    case 8: launch<8>(p, is_bf16, stream); break;
-    case 16: launch<16>(p, is_bf16, stream); break;
-    case 32: launch<32>(p, is_bf16, stream); break;
-    case 64: launch<64>(p, is_bf16, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_head_dim(head_dim, [&](auto d) {
+    launch<decltype(d)::value>(p, is_bf16, stream);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -525,4 +536,16 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   p.keep_scale = keep_scale;
   p.bh_offset = bh_offset;
   return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// The resources of the instance a launch at (head_dim, is_bf16, dropout)
+// runs: out[4] = static shared bytes, dynamic shared bytes, registers a
+// thread, local (spilled) bytes a thread. Returns a cudaError_t.
+extern "C" int flash_attn_fwd_attrs(int head_dim, int is_bf16, int dropout,
+                                    int* out) {
+  return with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return func_attrs(kernel_of<D>(is_bf16, dropout),
+                      is_bf16 ? static_cast<int>(mma_dyn_smem<mma_ld(D)>()) : 0, out);
+  });
 }

@@ -19,6 +19,12 @@ its design and what bounds it on an H100.
   :func:`flash_attention_bwd_reference`. Nothing falls back.
 - :data:`LAUNCHES` counts launches per kernel, so a run can show that its
   path went through each of them.
+- The kernels have instances at the head dims :data:`HEAD_DIMS` (4 to 128);
+  the wrappers run any other head dim up to 128 through the next instance,
+  zero-padded (:func:`pad_head_dim`). Above 128 every route raises.
+- :func:`bound` and :func:`bound_bwd` give the least time the card could
+  take for a kernel's work on given inputs (``chip_smoke.py`` and
+  ``tools/flash_ab.py`` print it beside the kernel's time).
 - The kernels are compiled with ``nvcc`` for ``sm_90a`` from the package's
   own sources at first use (one ``nvcc`` per source, all started together),
   into ``_build/`` beside the package, and bound with ``ctypes``.
@@ -31,15 +37,17 @@ import os
 import shutil
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ..utils.build import compile_library, library_path
+from ..utils.card import HBM_BYTES_S, PEAK_FLOPS, SFU_PER_SM_CLK, nvidia_smi
 
 NEG_INF = -1e30
-HEAD_DIMS = (4, 8, 16, 32, 64)
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # the kernels' instances (csrc: with_head_dim)
 _U32 = 0xFFFFFFFF
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -132,16 +140,17 @@ def dropout_keep_reference(seed: int, bh: int, n_rows: int, n_cols: int,
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, seg: torch.Tensor,
                               p_drop: float = 0.0, seed: int = 0,
-                              bh_offset: int = 0
+                              bh_offset: int = 0, scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense masked attention in f32 with the kernel's semantics.
 
-    q, k, v [B, L, H, D]; seg [B, L] int (0 = pad). Returns O [B, L, H, D]
-    in q's dtype (exact zeros on pad queries) and LSE [B, H, L] f32
-    (-1e30 on rows that attend nothing)."""
+    q, k, v [B, L, H, D]; seg [B, L] int (0 = pad); ``scale`` of the logits
+    (default 1/sqrt(D)). Returns O [B, L, H, D] in q's dtype (exact zeros on
+    pad queries) and LSE [B, H, L] f32 (-1e30 on rows that attend nothing)."""
     b, l, h, d = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
-    logits = torch.einsum("blhd,bshd->bhls", qf, kf) * (1.0 / d ** 0.5)
+    scale = 1.0 / d ** 0.5 if scale is None else scale
+    logits = torch.einsum("blhd,bshd->bhls", qf, kf) * scale
     allow = ((seg[:, None, :, None] == seg[:, None, None, :])
              & (seg[:, None, None, :] != 0))
     logits = torch.where(allow, logits, NEG_INF)
@@ -173,16 +182,18 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, seg: torch.Tensor,
                                   o: torch.Tensor, lse: torch.Tensor,
                                   do: torch.Tensor, p_drop: float = 0.0,
-                                  seed: int = 0, bh_offset: int = 0
+                                  seed: int = 0, bh_offset: int = 0,
+                                  scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """The two backward kernels' formulae (``_bwd_dq_kernel``,
     ``_bwd_dkv_kernel``), dense in f32: P recomputed from LSE, dP = dO.v
     (times keep/(1-p)), dS = P (dP - delta) with delta from the stored O;
-    dQ = scale dS k, dK = scale dS^T q, dV = (P keep/(1-p))^T dO.
-    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    dQ = scale dS k, dK = scale dS^T q, dV = (P keep/(1-p))^T dO, with
+    ``scale`` 1/sqrt(D) unless given. Returns (dq, dk, dv) in the dtypes of
+    q, k, v."""
     b, l, h, d = q.shape
-    scale = 1.0 / d ** 0.5
+    scale = 1.0 / d ** 0.5 if scale is None else scale
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     allow = _allow_mask(seg)
     logits = torch.einsum("blhd,bshd->bhls", qf, kf) * scale
@@ -233,6 +244,7 @@ _ARGTYPES = {
     "flash_attn_bwd_dq": _BWD_ARGTYPES,
     "flash_attn_bwd_dkv": _BWD_ARGTYPES,
 }
+_ATTRS = ("static_smem_bytes", "dynamic_smem_bytes", "registers", "local_bytes")
 
 _fns: Dict[str, object] = {}
 _build_seconds: Dict[str, float] = {}
@@ -284,6 +296,22 @@ def _kernel(name: str):
     return _fns[name]
 
 
+def kernel_attrs(name: str, head_dim: int, dtype: torch.dtype,
+                 dropout: bool) -> Dict[str, int]:
+    """The resources of the instance of kernel ``name`` that a launch at
+    (head dim, dtype, dropout) runs, as ``cudaFuncGetAttributes`` reports them: static and
+    dynamic shared bytes, registers a thread, local (spilled) bytes a
+    thread. Needs the card."""
+    fn = getattr(ctypes.CDLL(str(build()[name])), f"{name}_attrs")
+    fn.argtypes = [_I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I32
+    out = (ctypes.c_int * len(_ATTRS))()
+    err = fn(int(head_dim), int(dtype == torch.bfloat16), int(dropout), out)
+    if err != 0:
+        raise RuntimeError(f"{name}_attrs failed: CUDA error {err}")
+    return dict(zip(_ATTRS, out))
+
+
 def build_seconds() -> Dict[str, float]:
     """Build (or find) and bind every kernel library; nvcc seconds per
     source, 0.0 for one that was already built."""
@@ -296,6 +324,37 @@ def build_seconds() -> Dict[str, float]:
 # the wrappers
 # ---------------------------------------------------------------------------
 
+def padded_head_dim(d: int) -> int:
+    """The kernel instance head dim ``d`` runs at: the least of
+    :data:`HEAD_DIMS` at or above it. Above the largest it raises, on the
+    CPU as on the card (``ROADMAP.md`` §C: the JAX package runs any head
+    dim)."""
+    for inst in HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(f"head dim {d} is above {HEAD_DIMS[-1]}, the largest the "
+                     "flash-attention kernels take")
+
+
+def pad_head_dim(kernel: Callable, *args: torch.Tensor, **kwargs):
+    """``kernel(*args, scale=1/sqrt(D), **kwargs)`` at the next kernel
+    instance: every [B, L, H, D] tensor of ``args`` is zero-padded along D to
+    :func:`padded_head_dim`, the others (seg, LSE, delta) pass as they are,
+    and every [B, L, H, *] result is cut back to D. Zero columns change no
+    q.k and no P, so the padded columns of O, dQ, dK and dV come out zero and
+    are dropped; the scale stays the one of the true head dim. With D an
+    instance, the tensors pass untouched (strided views stay views).
+    ``kernel`` is a launcher or, in the tests, a plain version."""
+    d = args[0].shape[-1]
+    pad = padded_head_dim(d) - d
+    if pad:
+        args = tuple(F.pad(t, (0, pad)) if t.dim() == 4 else t for t in args)
+    outs = kernel(*args, scale=1.0 / d ** 0.5, **kwargs)
+    if pad:
+        outs = tuple(t[..., :d] if t.dim() == 4 else t for t in outs)
+    return outs
+
+
 def _check(q, k, v, seg):
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError("q, k, v must share one [B, L, H, D] shape, got "
@@ -305,8 +364,7 @@ def _check(q, k, v, seg):
             or v.dtype != q.dtype:
         raise TypeError("q, k, v must all be float32 or all bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS})")
+    padded_head_dim(d)
     if seg.shape != (b, l) or seg.dtype != torch.int32:
         raise ValueError(f"seg must be int32 [{b}, {l}], got {seg.dtype} "
                          f"{tuple(seg.shape)}")
@@ -336,23 +394,9 @@ def _check_cuda(q, k, v, seg):
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        seg: torch.Tensor, p_drop: float = 0.0,
-                        seed: Optional[int] = None, bh_offset: int = 0
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward over [B, L, H, D] inputs with segment masking and
-    optional in-kernel dropout; ``bh_offset`` places the rows in the dropout
-    index space of a larger batch (:func:`dropout_keep_reference`). Returns
-    (O [B, L, H, D] in q's dtype, LSE [B, H, L] f32). CUDA tensors run the
-    kernel; CPU tensors run :func:`flash_attention_reference`."""
-    _check(q, k, v, seg)
-    p_drop = _check_p_drop(p_drop)
-    seed = 0 if seed is None else int(seed)
-    seed_u32 = _seed_u32(seed)
-    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, seg, p_drop, seed, bh_offset)
-    _check_cuda(q, k, v, seg)
+def _launch_fwd(q, k, v, seg, *, p_drop: float, seed: int, bh_offset: int,
+                scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel at an instance head dim."""
     b, l, h, d = q.shape
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
@@ -367,7 +411,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  b, l, h, d, int(q.dtype == torch.bfloat16),
-                 1.0 / d ** 0.5, int(p_drop > 0.0), seed_u32,
+                 scale, int(p_drop > 0.0), _seed_u32(seed),
                  _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), bh_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
@@ -375,8 +419,30 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        seg: torch.Tensor, p_drop: float = 0.0,
+                        seed: Optional[int] = None, bh_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward over [B, L, H, D] inputs with segment masking and
+    optional in-kernel dropout; ``bh_offset`` places the rows in the dropout
+    index space of a larger batch (:func:`dropout_keep_reference`). Returns
+    (O [B, L, H, D] in q's dtype, LSE [B, H, L] f32). CUDA tensors run the
+    kernel (a head dim between instances zero-padded, :func:`pad_head_dim`);
+    CPU tensors run :func:`flash_attention_reference`."""
+    _check(q, k, v, seg)
+    p_drop = _check_p_drop(p_drop)
+    seed = 0 if seed is None else int(seed)
+    _seed_u32(seed)
+    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, seg, p_drop, seed, bh_offset)
+    _check_cuda(q, k, v, seg)
+    return pad_head_dim(_launch_fwd, q, k, v, seg, p_drop=p_drop, seed=seed,
+                        bh_offset=bh_offset)
+
+
 def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
-                p_drop: float, seed: int, bh_offset: int) -> None:
+                p_drop: float, seed: int, bh_offset: int, scale: float) -> None:
     """Fill ``flash::BwdParams`` and launch backward kernel ``name``."""
     _check_cuda(q, k, v, seg)
     b, l, h, d = q.shape
@@ -401,7 +467,7 @@ def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
         **{f"{n}_s{a}": t.stride(i) for n, t in
            (("q", q), ("k", k), ("v", v), ("do", do))
            for i, a in enumerate("blh")},
-        B=b, L=l, H=h, scale=1.0 / d ** 0.5, scale_log2=0.0,
+        B=b, L=l, H=h, scale=scale, scale_log2=0.0,
         dropout=int(p_drop > 0.0), seed=_seed_u32(seed),
         keep_thresh=_keep_threshold(p_drop), keep_scale=1.0 / (1.0 - p_drop),
         bh_offset=bh_offset)
@@ -414,6 +480,40 @@ def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
     LAUNCHES[name] += 1
 
 
+def _launch_dq(q, k, v, seg, o, lse, do, *, p_drop, seed, bh_offset, scale):
+    """(dQ, delta) from the dQ kernel at an instance head dim."""
+    b, l, h, d = q.shape
+    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    if dq.numel():
+        _launch_bwd("flash_attn_bwd_dq", q, k, v, seg, o, lse, do, delta,
+                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed, bh_offset, scale)
+    return dq, delta
+
+
+def _launch_dkv(q, k, v, seg, o, lse, do, delta, *, p_drop, seed, bh_offset, scale):
+    """(dK, dV) from the dK/dV kernel at an instance head dim."""
+    b, l, h, d = q.shape
+    dk = torch.empty((b, l, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, l, h, d), dtype=v.dtype, device=q.device)
+    if dk.numel():
+        _launch_bwd("flash_attn_bwd_dkv", q, k, v, seg, o, lse, do, delta,
+                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed, bh_offset, scale)
+    return dk, dv
+
+
+def _launch_both(q, k, v, seg, o, lse, do, **kw):
+    """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on its delta."""
+    dq, delta = _launch_dq(q, k, v, seg, o, lse, do, **kw)
+    return (dq,) + _launch_dkv(q, k, v, seg, o, lse, do, delta, **kw)
+
+
+def _bwd_args(q, k, v, seg, p_drop, seed, bh_offset) -> dict:
+    _check(q, k, v, seg)
+    return {"p_drop": _check_p_drop(p_drop), "seed": 0 if seed is None else int(seed),
+            "bh_offset": _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])}
+
+
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seg: torch.Tensor, o: torch.Tensor,
                            lse: torch.Tensor, do: torch.Tensor,
@@ -424,21 +524,12 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_bwd_dkv`. ``o`` and ``lse`` are the forward's
     outputs for the same inputs, ``p_drop``, ``seed`` and ``bh_offset``.
     CUDA tensors run the dQ kernel; CPU tensors the plain version."""
-    _check(q, k, v, seg)
-    p_drop = _check_p_drop(p_drop)
-    seed = 0 if seed is None else int(seed)
-    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
+    kw = _bwd_args(q, k, v, seg, p_drop, seed, bh_offset)
     if q.device.type == "cpu":
-        dq = flash_attention_bwd_reference(q, k, v, seg, o, lse, do,
-                                           p_drop, seed, bh_offset)[0]
+        dq = flash_attention_bwd_reference(q, k, v, seg, o, lse, do, **kw)[0]
         return dq, flash_attention_delta(o, do)
-    b, l, h, d = q.shape
-    dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    if dq.numel():
-        _launch_bwd("flash_attn_bwd_dq", q, k, v, seg, o, lse, do, delta,
-                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed, bh_offset)
-    return dq, delta
+    _check_cuda(q, k, v, seg)
+    return pad_head_dim(_launch_dq, q, k, v, seg, o, lse, do, **kw)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -450,38 +541,24 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dK, dV) of attention, from the forward's ``o``/``lse`` and the
     ``delta`` that :func:`flash_attention_bwd_dq` returned. CUDA tensors run
     the dK/dV kernel; CPU tensors the plain version."""
-    _check(q, k, v, seg)
-    p_drop = _check_p_drop(p_drop)
-    seed = 0 if seed is None else int(seed)
-    bh_offset = _check_bh_offset(bh_offset, q.shape[0] * q.shape[2])
+    kw = _bwd_args(q, k, v, seg, p_drop, seed, bh_offset)
     if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, seg, o, lse, do,
-                                             p_drop, seed, bh_offset)[1:]
-    b, l, h, d = q.shape
-    dk = torch.empty((b, l, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, l, h, d), dtype=v.dtype, device=q.device)
-    if dk.numel():
-        _launch_bwd("flash_attn_bwd_dkv", q, k, v, seg, o, lse, do, delta,
-                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed, bh_offset)
-    return dk, dv
+        return flash_attention_bwd_reference(q, k, v, seg, o, lse, do, **kw)[1:]
+    _check_cuda(q, k, v, seg)
+    return pad_head_dim(_launch_dkv, q, k, v, seg, o, lse, do, delta, **kw)
 
 
 def flash_attention_bwd(q, k, v, seg, o, lse, do, p_drop: float = 0.0,
                         seed: Optional[int] = None, bh_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on the same stream
-    (CPU tensors: one pass of :func:`flash_attention_bwd_reference`)."""
+    """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on the same stream,
+    the operands padded once for both (CPU tensors: one pass of
+    :func:`flash_attention_bwd_reference`)."""
+    kw = _bwd_args(q, k, v, seg, p_drop, seed, bh_offset)
     if q.device.type == "cpu":
-        _check(q, k, v, seg)
-        return flash_attention_bwd_reference(
-            q, k, v, seg, o, lse, do, _check_p_drop(p_drop),
-            0 if seed is None else int(seed),
-            _check_bh_offset(bh_offset, q.shape[0] * q.shape[2]))
-    dq, delta = flash_attention_bwd_dq(q, k, v, seg, o, lse, do, p_drop, seed,
-                                       bh_offset)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, seg, o, lse, do, delta,
-                                     p_drop, seed, bh_offset)
-    return dq, dk, dv
+        return flash_attention_bwd_reference(q, k, v, seg, o, lse, do, **kw)
+    _check_cuda(q, k, v, seg)
+    return pad_head_dim(_launch_both, q, k, v, seg, o, lse, do, **kw)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -523,3 +600,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttentionFunction.apply(
         q, k, v, seg.to(torch.int32).contiguous(), float(p_drop),
         0 if seed is None else int(seed), int(bh_offset))
+
+
+# ---------------------------------------------------------------------------
+# the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+def allowed_pairs(seg: torch.Tensor, h: int) -> int:
+    """(query, key) pairs the mask allows, over all heads."""
+    pairs = 0
+    for row in seg.cpu():
+        counts = torch.bincount(row[row > 0])
+        pairs += int((counts.long() ** 2).sum())
+    return pairs * h
+
+
+def _lower_bound(nbytes: int, flops: float, pairs: int, dtype: torch.dtype) -> dict:
+    """The larger of bytes over the HBM rate and operations over their peak
+    (FLOPs over the dtype's, one exp a pair over the SFU's) on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    t = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+         "flops": flops / PEAK_FLOPS[dtype] * 1e3,
+         "exp": pairs / (sms * SFU_PER_SM_CLK * clock_hz) * 1e3}
+    by = max(t, key=t.get)
+    return {"bound_ms": t[by], "bound_by": "bytes" if by == "bytes" else "operations",
+            "parts_ms": t, "pairs": pairs, "bytes": nbytes}
+
+
+def bound(q: torch.Tensor, seg: torch.Tensor) -> dict:
+    """Least time the card could take for one forward on these inputs:
+    bytes the data needs (q, k, v rows of valid tokens, seg, O and LSE) over
+    HBM bandwidth, and the operations on the allowed (query, key) pairs:
+    4 D FLOPs (q.k and p.v) over the input type's peak, one exp over the SFU
+    rate. D is the true head dim (padded columns are no work)."""
+    b, l, h, d = q.shape
+    pairs = allowed_pairs(seg, h)
+    valid = int((seg > 0).sum())
+    isz = q.element_size()
+    nbytes = 3 * valid * h * d * isz + b * l * 4 + b * l * h * d * isz + b * h * l * 4
+    return _lower_bound(nbytes, 4 * pairs * d, pairs, q.dtype)
+
+
+def bound_bwd(q: torch.Tensor, seg: torch.Tensor, which: str) -> dict:
+    """Least time the card could take for one backward kernel (``which``
+    "dq" or "dkv") on these inputs. Bytes: the rows of valid tokens of q, k,
+    v, dO (and O for the dQ kernel, whose prologue sums delta), LSE, delta
+    and seg read, the outputs written in full (dQ and delta, or dK and dV).
+    Operations on the allowed pairs: 6 D (dQ) or 8 D (dK/dV) FLOPs over the
+    input type's peak, one exp over the SFU rate."""
+    b, l, h, d = q.shape
+    pairs = allowed_pairs(seg, h)
+    valid = int((seg > 0).sum())
+    isz = q.element_size()
+    row_reads = 5 if which == "dq" else 4
+    small = b * h * l * 4
+    nbytes = (row_reads * valid * h * d * isz + b * l * 4 + 2 * small
+              + (1 if which == "dq" else 2) * b * l * h * d * isz)
+    return _lower_bound(nbytes, (6 if which == "dq" else 8) * d * pairs, pairs, q.dtype)

@@ -72,9 +72,17 @@ so checkpoints keep the one-process layout (``convert.py``, serving and
 ``--resume`` are unchanged; a resumed run takes its shards again), and
 ``TrainResult.model`` is the whole model on one process.
 
-Not ported: profiler traces (``train.profile_epochs``), W&B histograms and
-the images of ``train/viz.py`` (the confusion matrix; the example-graph
-log is text).
+Observability, as the reference has it: ``train.profile_epochs`` traces the
+listed epochs with ``torch.profiler`` (CPU, and CUDA on the card) into a
+Chrome trace under ``{out_dir}/{run_name}_trace/``; a classification run
+writes its test confusion matrix as ``{run_name}_test_cm.png`` and, with
+wandb, logs it as an image and (up to 30 classes) a table; with wandb, every
+block of epochs ends with per-parameter histograms of the parameters and of
+the gradients of one train batch (the grad probe, whose dropout seeds come
+from a generator of its own, seeded from (seed, epoch), and which leaves the
+BatchNorm statistics as it found them, so that a run with wandb trains bit
+for bit as one without). Under torchrun rank 0 alone writes the trace, the
+image and the log.
 """
 
 from __future__ import annotations
@@ -91,8 +99,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..convert import (batch_stats_to_flax, load_flax_params, opt_state_from_torch,
-                       opt_state_to_torch, params_to_flax)
+from ..convert import (batch_stats_to_flax, flax_path, load_flax_params,
+                       opt_state_from_torch, opt_state_to_torch, params_to_flax)
 from ..models.gps import GPSModel
 from ..models.mpnn import MPNN
 from ..models.transformer import SimpleTransformer
@@ -105,8 +113,8 @@ from ..tokenization.vocab import SPECIAL
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint, serving_meta
 from .datasets import QUERY_OFFSETS, QUERY_TASKS, DatasetBundle, build_dataset
-from .metrics import (classification_metrics_from_cm, format_confusion_matrix,
-                      regression_metrics_from_sums)
+from .metrics import (class_names, classification_metrics_from_cm,
+                      format_confusion_matrix, regression_metrics_from_sums)
 from .optim import ClippedAdamW, warmup_cosine_decay_schedule
 
 __all__ = ["TrainResult", "build_model", "build_dataset", "build_optimizer",
@@ -445,6 +453,60 @@ def _epoch_metrics(stats: Dict[str, np.ndarray], task: str) -> Dict[str, Any]:
     return m
 
 
+def _batch_loss(model, arrays, idx_b, valid_b, bundle: DatasetBundle,
+                generator: Optional[torch.Generator], layout: Layout,
+                moe_aux_weight: float):
+    """(this rank's share of one training minibatch's loss, its statistics,
+    the valid count over every rank) of a training forward."""
+    mesh, shard = layout.mesh, layout.train_shard
+    batch = _gather(arrays, _rows(idx_b, shard))
+    aux: List[torch.Tensor] = []
+    logits = _apply_model(model, batch, bundle, generator, shard, aux, layout.pp)
+    lg, y, lvalid = _loss_inputs(logits, batch, _rows(valid_b, shard))
+    loss, stats = _loss_and_stats(lg, y, lvalid, bundle.task, bundle.num_classes)
+    count = stats["count"]
+    if mesh is not None:
+        # this rank's share: its sum over the count of every rank (the
+        # ranks holding the same rows each count them once)
+        count = _all_reduce_(count.detach().clone(), mesh.axis())
+        loss = stats["loss_sum"] / count.clamp(min=1.0)
+    if aux:
+        # the mean of the layers' Switch losses; every rank holds the
+        # same global value, so each adds its share
+        loss = loss + moe_aux_weight * (sum(aux) / len(aux)) / (
+            1 if mesh is None else mesh.size)
+    return loss, stats, count
+
+
+def _batch_grads(loss, opt: ClippedAdamW, layout: Layout) -> List[torch.Tensor]:
+    """The gradients of ``loss`` in the optimizer's parameters, each summed
+    over the mesh axes its parameter is not split over."""
+    groups = layout.grad_groups(opt.names) if layout.mesh is not None else []
+    # a pipeline stage leaves the other stages' layers unused: zeros
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        opt.params, torch.autograd.grad(loss, opt.params, allow_unused=True))]
+    return _sum_grads(grads, groups)
+
+
+def grad_probe(model, opt: ClippedAdamW, arrays, idx_b, valid_b, bundle: DatasetBundle,
+               generator: torch.Generator, layout: Layout,
+               moe_aux_weight: float) -> Dict[str, torch.Tensor]:
+    """{parameter name: gradient} of one training minibatch at the current
+    parameters, for the gradient histograms (the reference's ``grad_probe``).
+    Nothing of the run changes: no update, the dropout seeds drawn from
+    ``generator`` (the caller's, out of the run's stream), and the BatchNorm
+    statistics the forward updates put back."""
+    buffers = {k: b.detach().clone() for k, b in model.named_buffers()}
+    model.train()     # a training forward: dropout on, batch statistics
+    loss, _, _ = _batch_loss(model, arrays, idx_b, valid_b, bundle, generator, layout,
+                             moe_aux_weight)
+    grads = _batch_grads(loss, opt, layout)
+    with torch.no_grad():
+        for k, b in model.named_buffers():
+            b.copy_(buffers[k])
+    return dict(zip(opt.names, grads))
+
+
 def train_epoch(model, opt: ClippedAdamW, arrays, idx, valid,
                 bundle: DatasetBundle, generator: Optional[torch.Generator],
                 max_steps: Optional[int] = None, layout: Optional[Layout] = None,
@@ -456,34 +518,14 @@ def train_epoch(model, opt: ClippedAdamW, arrays, idx, valid,
     batch's and its gradients are summed as the module docstring says; the
     returned statistics and losses are the global batch's."""
     model.train()
-    params = opt.params
     layout = layout or Layout()
     mesh, shard = layout.mesh, layout.train_shard
-    groups = layout.grad_groups(opt.names) if mesh is not None else []
     total, losses = None, []
     steps = idx.shape[0] if max_steps is None else min(max_steps, idx.shape[0])
     for b in range(steps):
-        batch = _gather(arrays, _rows(idx[b], shard))
-        aux: List[torch.Tensor] = []
-        logits = _apply_model(model, batch, bundle, generator, shard, aux, layout.pp)
-        lg, y, lvalid = _loss_inputs(logits, batch, _rows(valid[b], shard))
-        loss, stats = _loss_and_stats(lg, y, lvalid, bundle.task,
-                                      bundle.num_classes)
-        count = stats["count"]
-        if mesh is not None:
-            # this rank's share: its sum over the count of every rank (the
-            # ranks holding the same rows each count them once)
-            count = _all_reduce_(count.detach().clone(), mesh.axis())
-            loss = stats["loss_sum"] / count.clamp(min=1.0)
-        if aux:
-            # the mean of the layers' Switch losses; every rank holds the
-            # same global value, so each adds its share
-            loss = loss + moe_aux_weight * (sum(aux) / len(aux)) / (
-                1 if mesh is None else mesh.size)
-        # a pipeline stage leaves the other stages' layers unused: zeros
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(loss, params, allow_unused=True))]
-        grads = _sum_grads(grads, groups)
+        loss, stats, count = _batch_loss(model, arrays, idx[b], valid[b], bundle,
+                                         generator, layout, moe_aux_weight)
+        grads = _batch_grads(loss, opt, layout)
         # the gradient norm BEFORE clipping, as a per-epoch mean
         has = (count > 0).to(torch.float32)
         stats["gn_sum"] = opt.step(grads) * has
@@ -528,26 +570,36 @@ def _device_memory_mb(device: torch.device) -> float:
     return torch.cuda.memory_allocated(device) / (1024 ** 2)
 
 
+def _wandb_module(wandb_cfg: dict):
+    """The wandb module when ``wandb.use`` is set and it imports, else None.
+    Every rank asks, so all of them run the collectives of the histograms
+    alike."""
+    if not wandb_cfg.get("use"):
+        return None
+    try:
+        import wandb  # noqa: PLC0415
+    except ImportError:
+        return None
+    return wandb
+
+
 class RunLogger:
     """stdout + JSONL metrics log with the reference W&B key schema; uses
-    wandb when ``wandb.use`` is set and the package imports."""
+    wandb when ``wandb.use`` is set and the package imports. The image,
+    table and histogram calls are no-ops without wandb."""
 
     def __init__(self, out_dir: str, run_name: str, wandb_cfg: dict, config: dict,
                  wandb_name: Optional[str] = None):
         os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, f"{run_name}_metrics.jsonl")
         self._f = open(self.path, "w")  # fresh log per run
-        self.wandb = None
-        if wandb_cfg.get("use"):
-            try:
-                import wandb  # noqa: PLC0415
-            except ImportError:
-                print("[warn] wandb.use is set but wandb does not import; "
-                      "logging to the JSONL file only")
-            else:
-                self.wandb = wandb
-                wandb.init(project=wandb_cfg.get("project", "graph-token"),
-                           name=wandb_name or run_name, config=config)
+        self.wandb = _wandb_module(wandb_cfg)
+        if wandb_cfg.get("use") and not self.wandb:
+            print("[warn] wandb.use is set but wandb does not import; "
+                  "logging to the JSONL file only")
+        if self.wandb:
+            self.wandb.init(project=wandb_cfg.get("project", "graph-token"),
+                            name=wandb_name or run_name, config=config)
 
     def log(self, d: Dict[str, Any]):
         clean = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
@@ -556,6 +608,41 @@ class RunLogger:
         self._f.flush()
         if self.wandb:
             self.wandb.log(d)
+
+    def log_image(self, key: str, img, caption: str = ""):
+        """W&B image (the reference logs the test confusion-matrix heatmap);
+        the PNG is on disk either way."""
+        if self.wandb:
+            self.wandb.log({key: self.wandb.Image(img, caption=caption)})
+
+    def log_table(self, key: str, columns, data):
+        """W&B table (the reference logs the confusion matrix as one)."""
+        if self.wandb:
+            self.wandb.log({key: self.wandb.Table(columns=columns, data=data)})
+
+    def _log_histograms(self, tensors: Dict[str, torch.Tensor], prefix: str,
+                        step: Optional[int]):
+        if not self.wandb:
+            return
+        hists = {f"{prefix}/{'/'.join(flax_path(name)[0])}":
+                 self.wandb.Histogram(t.detach().float().cpu().numpy().ravel())
+                 for name, t in tensors.items()}
+        if hists:
+            self.wandb.log(hists if step is None else {**hists, "epoch": step})
+
+    def log_param_histograms(self, params: Dict[str, torch.Tensor],
+                             step: Optional[int] = None):
+        """Per-parameter weight histograms under the flax names (the
+        parameter half of the reference's ``wandb.watch(log="all")``). No-op,
+        and no device sync, without wandb."""
+        self._log_histograms(params, "parameters", step)
+
+    def log_grad_histograms(self, grads: Dict[str, torch.Tensor],
+                            step: Optional[int] = None):
+        """Per-parameter gradient histograms under the flax names (the
+        gradient half of ``wandb.watch(log="all")``), from the grad probe.
+        No-op without wandb."""
+        self._log_histograms(grads, "gradients", step)
 
     def finish(self):
         self._f.close()
@@ -566,11 +653,40 @@ class RunLogger:
 class _NoLog:
     """The logger of a rank other than 0: rank 0 writes the run's log."""
 
+    wandb = None
+
     def log(self, d: Dict[str, Any]):
+        pass
+
+    def log_param_histograms(self, params, step=None):
+        pass
+
+    def log_grad_histograms(self, grads, step=None):
         pass
 
     def finish(self):
         pass
+
+
+def _log_confusion_matrix(logger, cm: np.ndarray, task: str, path: str) -> None:
+    """The test confusion matrix as a heatmap PNG at ``path``, and with
+    wandb as an image and, up to 30 classes, a table (the reference's keys).
+    Skipped with a warning where matplotlib or PIL does not import."""
+    try:
+        import matplotlib  # noqa: F401, PLC0415
+        import PIL  # noqa: F401, PLC0415
+    except ImportError:
+        print("[warn] matplotlib or PIL does not import: no confusion-matrix image")
+        return
+    from .viz import create_confusion_matrix_heatmap
+
+    img = create_confusion_matrix_heatmap(cm, task, title="Test Confusion Matrix")
+    img.save(path)
+    logger.log_image("test/confusion_matrix_heatmap", img, caption="Confusion Matrix")
+    if cm.shape[0] <= 30:      # a W&B table of C x (C + 1) cells
+        labels = class_names(task, cm.shape[0])
+        logger.log_table("test/confusion_matrix", ["True/Pred"] + labels,
+                         [[lab] + cm[i].tolist() for i, lab in enumerate(labels)])
 
 
 def _check_parallel(config: dict, model_name: str) -> dict:
@@ -670,18 +786,45 @@ def _snapshot(model, opt: ClippedAdamW) -> dict:
             "opt": opt.state()}
 
 
+def _gathered(tensors: Dict[str, torch.Tensor],
+              shards: Dict[str, ParamShard]) -> Dict[str, torch.Tensor]:
+    """``tensors`` with every split one gathered whole (a collective: every
+    rank calls it)."""
+    return {k: gather_tensor(v, shards[k]) if k in shards else v
+            for k, v in tensors.items()}
+
+
 def _whole(snapshot: dict, names: List[str], shards: Dict[str, ParamShard]) -> dict:
     """A snapshot with every split tensor gathered whole (a collective:
     every rank calls it), in the one-process layout."""
     if not shards:
         return snapshot
-    params = {k: gather_tensor(v, shards[k]) if k in shards else v
-              for k, v in snapshot["params"].items()}
+    params = _gathered(snapshot["params"], shards)
     opt = dict(snapshot["opt"])
     for which in ("mu", "nu"):
         opt[which] = [gather_tensor(t, shards[k]) if k in shards else t
                       for k, t in zip(names, opt[which])]
     return {"params": params, "opt": opt}
+
+
+def start_profile(device: torch.device):
+    """A running ``torch.profiler`` profile of CPU and, on the card, CUDA
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, path: str) -> None:
+    """Stop ``prof`` and write its Chrome trace to ``path``."""
+    prof.stop()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
 
 
 def train(config: dict, model_name: str, limit: Optional[int] = None,
@@ -781,6 +924,8 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     logger = (RunLogger(out_dir, run_name, wandb_cfg, config, wandb_name=wandb_name)
               if main else _NoLog())
     logger.log({"model/num_parameters": num_params})
+    # the histograms' gathers are collectives: every rank decides alike
+    histograms = _wandb_module(wandb_cfg) is not None
 
     zinc = task == "zinc"
     better = (lambda a, b: a < b) if zinc else (lambda a, b: a > b)
@@ -829,6 +974,9 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
     # The epoch count rounds UP to a multiple of K, as in the reference.
     k_disp = max(1, int(train_cfg.get("epochs_per_dispatch", 1)))
     metric_key, metric_name = ("mae", "mae") if zinc else ("accuracy", "acc")
+    # torch.profiler traces of the listed epochs (rank 0)
+    profile_epochs = set(train_cfg.get("profile_epochs", []) or []) if main else set()
+    trace_dir = os.path.join(out_dir, f"{run_name}_trace")
     moe_aux_weight = float(config.get("model", {}).get("moe_aux_weight", 0.01))
 
     epoch = start_epoch
@@ -837,6 +985,7 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
         va_metrics: List[float] = []
         for j in range(k_disp):
             ep = epoch + j
+            prof = start_profile(device) if ep in profile_epochs else None
             ep_start = time.time()
             idx = on_device(make_batches(n_train, train_bs, shuffle_rng)[0])
             tr_stats, losses = train_epoch(model, opt, dev_splits["train"], idx,
@@ -846,6 +995,8 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
             # the epoch's one read from the device
             tr_host, va_host, loss_host = _to_host(tr_stats, va_stats,
                                                    {"losses": losses})
+            if prof is not None:
+                stop_profile(prof, os.path.join(trace_dir, f"epoch_{ep:03d}.json"))
             dur = time.time() - ep_start
             step_losses.append(loss_host["losses"])
             tr = _epoch_metrics(tr_host, task)
@@ -909,6 +1060,17 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
                     "epoch": epoch + blk_ep, "best_val": best_val,
                     "config": config, "vocab": bundle.vocab,
                     "serve": serving_meta(model_name, bundle)})
+        if histograms:
+            # the block's last epoch: the parameters, and the gradients of
+            # its first train batch, with dropout seeds out of the run's stream
+            step = epoch + k_disp - 1
+            logger.log_param_histograms(
+                _gathered(dict(model.named_parameters()), layout.shards), step)
+            probe_gen = torch.Generator().manual_seed(
+                int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+            grads = grad_probe(model, opt, dev_splits["train"], idx[0], train_valid[0],
+                               bundle, probe_gen, layout, moe_aux_weight)
+            logger.log_grad_histograms(_gathered(grads, layout.shards), step)
         epoch += k_disp
 
     total_time = time.time() - t0
@@ -933,6 +1095,9 @@ def train(config: dict, model_name: str, limit: Optional[int] = None,
         tidx, tvalid = eval_batches["test"]
         te = _epoch_metrics(_to_host(eval_epoch(
             model, dev_splits["test"], tidx, tvalid, bundle, layout))[0], task)
+    if main and "confusion_matrix" in te:
+        _log_confusion_matrix(logger, te["confusion_matrix"], task,
+                              os.path.join(out_dir, f"{run_name}_test_cm.png"))
 
     if verbose:
         print("\n" + "=" * 80 + "\nTEST RESULTS\n" + "=" * 80)

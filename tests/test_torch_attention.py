@@ -111,8 +111,9 @@ def test_wrapper_cpu_route_and_checks():
     assert fa.LAUNCHES == before          # no kernel launched on the CPU
     o2 = fa.flash_attention(q, k, v, key_mask=seg.bool())
     assert torch.equal(o2, o)
+    wide = torch.zeros(2, 70, 4, 136)      # head dims above 128 have no instance
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_fwd(q[..., :12], k[..., :12], v[..., :12], seg)
+        fa.flash_attention_fwd(wide, wide, wide, seg)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), v.half(), seg)
     with pytest.raises(ValueError, match="seg"):
