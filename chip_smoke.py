@@ -10,7 +10,8 @@ Phases; any failure exits non-zero before the last line is printed:
 2. Build the three flash-attention kernels (forward, dQ, dK/dV) from
    ``glearning_benchmark_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
    compiler per source, side by side; each library's SASS must hold HMMA
-   (tensor-core) instructions.
+   (mma.sync) instructions, and the two backward libraries' HGMMA (wgmma)
+   ones.
 3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
@@ -142,21 +143,33 @@ Phases; any failure exits non-zero before the last line is printed:
    seconds an epoch are printed beside the card. On four cards or more the
    ranks run over NCCL, a card each, and a four-rank run of data 2 x model
    2 (agtt_zinc width, f32) is held to one process the same way.
-11. The tools. The head-dim-128 instances of the forward, dQ and dK/dV
-   kernels, bf16 and f32, and a head dim between instances (12, zero-padded
-   to 16) against their plain versions at the mfu_bench rows [64, 1024, 8,
-   D] with packed segments at p 26/256 (the tolerances of phases 3-4),
-   timed beside the plain versions and SDPA, with each head-dim-128
-   instance's shared memory, registers and spills as `cudaFuncGetAttributes` reports
-   them. Then ``glearning_benchmark_tpu_torch.bench`` whole (its last line
+11. The tools. Every instance of the three kernels (each head dim with an
+   instance and the wide route, bf16 and f32, with and without dropout):
+   its design, shared memory, registers and spills as
+   ``cudaFuncGetAttributes`` reports them; a redesigned instance (the
+   backward's wgmma ones, the wide route) must spill nothing. At the
+   mfu_bench rows [64, 1024, 8, D] with packed segments at p 26/256: head
+   dims 128 and 64 (bf16: the forward's mma.sync, the backward's wgmma;
+   f32: the wide route at 128, the f32 design at 64), a head dim between
+   instances (12, zero-padded to 16) and the wide route above 128 (256;
+   160, a chunk and a part), bf16 and f32 (16 batch rows for f32 above
+   128); the bf16 backward on the dense mfu rows (every token valid) at
+   128 and 64, and at flash_ab's xl [4, 4096, 8, 64] with its ragged key
+   mask. Each row is held to the plain versions (the tolerances of phases
+   3-4) and its inputs then timed beside the plain versions and SDPA. The
+   f32 design against the wide route on the same f32 inputs (agtt-zinc
+   packed train rows at head dim 16, packed mfu rows at 64): outputs held
+   together, each kernel timed under both. Then
+   ``glearning_benchmark_tpu_torch.bench`` whole (its last line
    must parse with a positive value, the byte-exactness checks held and the
    device encoder timed); ``tools.mfu_bench`` at d_model 256, 512 and 1024
    with a block of 4 steps (every row ``valid`` with 0 < mfu <= 1, the
    attention kernels launched); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
    and xl; ``tools.serve_bench`` for agtt and MPNN at buckets 1 and 256
    (1-epoch checkpoints on phase 7's corpus, 3 warm requests).
-12. One JSON line of every kernel (name, launches, errors, times, bound),
-   then the result line ``{"ok": true, "device": {...}}``.
+12. One JSON line of every kernel (name, launches, errors, times, bound,
+   every instance with its design and resources), then the result line
+   ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -333,18 +346,21 @@ def sdpa_flags() -> str:
 
 def tensor_core_sass(fa) -> None:
     """The kernels' bf16 route runs on the tensor cores: every kernel
-    library's machine code (``cuobjdump -sass``) holds HMMA instructions."""
+    library's machine code (``cuobjdump -sass``) holds HMMA (mma.sync)
+    instructions, and the two backward libraries HGMMA (wgmma) ones too."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
-        log("[build] cuobjdump not found: tensor-core instructions not checked")
-        return
+        raise AssertionError("cuobjdump not found: the tensor-core instructions cannot be checked")
     for name, lib in fa.build().items():
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                              check=True, timeout=120).stdout
-        n = sum("HMMA" in line for line in sass.splitlines())
-        log(f"[build] {name}: {n} HMMA instructions in its SASS")
-        if n == 0:
+                              check=True, timeout=120).stdout.splitlines()
+        hmma = sum("HMMA" in line for line in sass)
+        hgmma = sum("HGMMA" in line for line in sass)
+        log(f"[build] {name}: {hmma} HMMA and {hgmma} HGMMA instructions in its SASS")
+        if hmma == 0:
             raise AssertionError(f"{name}: no tensor-core (HMMA) instruction in its SASS")
+        if name != "flash_attn_fwd" and hgmma == 0:
+            raise AssertionError(f"{name}: no wgmma (HGMMA) instruction in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -1861,12 +1877,15 @@ def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the tools (head dim 128 and a padded head dim, the north-star
+# phase 11: the tools (head dims 128, 64, 12, 256 and 160, the north-star
 # bench, the step MFU, the attention A/B, serving)
 # ---------------------------------------------------------------------------
 
 MFU_SHAPE = (64, 1024, 8, 128)   # tools/mfu_bench.py's d_model 1024 rows: B, L, H, D
 PADDED_HEAD_DIM = 12
+WIDE_HEAD_DIMS = (256, 160)      # the wide route: a whole chunk, and one and a partial one
+WIDE_F32_ROWS = 16               # batch rows of the f32 checks above 128 (slow plain version)
+XL_SHAPE = (4, 4096, 8, 64)      # tools/flash_ab.py's xl
 MFU_STEPS = 4                    # the timed block (and a half block of 2)
 AB_SHAPES = "ibtt-zinc,agtt-zinc,xl"
 SERVE_FAMILIES = (("agtt", "agtt_graph_token"), ("mpnn", "mpnn_graph_token"))
@@ -1874,39 +1893,125 @@ SERVE_BUCKETS = (1, 256)
 SERVE_REPS = 3
 
 
+def instances(fa) -> dict:
+    """Every instance of the three kernels (the head dims with an instance
+    and the wide route, each input type, with and without dropout): its
+    design and its resources as ``cudaFuncGetAttributes`` reports them. A
+    redesigned instance (wgmma, wide) must spill nothing."""
+    out = {}
+    for name in fa.SOURCES:
+        for d in fa.HEAD_DIMS + (WIDE_HEAD_DIMS[0],):
+            for dtype in (torch.bfloat16, torch.float32):
+                for drop in (True, False):
+                    design = fa.design(name, d, dtype)
+                    key = (f"{name}_{design}_d{'>128' if d > 128 else d}"
+                           f"_{str(dtype)[6:]}" + ("_dropout" if drop else ""))
+                    attrs = fa.kernel_attrs(name, d, dtype, dropout=drop)
+                    out[key] = {"design": design, **attrs}
+                    if design in ("wgmma", "wide") and attrs["local_bytes"] != 0:
+                        raise AssertionError(f"{key}: {attrs['local_bytes']} B spilled a thread")
+    for key, a in out.items():
+        if a["design"] in ("wgmma", "wide"):
+            log(f"[kernel] {key}: {a['static_smem_bytes']} B static + "
+                f"{a['dynamic_smem_bytes']} B dynamic shared memory, {a['registers']} "
+                f"registers, {a['local_bytes']} B spilled a thread")
+    return out
+
+
 def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> tuple:
-    """The head-dim-128 instances (bf16 and f32) and a padded head dim (12,
-    bf16 and f32) against their plain versions at the mfu_bench rows with
-    packed segments at the training rate ``p``, then timed; the resources
-    of each head-dim-128 instance. Returns (forward errors, backward
-    errors, timings by shape, resources)."""
+    """The kernels at the mfu_bench rows with packed segments at the
+    training rate ``p``: head dims 128 and 64 (the forward's mma.sync and
+    the backward's wgmma instances in bf16; in f32 the wide route at 128,
+    the f32 design at 64), a padded head dim (12), and the wide route above
+    128 (256, 160), bf16 and f32; then the bf16 backward on the dense
+    mfu_bench rows (every token valid: the step's own shape) at 128 and 64,
+    and at xl (flash_ab's ragged key mask). Every row is held to the plain
+    versions before the same inputs are timed. Returns (forward errors,
+    backward errors, timings by shape)."""
+    from glearning_benchmark_tpu_torch.tools.flash_ab import inputs
+
     b, l, h, d = MFU_SHAPE
     seg = packed_seg(b, l, cgen)
     errs, berrs, timing = [], [], {}
-    for dim in (d, PADDED_HEAD_DIM):
-        shape = (b, l, h, dim)
+    for dim in (d, 64, PADDED_HEAD_DIM) + WIDE_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
+            rows = WIDE_F32_ROWS if dtype == torch.float32 and dim > d else b
+            shape, seg_d = (rows, l, h, dim), seg[:rows].contiguous()
             name = f"d{dim} {str(dtype)[6:]}"
-            errs.append(compare(f"mfu rows {name}", fa, *qkv_views(shape, dtype, gen), seg,
-                                p_drop=p, seed=11, chunk=8))
-            berrs.append(compare_bwd(f"mfu rows {name}", fa, *qkv_views(shape, dtype, gen),
-                                     seg, strided_do(shape, dtype, gen), p, 11, chunk=8))
-            # the f32 instances at head dim 128 spill (tens of ms a call): fewer calls
-            slow = dtype == torch.float32 and dim == d
-            timing[f"mfu_d{dim * h}_rows_{str(dtype)[6:]}_p{p}"] = time_bwd(
-                fa, *qkv_views(shape, dtype, gen), seg, strided_do(shape, dtype, gen), p, 11,
-                f"mfu rows {name}", iters=3 if slow else 20, plain_iters=2)
+            q, k, v = qkv_views(shape, dtype, gen)
+            do = strided_do(shape, dtype, gen)
+            errs.append(compare(f"mfu rows {name}", fa, q, k, v, seg_d, p_drop=p, seed=11,
+                                chunk=8))
+            berrs.append(compare_bwd(f"mfu rows {name}", fa, q, k, v, seg_d, do, p, 11,
+                                     chunk=8))
+            slow = dtype == torch.float32 or dim > d     # the FP32 pipe: fewer calls
+            timing[f"mfu_rows_d{dim}_B{rows}_{str(dtype)[6:]}_p{p}"] = time_bwd(
+                fa, q, k, v, seg_d, do, p, 11, f"mfu rows {name}",
+                iters=5 if slow else 20, plain_iters=2)
+            del q, k, v, do
             torch.cuda.empty_cache()
-    resources = {}
-    for name in fa.SOURCES:
-        for dtype in (torch.bfloat16, torch.float32):
-            attrs = fa.kernel_attrs(name, d, dtype, dropout=True)
-            resources[f"{name}_d{d}_{str(dtype)[6:]}"] = attrs
-            log(f"[kernel] {name} head dim {d} {str(dtype)[6:]} (dropout): "
-                f"{attrs['static_smem_bytes']} B static + {attrs['dynamic_smem_bytes']} B "
-                f"dynamic shared memory, {attrs['registers']} registers, "
-                f"{attrs['local_bytes']} B spilled a thread")
-    return errs, berrs, timing, resources
+    dense = torch.ones(b, l, dtype=torch.int32, device="cuda")
+    for dim in (d, 64):
+        shape = (b, l, h, dim)
+        args = (*qkv_views(shape, torch.bfloat16, gen), dense,
+                strided_do(shape, torch.bfloat16, gen))
+        label = f"mfu dense rows d{dim} bfloat16"
+        berrs.append(compare_bwd(label, fa, *args, p, 11, chunk=8))
+        timing[f"mfu_dense_rows_d{dim}_bfloat16_p{p}"] = time_bwd(
+            fa, *args, p, 11, label, iters=20, plain_iters=2)
+        del args
+        torch.cuda.empty_cache()
+    q, k, v, seg_xl, _ = inputs(*XL_SHAPE, torch.device("cuda"))
+    do = strided_do(XL_SHAPE, torch.bfloat16, gen)
+    label = "xl (flash_ab's ragged key mask) bfloat16"
+    berrs.append(compare_bwd(label, fa, q, k, v, seg_xl, do, p, 11, chunk=1))
+    timing[f"xl_d{XL_SHAPE[3]}_bfloat16_p{p}"] = time_bwd(
+        fa, q, k, v, seg_xl, do, p, 11, label, iters=10, plain_iters=2)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return errs, berrs, timing
+
+
+def f32_against_wide(fa, rows: dict, gen: torch.Generator, p: float) -> None:
+    """The reading that keeps the f32 design beside the wide route: at each
+    of ``rows`` ({label: (shape, seg)}, f32, q, k, v strided views of one
+    fused qkv, a strided dO) the three kernels run under both designs
+    (the launchers' ``force``), the wide route's O, LSE, dQ, delta, dK and
+    dV are held to the f32 design's (the backward tolerance; LSE and delta
+    within ``LSE_ATOL``), and each kernel is timed under both."""
+    for label, (shape, seg) in rows.items():
+        q, k, v = qkv_views(shape, torch.float32, gen)
+        do = strided_do(shape, torch.float32, gen)
+        kw = {"p_drop": p, "seed": 11, "bh_offset": 0, "scale": shape[3] ** -0.5}
+        outs, ms = {}, {}
+        for route in ("f32", "wide"):
+            o, lse = fa._launch_fwd(q, k, v, seg, force=route, **kw)
+            dq, delta = fa._launch_dq(q, k, v, seg, o, lse, do, force=route, **kw)
+            dk, dv = fa._launch_dkv(q, k, v, seg, o, lse, do, delta, force=route, **kw)
+            outs[route] = {"O": o, "LSE": lse, "dQ": dq, "delta": delta, "dK": dk, "dV": dv}
+            ms[route] = [min(cuda_ms(fn, 20)) for fn in (
+                lambda: fa._launch_fwd(q, k, v, seg, force=route, **kw),
+                lambda: fa._launch_dq(q, k, v, seg, o, lse, do, force=route, **kw),
+                lambda: fa._launch_dkv(q, k, v, seg, o, lse, do, delta, force=route, **kw))]
+        diffs, ok = [], True
+        for what, want in outs["f32"].items():
+            got = outs["wide"][what]
+            err = (got - want).abs()
+            if what in ("LSE", "delta"):
+                ok &= bool((err <= LSE_ATOL).all())
+            else:
+                ok &= bool((err <= G_RTOL[torch.float32] * want.abs() + G_ATOL).all())
+            diffs.append(f"{what} {err.max().item():.3e}")
+        log(f"[kernel] f32 design against the wide route, {label} {list(shape)} float32 "
+            f"p_drop {p}: forward {ms['f32'][0]:.4f} / {ms['wide'][0]:.4f} ms, dQ "
+            f"{ms['f32'][1]:.4f} / {ms['wide'][1]:.4f} ms, dK/dV {ms['f32'][2]:.4f} / "
+            f"{ms['wide'][2]:.4f} ms (wide / f32: " + ", ".join(
+                f"{w / f:.2f}x" for f, w in zip(ms["f32"], ms["wide"]))
+            + f"); max|wide - f32| {', '.join(diffs)}")
+        if not ok:
+            raise AssertionError(f"the wide route disagrees with the f32 design: {label}")
+        del q, k, v, do, outs
+        torch.cuda.empty_cache()
 
 
 def captured(fn, argv: list) -> list:
@@ -1922,16 +2027,25 @@ def captured(fn, argv: list) -> list:
     return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
 
 
-def tools_phase(fa, tmp: str, gt_root: str, gen, cgen, p: float, card: str) -> tuple:
-    """Phase 11 (module docstring). Returns (forward errors, backward errors,
-    timings by shape, head-dim-128 resources, the mfu runs' launches)."""
+def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, p: float,
+                card: str) -> tuple:
+    """Phase 11 (module docstring). ``seg_train``: the agtt-zinc packed
+    train rows. Returns (forward errors, backward errors, timings by shape,
+    every instance's resources, the mfu runs' launches)."""
     from glearning_benchmark_tpu_torch import bench
     from glearning_benchmark_tpu_torch.tools import flash_ab, mfu_bench, serve_bench
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    errs, berrs, timing, resources = head_dim_rows(fa, gen, cgen, p)
-    log(f"[phase] tools: head dims 128 and {PADDED_HEAD_DIM} {time.perf_counter() - t0:.1f} s")
+    resources = instances(fa)
+    errs, berrs, timing = head_dim_rows(fa, gen, cgen, p)
+    f32_against_wide(fa, {
+        "agtt-zinc packed train rows": ((len(seg_train), seg_train.shape[1], 4, 16), seg_train),
+        "packed mfu rows": ((MFU_SHAPE[0], MFU_SHAPE[1], MFU_SHAPE[2], 64),
+                            packed_seg(MFU_SHAPE[0], MFU_SHAPE[1], cgen))}, gen, p)
+    log(f"[phase] tools: head dims 128, 64, {PADDED_HEAD_DIM} and {WIDE_HEAD_DIMS}, the "
+        f"dense mfu rows, xl, the f32 design against the wide route "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     line = captured(bench.main, ["--out", os.path.join(tmp, "bench.json")])[-1]
@@ -2211,11 +2325,11 @@ def main() -> int:
         dp_launches.update(mesh_phase(fa, tmp, graphs, card))
         log(f"[phase] mesh axes {time.perf_counter() - t0:.1f} s")
 
-        # phase 11: the tools (head dims 128 and 12, bench, mfu_bench,
-        # flash_ab, serve_bench)
+        # phase 11: the tools (every instance, head dims 128, 64, 12, 256
+        # and 160, bench, mfu_bench, flash_ab, serve_bench)
         t0 = time.perf_counter()
         terrs, tberrs, htiming, resources, tool_launches = tools_phase(
-            fa, tmp, gt_root, gen, cgen, p_train, card)
+            fa, tmp, gt_root, seg_train, gen, cgen, p_train, card)
         errs += terrs
         berrs += tberrs
         dp_launches.update(tool_launches)
@@ -2244,8 +2358,7 @@ def main() -> int:
               if "flash_attn_fwd" in t),
             ("ibtt_graph_token_test_rows", gtiming["ibtt_graph_token_test_rows"]),
             *((rows, t["flash_attn_fwd"]) for rows, t in htiming.items()))},
-        "instances_d128": {k: v for k, v in resources.items()
-                           if k.startswith("flash_attn_fwd_")}}]
+        "instances": {k: v for k, v in resources.items() if k.startswith("flash_attn_fwd_")}}]
     for name, line in (("flash_attn_bwd_dq", "164"), ("flash_attn_bwd_dkv", "204")):
         t = btiming[name]
         kernels.append({
@@ -2261,8 +2374,7 @@ def main() -> int:
                 (f"ibtt_train_rows_p{p_train}", ibtt_btiming),
                 *((rows, bt) for rows, bt in gtiming.items() if name in bt),
                 *htiming.items())},
-            "instances_d128": {k: v for k, v in resources.items()
-                               if k.startswith(name + "_d")}})
+            "instances": {k: v for k, v in resources.items() if k.startswith(name + "_")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -16,64 +16,87 @@
 //
 // What bounds it on an H100. Per allowed pair 8*D FLOPs (q.k, dO.v, P dO,
 // dS q), one exp2 and, under dropout, one hash. At the packed AGTT-ZINC
-// training rows the least time is set by bytes (q, k, v, dO, LSE, delta
-// read; dK, dV written: ~3 us); the tensor-core FLOPs take well under a
-// microsecond. What this kernel reaches there is set by the per-pair
-// elementwise work (mask, exp2, hash), by the masked pairs inside the
-// 16 x 16 tiles a warp computes, and by the fixed cost of a launch and its
-// prologue (a third of the time at those rows; PERF.md), not by
-// tensor-core rate.
+// training rows the least time is set by bytes (~3 us) and what the kernel
+// reaches by the per-pair elementwise work and the launch; at head dim 128
+// on the mfu_bench rows ([64, 1024, 8, 128], 2-5 segments a row) by bytes
+// (0.20 ms) with the tensor-core FLOPs close behind, so there the products
+// have to run at the tensor cores' rate (PERF.md).
 //
-// Design, bf16 (the tensor-core route). The Pallas grid swaps its axes for
-// this kernel, (batch*head, key block, query block), and carries dK/dV in
-// VMEM across the sequential query axis. Here one block of 4 warps owns 64
-// keys of one batch*head, 16 a warp (the M of mma.sync.m16n8k16, bf16 in,
-// f32 accumulate), with the warp's k and v rows as A fragments and its dK
-// and dV accumulators in registers (head dims 4 and 8 zero-padded to the
-// mma depth 16 in registers and shared memory only, never in HBM). The
-// block loops over query tiles of 64 inside its segment range; q, dO, LSE,
-// delta and the segment ids are staged in shared memory by cp.async,
-// double-buffered, q and dO rows as bf16 padded by 8 so that ldmatrix is
-// free of bank conflicts. Per 16 queries a warp:
-//   - skips them unless one lies in the warp's segment-id range (a warp
-//     with no allowed pair issues no mma for them);
-//   - S^T = k q^T and dP^T = v dO^T: mma with q and dO as B operands;
-//   - P, the mask, keep/(1-p) and dS = P (dP - delta) in the accumulator
-//     registers;
-//   - dV += (P keep/(1-p))^T dO and dK += dS^T q with the two products'
-//     left operands straight from registers (the accumulators of two
-//     n-tiles are the A fragment of one k-step) and dO and q through
-//     ldmatrix.trans. P keep/(1-p) and dS are not bf16: rounding them would
-//     cost 2^-9 relative where gradients cancel, beyond the elementwise
-//     4e-3 the kernel is held to. So each is split into bf16 hi + lo and
-//     both are multiplied (about 2^-17 relative), at head dims 64 and 128
-//     into hi + mid + lo (about 2^-25; `split_terms`); the tensor cores
-//     have room for the second product.
-// dK is accumulated unscaled and multiplied by `scale` once before the
-// cast; dV is not scaled.
+// Four designs, by head dim and input type (ops/flash_attention.py
+// `design` names a launch's; `launch` runs it, or refuses a design this
+// source has no instance of). The Pallas grid
+// swaps its axes for this kernel and carries dK/dV in VMEM across the
+// sequential query axis; here a block owns keys and loops over queries.
 //
-// Why mma.sync and not wgmma/TMA. wgmma's unit is a 64-row warpgroup tile
-// fed from shared memory, and TMA pays off on large tiles; at head dims
-// 4-16 every product is one 16-deep k-step, the tensor cores idle most of
-// the time anyway, and what limits the kernel is the elementwise work
-// between the products. Warp-level mma lets each warp skip the queries
-// that may not attend its own 16 keys and keeps P and dS in registers
-// between the products.
+// bf16 at head dims 4-32: warp-level mma.sync. One block of 4 warps owns 64
+// keys of one batch*head, 16 a warp (the M of m16n8k16), k and v as A
+// fragments in registers, dK and dV accumulators in registers (head dims 4
+// and 8 zero-padded to the mma depth 16 in registers and shared memory
+// only). The block loops over query tiles of 64 inside its segment range;
+// q, dO, LSE, delta and the segment ids are staged by cp.async,
+// double-buffered, rows padded by 8 bf16 for conflict-free ldmatrix. Per 16
+// queries a warp skips them unless one lies in its segment-id range;
+// S^T = k q^T and dP^T = v dO^T by mma; P, the mask, keep/(1-p) and
+// dS = P (dP - delta) in the accumulator registers; dV += (P keep/(1-p))^T
+// dO and dK += dS^T q with the left operands straight from registers and dO
+// and q through ldmatrix.trans, each left operand as two bf16 terms hi +
+// lo (about 2^-17, `split_terms`; C4 in ROADMAP.md keeps it at two below
+// head dim 64). At these head dims every product is one
+// 16-deep k-step and the elementwise work between the products bounds the
+// kernel, so warp-level mma, which skips per warp, fits.
 //
-// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`); the
-// wrapper zero-pads any other head dim up to 128 to the next of them and
-// hands the kernel the scale of the true one. At 128 the bf16 route's two
-// double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
-// memory, so that route keeps them in dynamic shared memory there
-// (`MmaTiles`, `launch_dyn`); the f32 route's tiles shrink to 32
-// rows there (`f32_tile`) and its per-thread arrays of 128 floats spill to
-// local memory: right, not fast (PERF.md gives the times).
+// bf16 at head dims 64 and 128: warpgroup wgmma (sm_90a). There the
+// products dominate, and mma.sync (full-width dK and dV accumulators and k,
+// v fragments in each warp: 255 registers, about 8 warps an SM) ran at 8x
+// the bound. One block is one warpgroup owning 64 keys; k and v of those
+// keys sit in shared memory for the block's life, and q, dO, LSE, delta and
+// the query segment ids stream through a three-stage cp.async ring
+// (16-byte pieces, each tile in wgmma's core-matrix layout, `stage_tile`;
+// plain loads where a pointer or stride does not fit). Per query tile of 32
+// that holds an allowed pair for the block (the tile is skipped otherwise):
+//   - S^T = k q^T and dP^T = v dO^T: wgmma m64n32k16, both operands from
+//     shared memory (K-major), D / 16 k-steps each;
+//   - P, the mask, the dropout keep (hash_u32 at (bh_offset + b h, query,
+//     key), as in the forward) and dS in the 32 accumulator registers;
+//   - dV += (P keep/(1-p))^T dO and dK += dS^T q: wgmma m64nDk16 with the
+//     left operands from registers (the accumulator layout is mma.sync's,
+//     so two n-tiles are one k-step's A fragment) and dO and q read
+//     MN-major from the same shared tiles.
+// P keep/(1-p) and dS are not bf16: each goes in as three bf16 terms hi +
+// mid + lo (about 2^-25, `split_terms`), three products each. The query
+// tile is 32 rather than 64 to keep the registers in bounds: dK and dV take
+// D registers a thread (128 at head dim 128), S^T and dP^T 32, the split
+// terms 48, and two blocks fit an SM, so one block's loads and elementwise
+// work run under the other's products. No producer warp: the ring is filled
+// by the same threads two tiles ahead.
 //
-// f32 (the FP32-pipe route). Tensor cores take no f32 input, and TF32
-// would not hold f32 accuracy. One block of 128 threads owns 128 keys, one
-// per thread, with k, v and the dK, dV accumulators in f32 registers, and
-// loops over query tiles of 64 (q, dO, LSE, delta staged in shared memory
-// as f32; every thread reads the same query: broadcasts).
+// f32 at head dims 4-64: the FP32 pipe, a key a thread. A block of 128
+// threads owns 128 keys with k, v and the dK and dV accumulators of its key
+// in f32 registers and loops over query tiles of 64 staged in shared memory
+// as f32 (broadcasts) inside its segment range. At 64 it takes 255
+// registers and spills 616 bytes a thread; chip_smoke.py phase 11 times it
+// against the wide route on the same inputs, which is why both stay
+// (PERF.md §6).
+//
+// f32 at head dim 128 and every head dim above 128 (both input types): the
+// wide FP32-pipe route (`attn_bwd_dkv_kernel_wide`, flash_attn_common.cuh
+// `kWideRows`). A block owns 32 keys and one chunk of 128 columns of dK and
+// dV (grid z = ceil(D / 128)); a key is held by 4 threads, lane i of each
+// warp, warp w holding columns [32 w, 32 w + 32), so that no thread keeps a
+// full-width row (the f32 design kept k, v, dK and dV of one key a thread
+// and spilled 2,184 bytes at 128). Query tiles of 16 are staged in shared
+// memory as f32, one column chunk at a time; S^T and dP^T are summed over
+// every chunk (the four warps' parts through shared memory in a fixed
+// order, `wide_reduce`) before the chunk of dK and dV is updated.
+// Above 128 this recomputes S and dP once per column chunk (ceil(D / 128)
+// times), the price of holding any head dim in fixed registers; the head
+// dim is a run-time argument, so any head dim runs unpadded. Tensor cores
+// take no f32 input and TF32 would not hold f32 accuracy.
+//
+// All routes: delta [B, H, L] f32 is an input (the dQ kernel writes it);
+// pad keys (seg 0) get dK = dV = 0 exactly; a key's sums are taken in a
+// fixed order with no atomics, so two runs give the same bits. dK is
+// accumulated unscaled and multiplied by `scale` once before the cast.
 
 #include "flash_attn_common.cuh"
 
@@ -287,6 +310,210 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 
+// The wgmma route (see the header note): shared bytes of a launch at head
+// dim D, and the instance.
+constexpr int kDkvQueries = 32;  // queries a tile
+constexpr int kDkvStages = 3;    // tiles in the ring
+template <int D>
+__host__ __device__ constexpr size_t dkv_wgmma_smem() {
+  return (2 * kMmaRows * D + kDkvStages * 2 * kDkvQueries * D) * sizeof(bf16) +
+         kDkvStages * kDkvQueries * (2 * sizeof(float) + sizeof(int32_t));
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_bwd_dkv_kernel_wgmma(const BwdParams p, const int vec) {
+  constexpr int QN = kDkvQueries;
+  constexpr int KD = D / 16;  // k-steps of S^T and dP^T
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(wg_smem);  // [D / 8][64][8]
+  bf16* vs = ks + kMmaRows * D;
+  bf16* qs = vs + kMmaRows * D;                 // kDkvStages x [D / 8][QN][8]
+  bf16* dos = qs + kDkvStages * QN * D;
+  float* lses = reinterpret_cast<float*>(dos + kDkvStages * QN * D);  // [stage][QN]
+  float* deltas = lses + kDkvStages * QN;
+  int32_t* segs = reinterpret_cast<int32_t*>(deltas + kDkvStages * QN);
+  __shared__ int32_t wlo_s[4], whi_s[4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int blk0 = blockIdx.y * kMmaRows;  // the block's first key
+  const int key0 = blk0 + warp * 16;       // the warp's first key
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* gp = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
+  const float* delta_bh = p.delta + static_cast<int64_t>(bh) * p.L;
+
+  // the block's segment-id range (a query tile outside it is skipped) and query range
+  const int32_t my_seg = (lane < 16 && key0 + lane < p.L) ? seg_b[key0 + lane] : 0;
+  int32_t wlo, whi;
+  warp_seg_range(my_seg, &wlo, &whi);
+  if (lane == 0) {
+    wlo_s[warp] = wlo;
+    whi_s[warp] = whi;
+  }
+  int q_first, q_last;
+  other_axis_range(seg_b, p.L, (tid < kMmaRows && blk0 + tid < p.L) ? seg_b[blk0 + tid] : 0,
+                   &q_first, &q_last);  // syncs: wlo_s, whi_s are visible
+  const int32_t blo = min(min(wlo_s[0], wlo_s[1]), min(wlo_s[2], wlo_s[3]));
+  const int32_t bhi = max(max(whi_s[0], whi_s[1]), max(whi_s[2], whi_s[3]));
+  const int qend = q_last + 1;
+  const int ntiles = (qend - q_first + QN - 1) / QN;  // <= 0: none
+
+  // this thread's two keys (g and g+8 of the warp's 16)
+  int keys[2];
+  int32_t sk[2], sk_match[2];
+  uint32_t hkey[2];  // the dropout hash's (batch*head, key column) terms
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    keys[i] = key0 + g + 8 * i;
+    sk[i] = keys[i] < p.L ? seg_b[keys[i]] : 0;
+    sk_match[i] = sk[i] != 0 ? sk[i] : -1;  // a pad key pairs with no query
+    hkey[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
+              (static_cast<uint32_t>(keys[i]) * kHashCol);
+  }
+  asm volatile("" : "+r"(hkey[0]), "+r"(hkey[1]));
+  float dk[D / 2], dv[D / 2];  // the warp's 16 keys, unscaled (wgmma layout)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  auto stage = [&](int t) {
+    const int buf = t % kDkvStages;
+    const int l0 = q_first + t * QN;
+    stage_tile<D, QN>(qs + buf * QN * D, qp, p.q_sl, l0, qend, vec);
+    stage_tile<D, QN>(dos + buf * QN * D, gp, p.do_sl, l0, qend, vec);
+    const int i = tid & (QN - 1);
+    const bool ok = l0 + i < qend;
+    const int src = ok ? l0 + i : 0;
+    if (tid < QN) {
+      cp_async<4>(&lses[buf * QN + i], lse_bh + src, ok);
+      cp_async<4>(&segs[buf * QN + i], seg_b + src, ok);
+    } else if (tid < 2 * QN) {
+      cp_async<4>(&deltas[buf * QN + i], delta_bh + src, ok);
+    }
+  };
+  stage_tile<D, kMmaRows>(ks, kp, p.k_sl, blk0, p.L, vec);
+  stage_tile<D, kMmaRows>(vs, vp, p.v_sl, blk0, p.L, vec);
+#pragma unroll
+  for (int t = 0; t < kDkvStages - 1; ++t) {
+    if (t < ntiles) stage(t);
+    cp_async_commit();
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + kDkvStages - 1 < ntiles) stage(t + kDkvStages - 1);
+    cp_async_commit();
+    cp_async_wait<kDkvStages - 1>();
+    fence_proxy_async();
+    const int buf = t % kDkvStages;
+    const int32_t* seg_t = segs + buf * QN;
+    const int32_t sq_t = tid < QN ? seg_t[tid] : 0;
+    if (!__syncthreads_or(sq_t != 0 && sq_t >= blo && sq_t <= bhi))
+      continue;  // no allowed pair for the block among these queries
+    const bf16* qt = qs + buf * QN * D;
+    const bf16* gt = dos + buf * QN * D;
+    const float* lse_t = lses + buf * QN;
+    const float* delta_t = deltas + buf * QN;
+    const int l0 = q_first + t * QN;
+
+    float sc[QN / 2], dp[QN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      Wgmma<QN>::ss(sc, desc_kmajor<kMmaRows>(ks, kk), desc_kmajor<QN>(qt, kk), kk > 0);
+      Wgmma<QN>::ss(dp, desc_kmajor<kMmaRows>(vs, kk), desc_kmajor<QN>(gt, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P keep/(1-p) in place of S^T, dS in place of dP^T; each of this
+    // thread's queries read once for its two keys
+#pragma unroll
+    for (int n = 0; n < QN / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = n * 8 + 2 * tg + c;  // query in the tile
+        const int32_t sq = seg_t[j];
+        const float lse2 = lse_t[j] * kLog2e;
+        const float dl = delta_t[j];
+        const uint32_t hq = static_cast<uint32_t>(l0 + j) * kHashRow;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {      // this thread's key
+          const int e = 4 * n + 2 * i + c;
+          const float pr =
+              sq == sk_match[i] ? ex2_approx(fmaf(sc[e], p.scale_log2, -lse2)) : 0.f;
+          float keepf = 1.f;
+          if constexpr (DROP) {
+            const uint32_t hv = hash_finish(p.seed, hkey[i] ^ hq);
+            keepf = hv >= p.keep_thresh ? p.keep_scale : 0.f;
+          }
+          sc[e] = pr * keepf;
+          dp[e] = pr * (dp[e] * keepf - dl);
+        }
+      }
+    }
+    SplitA<split_terms(D)> pa[QN / 16], sa[QN / 16];
+#pragma unroll
+    for (int kk = 0; kk < QN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pa[kk], r);
+    wgmma_fence();
+    fence_regs(dv);
+#pragma unroll
+    for (int term = 0; term < split_terms(D); ++term)
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        Wgmma<D>::rs_t(dv, pa[kk].t[term], desc_mnmajor<QN>(gt, kk));
+#pragma unroll
+    for (int kk = 0; kk < QN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16x2(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1], sa[kk], r);
+    wgmma_fence();
+    fence_regs(dk);
+#pragma unroll
+    for (int term = 0; term < split_terms(D); ++term)
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        Wgmma<D>::rs_t(dk, sa[kk].t[term], desc_mnmajor<QN>(qt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // buf is restaged at t + kDkvStages
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= p.L) continue;
+    const int64_t out = ((static_cast<int64_t>(b) * p.L + keys[i]) * p.H + h) * D;
+    bf16* dkp = static_cast<bf16*>(p.dk) + out;
+    bf16* dvp = static_cast<bf16*>(p.dv) + out;
+    const bool pad = sk[i] == 0;  // dK = dV = 0 exactly
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * tg;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + col) = __floats2bfloat162_rn(
+          pad ? 0.f : dk[4 * n + 2 * i] * p.scale, pad ? 0.f : dk[4 * n + 2 * i + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + col) = __floats2bfloat162_rn(
+          pad ? 0.f : dv[4 * n + 2 * i], pad ? 0.f : dv[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
 // The f32 route (see the header note): one key per thread.
 template <int D>
 __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
@@ -405,37 +632,175 @@ __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
   }
 }
 
-// The instance a launch runs (its dynamic shared bytes: bf16 route).
+// The wide route (see the header note): 32 keys a block (a key a lane),
+// one chunk of 128 columns of dK and dV (grid z), 32 columns a warp.
+template <typename T>
+__global__ void __launch_bounds__(128) attn_bwd_dkv_kernel_wide(const BwdParams p, const int D) {
+  __shared__ __align__(16) float qs[kWideTile][kWideChunk];
+  __shared__ __align__(16) float dos[kWideTile][kWideChunk];
+  __shared__ float red_s[kWideSplit][kWideTile][kWideRows];
+  __shared__ float red_dp[kWideSplit][kWideTile][kWideRows];
+  __shared__ float lse2s[kWideTile];
+  __shared__ float deltas[kWideTile];
+  __shared__ int32_t segs[kWideTile];
+
+  const int nc = gridDim.z;
+  const int z = blockIdx.z;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int key = blockIdx.y * kWideRows + (threadIdx.x & 31);
+  const bool in_range = key < p.L;
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const int32_t sk = in_range ? seg_b[key] : 0;
+  const int32_t sk_match = sk != 0 ? sk : -1;  // a pad key pairs with no query
+  const T* krow = sk != 0 ? static_cast<const T*>(p.k) + b * p.k_sb + key * p.k_sl + h * p.k_sh
+                          : nullptr;
+  const T* vrow = sk != 0 ? static_cast<const T*>(p.v) + b * p.v_sb + key * p.v_sl + h * p.v_sh
+                          : nullptr;
+
+  float kr[kWideCols], vr[kWideCols], dk[kWideCols], dv[kWideCols];
+#pragma unroll
+  for (int i = 0; i < kWideCols; ++i) dk[i] = dv[i] = 0.f;
+  if (nc == 1) {
+    load_wide(kr, krow, 0, D);
+    load_wide(vr, vrow, 0, D);
+  }
+
+  int q_first, q_last;
+  other_axis_range(seg_b, p.L, threadIdx.x < kWideRows ? sk : 0, &q_first, &q_last);
+  const int qend = q_last + 1;
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* gp = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
+  const float* delta_bh = p.delta + static_cast<int64_t>(bh) * p.L;
+  for (int l0 = q_first; l0 < qend; l0 += kWideTile) {
+    const int i = threadIdx.x;
+    if (i < kWideTile) {
+      const bool ok = l0 + i < qend;
+      segs[i] = ok ? seg_b[l0 + i] : 0;
+      lse2s[i] = ok ? lse_bh[l0 + i] * kLog2e : 0.f;
+      deltas[i] = ok ? delta_bh[l0 + i] : 0.f;
+    }
+    __syncthreads();
+    bool mine = false;
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) mine |= segs[j] == sk_match;
+    if (!__syncthreads_or(mine)) continue;  // no allowed pair in the block
+    float sc[kWideTile], dp[kWideTile];
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) sc[j] = dp[j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const int chunk = (z + 1 + c) % nc;  // chunk z last: it stays staged
+      if (c > 0) __syncthreads();          // the previous chunk is read
+      stage_wide(qs, qp, p.q_sl, l0, qend, chunk, D);
+      stage_wide(dos, gp, p.do_sl, l0, qend, chunk, D);
+      if (nc > 1) {
+        load_wide(kr, krow, chunk, D);
+        load_wide(vr, vrow, chunk, D);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kWideTile; ++j) {
+        sc[j] += wide_dot(kr, qs[j]);
+        dp[j] += wide_dot(vr, dos[j]);
+      }
+    }
+    wide_reduce(sc, red_s);
+    wide_reduce(dp, red_dp);
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) {
+      if (segs[j] != sk_match) continue;
+      const float pj = exp2f(fmaf(sc[j], p.scale_log2, -lse2s[j]));
+      float pd = pj;  // the dropped probability (dV path)
+      float dpj = dp[j];
+      if (p.dropout) {
+        const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh) + p.bh_offset,
+                                     static_cast<uint32_t>(l0 + j),
+                                     static_cast<uint32_t>(key));
+        const float keepf = hv >= p.keep_thresh ? p.keep_scale : 0.f;
+        pd = pj * keepf;
+        dpj *= keepf;
+      }
+      wide_axpy(dv, pd, dos[j]);
+      wide_axpy(dk, pj * (dpj - deltas[j]), qs[j]);
+    }
+    __syncthreads();  // the tiles are restaged by the next iteration
+  }
+  if (!in_range) return;
+  const int64_t out = ((static_cast<int64_t>(b) * p.L + key) * p.H + h) * D;
+  store_wide(static_cast<T*>(p.dk) + out, dk, z, D, p.scale);
+  store_wide(static_cast<T*>(p.dv) + out, dv, z, D, 1.f);
+}
+
+// The instance of `design` at (head dim D, dropout), nullptr where this
+// source has none; the wide route is `wide_kernel`.
 template <int D>
-const void* kernel_of(int is_bf16, int dropout) {
-  if (!is_bf16) return reinterpret_cast<const void*>(attn_bwd_dkv_kernel_f32<D>);
-  return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_mma<D, true>)
-                 : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_mma<D, false>);
+const void* kernel_of(int design, int dropout) {
+  if constexpr (D >= 64) {
+    if (design == kDesignWgmma)
+      return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma<D, true>)
+                     : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma<D, false>);
+  } else {
+    if (design == kDesignMma)
+      return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_mma<D, true>)
+                     : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_mma<D, false>);
+  }
+  if constexpr (D < 128)
+    if (design == kDesignF32) return reinterpret_cast<const void*>(attn_bwd_dkv_kernel_f32<D>);
+  return nullptr;
+}
+template <int D>
+constexpr size_t dyn_smem_of() {
+  if constexpr (D >= 64) return dkv_wgmma_smem<D>();
+  return mma_dyn_smem<mma_ld(D)>();
+}
+const void* wide_kernel(int is_bf16) {
+  return is_bf16 ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wide<bf16>)
+                 : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wide<float>);
 }
 
 template <int D>
-void launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
+int launch(const BwdParams& p, int design, cudaStream_t stream) {
+  if (kernel_of<D>(design, p.dropout) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (design != kDesignF32) {
     const int vec = rows_vectorizable(p.q, p.q_sb, p.q_sl, p.q_sh, D) &&
-                    rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D);
+                    rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D) &&
+                    (D < 64 || (rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
+                                rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D)));
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
-    constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
-    if (p.dropout)
-      launch_dyn(attn_bwd_dkv_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
-    else
-      launch_dyn(attn_bwd_dkv_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
-  } else {
+    constexpr size_t smem = dyn_smem_of<D>();
+    if constexpr (D >= 64) {
+      if (p.dropout)
+        launch_dyn(attn_bwd_dkv_kernel_wgmma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
+      else
+        launch_dyn(attn_bwd_dkv_kernel_wgmma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
+    } else {
+      if (p.dropout)
+        launch_dyn(attn_bwd_dkv_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
+      else
+        launch_dyn(attn_bwd_dkv_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
+    }
+  } else if constexpr (D < 128) {
     const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
     attn_bwd_dkv_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_d(int head_dim, const BwdParams& p, int is_bf16,
+int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
                cudaStream_t stream) {
-  return with_head_dim(head_dim, [&](auto d) {
-    launch<decltype(d)::value>(p, is_bf16, stream);
+  if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kDesignWide) {
+    const dim3 grid(p.B * p.H, (p.L + kWideRows - 1) / kWideRows, wide_chunks(head_dim));
+    if (is_bf16)
+      attn_bwd_dkv_kernel_wide<bf16><<<grid, 128, 0, stream>>>(p, head_dim);
+    else
+      attn_bwd_dkv_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
-  });
+  }
+  return with_head_dim(head_dim,
+                       [&](auto d) { return launch<decltype(d)::value>(p, design, stream); });
 }
 
 }  // namespace
@@ -444,21 +809,25 @@ int dispatch_d(int head_dim, const BwdParams& p, int is_bf16,
 // Returns cudaGetLastError() after the launch, which is asynchronous on
 // `stream`.
 extern "C" int flash_attn_bwd_dkv(const flash::BwdParams* params, int head_dim,
-                                  int is_bf16, void* stream) {
+                                  int is_bf16, int design, void* stream) {
   flash::BwdParams p = *params;
   p.scale_log2 = p.scale * flash::kLog2e;
-  return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
+  return dispatch_d(head_dim, is_bf16, design, p, static_cast<cudaStream_t>(stream));
 }
 
-// The resources of the instance a launch at (head_dim, is_bf16, dropout)
-// runs: out[4] = static shared bytes, dynamic shared bytes, registers a
-// thread, local (spilled) bytes a thread. Returns a cudaError_t.
-extern "C" int flash_attn_bwd_dkv_attrs(int head_dim, int is_bf16, int dropout,
+// The resources of the instance of `design` a launch at (head_dim,
+// is_bf16, dropout) runs: out[4] = static shared bytes, dynamic shared
+// bytes, registers a thread, local (spilled) bytes a thread. Returns a
+// cudaError_t.
+extern "C" int flash_attn_bwd_dkv_attrs(int head_dim, int is_bf16, int design, int dropout,
                                         int* out) {
+  if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
   return flash::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
+    const void* fn = kernel_of<D>(design, dropout);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return flash::func_attrs(
-        kernel_of<D>(is_bf16, dropout),
-        is_bf16 ? static_cast<int>(flash::mma_dyn_smem<flash::mma_ld(D)>()) : 0, out);
+        fn, design == flash::kDesignF32 ? 0 : static_cast<int>(dyn_smem_of<D>()), out);
   });
 }

@@ -18,63 +18,85 @@
 //
 // What bounds it on an H100. Per allowed pair 6*D FLOPs (q.k, dO.v, dS k),
 // one exp2 and, under dropout, one hash. At the packed AGTT-ZINC training
-// rows ([49, 256, 4, 16], a few segments of ~91 tokens a row) the least
-// time is set by bytes (q, k, v, dO, O read; dQ, delta written: ~3 us);
-// the tensor-core FLOPs take well under a microsecond. What this kernel
-// reaches there is set by the per-pair elementwise work (mask, exp2,
-// hash), by the masked pairs inside the 16 x 16 tiles a warp computes, and
-// by the fixed cost of a launch and its prologue (a third of the time at
-// those rows; PERF.md), not by tensor-core rate.
+// rows ([49, 256, 4, 16]) the least time is set by bytes (~3 us) and what
+// the kernel reaches by the per-pair elementwise work and the launch; at
+// head dim 128 on the mfu_bench rows ([64, 1024, 8, 128], 2-5 segments a
+// row) by bytes (0.19 ms) with the tensor-core FLOPs close behind, so there
+// the products have to run at the tensor cores' rate (PERF.md).
 //
-// Design, bf16 (the tensor-core route). Nothing of the Pallas grid carries
-// over (a sequential key axis with a VMEM carry, Z=8 folded batch*head
-// rows). One block of 4 warps owns 64 query rows of one batch*head, 16 a
-// warp: the M of mma.sync.m16n8k16 (bf16 in, f32 accumulate). Each warp
-// keeps its q and dO rows as A fragments in registers (head dims 4 and 8
-// zero-padded to the mma depth 16 in registers and shared memory only,
-// never in HBM). The block loops over key tiles of 64 inside its segment
-// range (`other_axis_range`); K and V are staged in shared memory as bf16
-// by cp.async, double-buffered, rows padded by 8 bf16 so that ldmatrix is
-// free of bank conflicts. Per 16 keys a warp:
-//   - skips the 16 keys unless one of them lies in the warp's segment-id
-//     range (a warp with no allowed pair issues no mma for them);
-//   - S = q k^T and dP = dO v^T: mma with K and V as B operands (ldmatrix);
-//   - P = exp2(S scale log2e - LSE log2e), the segment mask, the dropout
-//     hash and dS = P (dP - delta) in the accumulator registers;
-//   - dQ += dS K with dS straight from registers as the A operand (the
-//     accumulators of two n-tiles are the A fragment of one k-step) and K
-//     through ldmatrix.trans: no shared-memory round trip. dS is not bf16:
-//     rounding it would cost 2^-9 relative where gradients cancel, beyond
-//     the elementwise 4e-3 the kernel is held to. So dS is split into bf16
-//     hi + lo and both are multiplied (about 2^-17 relative), at head dims
-//     64 and 128 into hi + mid + lo (about 2^-25; `split_terms`); the
-//     tensor cores have room for the second product.
-// dQ is accumulated unscaled and multiplied by `scale` once before the
-// cast. delta is summed by two lanes a row over dO and O in the prologue.
+// Four designs, by head dim and input type (ops/flash_attention.py
+// `design` names a launch's; `launch` runs it, or refuses a design this
+// source has no instance of):
 //
-// Why mma.sync and not wgmma/TMA. wgmma's unit is a 64-row warpgroup tile
-// fed from shared memory, and TMA pays off on large tiles; at head dims
-// 4-16 every product is one 16-deep k-step, the tensor cores idle most of
-// the time anyway, and what limits the kernel is the elementwise work
-// between the products. Warp-level mma lets each warp skip the keys its
-// own 16 rows may not attend and keeps P and dS in registers between the
-// products.
+// bf16 at head dims 4-32: warp-level mma.sync. One block of 4 warps owns 64
+// query rows of one batch*head, 16 a warp (the M of m16n8k16, bf16 in, f32
+// accumulate), q and dO as A fragments in registers (head dims 4 and 8
+// zero-padded to the mma depth 16 in registers and shared memory only). The
+// block loops over key tiles of 64 inside its segment range
+// (`other_axis_range`), K and V staged by cp.async, double-buffered, rows
+// padded by 8 bf16 for conflict-free ldmatrix. Per 16 keys a warp skips
+// them unless one lies in its segment-id range; S = q k^T and dP = dO v^T by
+// mma; P = exp2(S scale log2e - LSE log2e), the mask, the dropout hash and
+// dS = P (dP - delta) in the accumulator registers; dQ += dS K with dS
+// straight from registers as the A operand (the accumulators of two
+// n-tiles are the A fragment of one k-step) and K through ldmatrix.trans;
+// dS goes in as two bf16 terms hi + lo (about 2^-17, `split_terms`; C4 in
+// ROADMAP.md keeps it at two below head dim 64). At these head dims every product is one 16-deep k-step, the tensor cores
+// idle most of the time, and the elementwise work between the products
+// bounds the kernel: warp-level mma lets each warp skip what its 16 rows
+// may not attend.
 //
-// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`); the
-// wrapper zero-pads any other head dim up to 128 to the next of them and
-// hands the kernel the scale of the true one. At 128 the bf16 route's two
-// double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
-// memory, so that route keeps them in dynamic shared memory there
-// (`MmaTiles`, `launch_dyn`); the f32 route's tiles shrink to 32
-// rows there (`f32_tile`) and its per-thread arrays of 128 floats spill to
-// local memory: right, not fast (PERF.md gives the times).
+// bf16 at head dims 64 and 128: warpgroup wgmma (sm_90a). There the
+// products dominate, and mma.sync (a warp's 16 x 8 tiles, full-width
+// accumulators in a warp, 208 registers, a few warps an SM) ran at 8x the
+// bound. One block is one warpgroup owning 64 query rows; q and dO of those
+// rows sit in shared memory for the block's life, and K, V and the key
+// segment ids stream through a two-stage cp.async ring (16-byte pieces,
+// each tile in wgmma's core-matrix layout, `stage_tile`; plain loads where
+// a pointer or stride does not fit). Per key tile of 64 that holds an
+// allowed pair for the block (the tile is skipped otherwise; 32 keys at
+// head dim 64, `dq_keys`):
+//   - S = q k^T and dP = dO v^T: wgmma m64n64k16, both operands from shared
+//     memory (K-major), D / 16 k-steps each, committed as one group;
+//   - P, the mask, the dropout keep (hash_u32 at (bh_offset + b h, query,
+//     key)) and dS = P (dP - delta) in the 64 accumulator registers;
+//   - dQ += dS K: wgmma m64nDk16 with dS as the A operand from registers
+//     (the accumulator layout is mma.sync's, so two n-tiles are one k-step's
+//     A fragment) and K read MN-major from the same shared tile.
+// dS is not bf16: rounding it would cost 2^-9 relative where gradients
+// cancel, beyond the elementwise 4e-3 the kernel is held to, so it goes in
+// as three bf16 terms hi + mid + lo (about 2^-25, `split_terms`), three
+// products; the tensor cores have the room. The dQ accumulator (D / 2
+// registers a thread) is the block's only full-width state, so two blocks
+// fit an SM and one block's loads and elementwise work run under the
+// other's products. No producer warp: the ring is filled by the same
+// threads one tile ahead.
 //
-// f32 (the FP32-pipe route). Tensor cores take no f32 input, and TF32
-// would not hold f32 accuracy. One block of 128 threads owns 128 query
-// rows, one per thread, with q, dO and the dQ accumulator in f32 registers,
-// and loops over key tiles of 64 staged in shared memory as f32 (every
-// thread reads the same key: broadcasts); a (row, key) pair of different
-// segments costs one compare.
+// f32 at head dims 4-64: the FP32 pipe, a query row a thread. A block of
+// 128 threads owns 128 query rows with q, dO and the dQ accumulator of its
+// row in f32 registers and loops over key tiles of 64 staged in shared
+// memory as f32 (every thread reads the same key: broadcasts) inside its
+// segment range. At 64 it takes 255 registers and spills 112 bytes a
+// thread; chip_smoke.py phase 11 times it against the wide route on the
+// same inputs, which is why both stay (PERF.md §6).
+//
+// f32 at head dim 128 and every head dim above 128 (both input types):
+// the wide FP32-pipe route (`attn_bwd_dq_kernel_wide`, flash_attn_common.cuh
+// `kWideRows`). A block owns 32 query rows and one chunk of 128 dQ columns
+// (grid z = ceil(D / 128)); a row is held by 4 threads, lane i of each
+// warp, warp w holding columns [32 w, 32 w + 32), so that no thread keeps a
+// full-width row (the f32 design kept q, dO and dQ of one row a thread and
+// spilled 1,144 bytes at 128). Key tiles of 16 are staged in shared memory
+// as f32, one column chunk at a time; S and dP are summed over every chunk
+// (the four warps' parts through shared memory in a fixed order,
+// `wide_reduce`) before the chunk of dQ is updated. Above 128 this
+// recomputes S and dP once per column chunk (ceil(D / 128) times), the
+// price of holding any head dim in fixed registers; the head dim is a run-
+// time argument, so any head dim runs unpadded. Tensor cores take no f32
+// input and TF32 would not hold f32 accuracy.
+//
+// All routes: dQ is accumulated unscaled and multiplied by `scale` once
+// before the cast; delta is summed in the prologue over dO and O.
 
 #include "flash_attn_common.cuh"
 
@@ -287,6 +309,219 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 
+// The wgmma route (see the header note): shared bytes of a launch at head
+// dim D, and the instance.
+// Keys a tile: 64 at head dim 128; 32 at 64, where the smaller tiles let
+// three blocks share an SM (timed on the card: faster there, slower at 128).
+__host__ __device__ constexpr int dq_keys(int d) { return d >= 128 ? 64 : 32; }
+constexpr int kDqStages = 2;   // tiles in the ring
+template <int D>
+__host__ __device__ constexpr size_t dq_wgmma_smem() {
+  return (2 * kMmaRows * D + kDqStages * 2 * dq_keys(D) * D) * sizeof(bf16) +
+         kDqStages * dq_keys(D) * sizeof(int32_t);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kMmaThreads)
+    attn_bwd_dq_kernel_wgmma(const BwdParams p, const int vec) {
+  constexpr int KN = dq_keys(D);
+  constexpr int KD = D / 16;  // k-steps of S and dP
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(wg_smem);  // [D / 8][64][8]
+  bf16* dos = qs + kMmaRows * D;
+  bf16* ks = dos + kMmaRows * D;                // kDqStages x [D / 8][KN][8]
+  bf16* vs = ks + kDqStages * KN * D;
+  int32_t* segs = reinterpret_cast<int32_t*>(vs + kDqStages * KN * D);
+  __shared__ float delta_s[kMmaRows];
+  __shared__ int32_t wlo_s[4], whi_s[4];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int blk0 = blockIdx.y * kMmaRows;  // the block's first row
+  const int row0 = blk0 + warp * 16;       // the warp's first row
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* gp = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  // delta = rowsum(dO * O): two lanes a row (lanes l and l+16, half of D each)
+  {
+    const int r = row0 + (lane & 15);
+    float acc = 0.f;
+    if (r < p.L) {
+      const bf16* gr = gp + static_cast<int64_t>(r) * p.do_sl;
+      const bf16* orow = static_cast<const bf16*>(p.o) +
+                         ((static_cast<int64_t>(b) * p.L + r) * p.H + h) * D;
+      const int d0 = (lane >> 4) * (D / 2);
+      if (vec) {  // 16-byte loads (O is contiguous), the same order of terms
+#pragma unroll
+        for (int d = d0; d < d0 + D / 2; d += 8) {
+          const uint4 gv = *reinterpret_cast<const uint4*>(gr + d);
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + d);
+          const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+          const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[w]));
+            const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[w]));
+            acc = fmaf(gf.x, of.x, acc);
+            acc = fmaf(gf.y, of.y, acc);
+          }
+        }
+      } else {
+#pragma unroll 8
+        for (int d = d0; d < d0 + D / 2; ++d)
+          acc = fmaf(to_f32(gr[d]), to_f32(orow[d]), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+    if (lane < 16) {
+      delta_s[warp * 16 + lane] = acc;
+      if (r < p.L) p.delta[static_cast<int64_t>(bh) * p.L + r] = acc;
+    }
+  }
+
+  // the block's segment-id range (a key tile outside it is skipped) and key range
+  const int32_t my_seg = (lane < 16 && row0 + lane < p.L) ? seg_b[row0 + lane] : 0;
+  int32_t wlo, whi;
+  warp_seg_range(my_seg, &wlo, &whi);
+  if (lane == 0) {
+    wlo_s[warp] = wlo;
+    whi_s[warp] = whi;
+  }
+  int k_first, k_last;
+  other_axis_range(seg_b, p.L, (tid < kMmaRows && blk0 + tid < p.L) ? seg_b[blk0 + tid] : 0,
+                   &k_first, &k_last);  // syncs: wlo_s, whi_s, delta_s are visible
+  const int32_t blo = min(min(wlo_s[0], wlo_s[1]), min(wlo_s[2], wlo_s[3]));
+  const int32_t bhi = max(max(whi_s[0], whi_s[1]), max(whi_s[2], whi_s[3]));
+  const int kend = k_last + 1;
+  const int ntiles = (kend - k_first + KN - 1) / KN;  // <= 0: none
+
+  // this thread's two rows (g and g+8 of the warp's 16)
+  int rows[2];
+  int32_t sq[2], sq_match[2];
+  float lse2[2], dlt[2];
+  uint32_t hrow[2];  // the dropout hash's (batch*head, row) terms
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = row0 + g + 8 * i;
+    sq[i] = rows[i] < p.L ? seg_b[rows[i]] : 0;
+    sq_match[i] = sq[i] != 0 ? sq[i] : -1;  // a pad row pairs with no key
+    lse2[i] = sq[i] != 0 ? p.lse[static_cast<int64_t>(bh) * p.L + rows[i]] * kLog2e : 0.f;
+    dlt[i] = delta_s[warp * 16 + g + 8 * i];
+    hrow[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
+              (static_cast<uint32_t>(rows[i]) * kHashRow);
+  }
+  asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
+  float acc[D / 2];  // dQ of the warp's 16 rows, unscaled (wgmma layout)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  auto stage = [&](int t) {
+    const int buf = t % kDqStages;
+    const int s0 = k_first + t * KN;
+    stage_tile<D, KN>(ks + buf * KN * D, kp, p.k_sl, s0, kend, vec);
+    stage_tile<D, KN>(vs + buf * KN * D, vp, p.v_sl, s0, kend, vec);
+    if (tid < KN)
+      cp_async<4>(&segs[buf * KN + tid], seg_b + (s0 + tid < kend ? s0 + tid : 0),
+                  s0 + tid < kend);
+  };
+  stage_tile<D, kMmaRows>(qs, qp, p.q_sl, blk0, p.L, vec);
+  stage_tile<D, kMmaRows>(dos, gp, p.do_sl, blk0, p.L, vec);
+  if (ntiles > 0) stage(0);
+  cp_async_commit();
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    const int buf = t % kDqStages;
+    const int32_t* seg_t = segs + buf * KN;
+    const int32_t sk_t = tid < KN ? seg_t[tid] : 0;
+    if (!__syncthreads_or(sk_t != 0 && sk_t >= blo && sk_t <= bhi))
+      continue;  // no allowed pair for the block among these keys
+    const bf16* kt = ks + buf * KN * D;
+    const bf16* vt = vs + buf * KN * D;
+    const int s0 = k_first + t * KN;
+
+    float sc[KN / 2], dp[KN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      Wgmma<KN>::ss(sc, desc_kmajor<kMmaRows>(qs, kk), desc_kmajor<KN>(kt, kk), kk > 0);
+      Wgmma<KN>::ss(dp, desc_kmajor<kMmaRows>(dos, kk), desc_kmajor<KN>(vt, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS in place of S; each of this thread's keys read once for its two rows
+#pragma unroll
+    for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int j = n * 8 + 2 * tg + c;  // key in the tile
+        const int32_t sk = seg_t[j];
+        const uint32_t hk = static_cast<uint32_t>(s0 + j) * kHashCol;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {      // this thread's row
+          const int e = 4 * n + 2 * i + c;
+          const float pr =
+              sk == sq_match[i] ? ex2_approx(fmaf(sc[e], p.scale_log2, -lse2[i])) : 0.f;
+          float dpv = dp[e];
+          if constexpr (DROP) {
+            const uint32_t hv = hash_finish(p.seed, hrow[i] ^ hk);
+            dpv = hv >= p.keep_thresh ? dpv * p.keep_scale : 0.f;
+          }
+          sc[e] = pr * (dpv - dlt[i]);
+        }
+      }
+    }
+    SplitA<split_terms(D)> sa[KN / 16];
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      split_bf16x2(sc[8 * kk], sc[8 * kk + 1], sa[kk], 0);
+      split_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3], sa[kk], 1);
+      split_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5], sa[kk], 2);
+      split_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7], sa[kk], 3);
+    }
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int term = 0; term < split_terms(D); ++term)
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        Wgmma<D>::rs_t(acc, sa[kk].t[term], desc_mnmajor<KN>(kt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // buf is restaged at t + kDqStages
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= p.L) continue;
+    bf16* dqp = static_cast<bf16*>(p.dq) +
+                ((static_cast<int64_t>(b) * p.L + rows[i]) * p.H + h) * D;
+    const bool pad = sq[i] == 0;  // dQ = 0 exactly
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + n * 8 + 2 * tg) = __floats2bfloat162_rn(
+          pad ? 0.f : acc[4 * n + 2 * i] * p.scale,
+          pad ? 0.f : acc[4 * n + 2 * i + 1] * p.scale);
+  }
+}
+
 // The f32 route (see the header note): one query row per thread.
 template <int D>
 __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
@@ -394,37 +629,180 @@ __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
   for (int d = 0; d < D; ++d) dqp[d] = acc[d] * p.scale;
 }
 
-// The instance a launch runs (its dynamic shared bytes: bf16 route).
+// The wide route (see the header note): 32 query rows a block (a row a
+// lane), one chunk of 128 dQ columns (grid z), 32 columns a warp.
+template <typename T>
+__global__ void __launch_bounds__(128) attn_bwd_dq_kernel_wide(const BwdParams p, const int D) {
+  __shared__ __align__(16) float ks[kWideTile][kWideChunk];
+  __shared__ __align__(16) float vs[kWideTile][kWideChunk];
+  __shared__ float red_s[kWideSplit][kWideTile][kWideRows];
+  __shared__ float red_dp[kWideSplit][kWideTile][kWideRows];
+  __shared__ float red_delta[kWideSplit][1][kWideRows];
+  __shared__ int32_t segs[kWideTile];
+
+  const int nc = gridDim.z;
+  const int z = blockIdx.z;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int row = blockIdx.y * kWideRows + (threadIdx.x & 31);
+  const bool in_range = row < p.L;
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const int32_t sq = in_range ? seg_b[row] : 0;
+  const int32_t sq_match = sq != 0 ? sq : -1;  // a pad row pairs with no key
+  const T* qrow = sq != 0 ? static_cast<const T*>(p.q) + b * p.q_sb + row * p.q_sl + h * p.q_sh
+                          : nullptr;
+  const T* grow = in_range
+                      ? static_cast<const T*>(p.dout) + b * p.do_sb + row * p.do_sl + h * p.do_sh
+                      : nullptr;
+
+  // delta = rowsum(dO * O) over the whole head dim: the four warps' parts
+  float delta[1] = {0.f};
+  if (in_range) {
+    const T* orow = static_cast<const T*>(p.o) +
+                    ((static_cast<int64_t>(b) * p.L + row) * p.H + h) * D;
+    for (int chunk = 0; chunk < nc; ++chunk) {
+      const int c0 = wide_col0(chunk);
+#pragma unroll
+      for (int i = 0; i < kWideCols; ++i)
+        if (c0 + i < D) delta[0] = fmaf(to_f32(grow[c0 + i]), to_f32(orow[c0 + i]), delta[0]);
+    }
+  }
+  wide_reduce(delta, red_delta);
+  if (z == 0 && threadIdx.x < kWideRows && in_range)
+    p.delta[static_cast<int64_t>(bh) * p.L + row] = delta[0];
+  const float lse2 = sq != 0 ? p.lse[static_cast<int64_t>(bh) * p.L + row] * kLog2e : 0.f;
+
+  float qr[kWideCols], dor[kWideCols], acc[kWideCols];
+#pragma unroll
+  for (int i = 0; i < kWideCols; ++i) acc[i] = 0.f;
+  if (nc == 1) {
+    load_wide(qr, qrow, 0, D);
+    load_wide(dor, grow, 0, D);
+  }
+
+  int k_first, k_last;
+  other_axis_range(seg_b, p.L, threadIdx.x < kWideRows ? sq : 0, &k_first, &k_last);
+  const int kend = k_last + 1;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  for (int s0 = k_first; s0 < kend; s0 += kWideTile) {
+    const int i = threadIdx.x;
+    if (i < kWideTile) segs[i] = s0 + i < kend ? seg_b[s0 + i] : 0;
+    __syncthreads();
+    bool mine = false;
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) mine |= segs[j] == sq_match;
+    if (!__syncthreads_or(mine)) continue;  // no allowed pair in the block
+    float sc[kWideTile], dp[kWideTile];
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) sc[j] = dp[j] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const int chunk = (z + 1 + c) % nc;  // chunk z last: it stays staged
+      if (c > 0) __syncthreads();          // the previous chunk is read
+      stage_wide(ks, kp, p.k_sl, s0, kend, chunk, D);
+      stage_wide(vs, vp, p.v_sl, s0, kend, chunk, D);
+      if (nc > 1) {
+        load_wide(qr, qrow, chunk, D);
+        load_wide(dor, grow, chunk, D);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kWideTile; ++j) {
+        sc[j] += wide_dot(qr, ks[j]);
+        dp[j] += wide_dot(dor, vs[j]);
+      }
+    }
+    wide_reduce(sc, red_s);
+    wide_reduce(dp, red_dp);
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) {
+      if (segs[j] != sq_match) continue;
+      const float pj = exp2f(fmaf(sc[j], p.scale_log2, -lse2));
+      float dpj = dp[j];
+      if (p.dropout) {
+        const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh) + p.bh_offset,
+                                     static_cast<uint32_t>(row),
+                                     static_cast<uint32_t>(s0 + j));
+        dpj = hv >= p.keep_thresh ? dpj * p.keep_scale : 0.f;
+      }
+      wide_axpy(acc, pj * (dpj - delta[0]), ks[j]);
+    }
+    __syncthreads();  // the tiles are restaged by the next iteration
+  }
+  if (in_range)
+    store_wide(static_cast<T*>(p.dq) + ((static_cast<int64_t>(b) * p.L + row) * p.H + h) * D,
+               acc, z, D, p.scale);
+}
+
+// The instance of `design` at (head dim D, dropout), nullptr where this
+// source has none; the wide route is `wide_kernel`.
 template <int D>
-const void* kernel_of(int is_bf16, int dropout) {
-  if (!is_bf16) return reinterpret_cast<const void*>(attn_bwd_dq_kernel_f32<D>);
-  return dropout ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_mma<D, true>)
-                 : reinterpret_cast<const void*>(attn_bwd_dq_kernel_mma<D, false>);
+const void* kernel_of(int design, int dropout) {
+  if constexpr (D >= 64) {
+    if (design == kDesignWgmma)
+      return dropout ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_wgmma<D, true>)
+                     : reinterpret_cast<const void*>(attn_bwd_dq_kernel_wgmma<D, false>);
+  } else {
+    if (design == kDesignMma)
+      return dropout ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_mma<D, true>)
+                     : reinterpret_cast<const void*>(attn_bwd_dq_kernel_mma<D, false>);
+  }
+  if constexpr (D < 128)
+    if (design == kDesignF32) return reinterpret_cast<const void*>(attn_bwd_dq_kernel_f32<D>);
+  return nullptr;
+}
+template <int D>
+constexpr size_t dyn_smem_of() {
+  if constexpr (D >= 64) return dq_wgmma_smem<D>();
+  return mma_dyn_smem<mma_ld(D)>();
+}
+const void* wide_kernel(int is_bf16) {
+  return is_bf16 ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_wide<bf16>)
+                 : reinterpret_cast<const void*>(attn_bwd_dq_kernel_wide<float>);
 }
 
 template <int D>
-void launch(const BwdParams& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
+int launch(const BwdParams& p, int design, cudaStream_t stream) {
+  if (kernel_of<D>(design, p.dropout) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (design != kDesignF32) {
     const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
-                    rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
+                    rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D) &&
+                    (D < 64 || (rows_vectorizable(p.q, p.q_sb, p.q_sl, p.q_sh, D) &&
+                                rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D)));
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
-    constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
-    if (p.dropout)
-      launch_dyn(attn_bwd_dq_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
-    else
-      launch_dyn(attn_bwd_dq_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
-  } else {
+    constexpr size_t smem = dyn_smem_of<D>();
+    if constexpr (D >= 64) {
+      if (p.dropout)
+        launch_dyn(attn_bwd_dq_kernel_wgmma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
+      else
+        launch_dyn(attn_bwd_dq_kernel_wgmma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
+    } else {
+      if (p.dropout)
+        launch_dyn(attn_bwd_dq_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
+      else
+        launch_dyn(attn_bwd_dq_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
+    }
+  } else if constexpr (D < 128) {
     const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
     attn_bwd_dq_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_d(int head_dim, const BwdParams& p, int is_bf16,
+int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
                cudaStream_t stream) {
-  return with_head_dim(head_dim, [&](auto d) {
-    launch<decltype(d)::value>(p, is_bf16, stream);
+  if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kDesignWide) {
+    const dim3 grid(p.B * p.H, (p.L + kWideRows - 1) / kWideRows, wide_chunks(head_dim));
+    if (is_bf16)
+      attn_bwd_dq_kernel_wide<bf16><<<grid, 128, 0, stream>>>(p, head_dim);
+    else
+      attn_bwd_dq_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
-  });
+  }
+  return with_head_dim(head_dim,
+                       [&](auto d) { return launch<decltype(d)::value>(p, design, stream); });
 }
 
 }  // namespace
@@ -432,21 +810,25 @@ int dispatch_d(int head_dim, const BwdParams& p, int is_bf16,
 // Plain C entry point (bound with ctypes). Writes dq and delta. Returns
 // cudaGetLastError() after the launch, which is asynchronous on `stream`.
 extern "C" int flash_attn_bwd_dq(const flash::BwdParams* params, int head_dim,
-                                 int is_bf16, void* stream) {
+                                 int is_bf16, int design, void* stream) {
   flash::BwdParams p = *params;
   p.scale_log2 = p.scale * flash::kLog2e;
-  return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
+  return dispatch_d(head_dim, is_bf16, design, p, static_cast<cudaStream_t>(stream));
 }
 
-// The resources of the instance a launch at (head_dim, is_bf16, dropout)
-// runs: out[4] = static shared bytes, dynamic shared bytes, registers a
-// thread, local (spilled) bytes a thread. Returns a cudaError_t.
-extern "C" int flash_attn_bwd_dq_attrs(int head_dim, int is_bf16, int dropout,
+// The resources of the instance of `design` a launch at (head_dim,
+// is_bf16, dropout) runs: out[4] = static shared bytes, dynamic shared
+// bytes, registers a thread, local (spilled) bytes a thread. Returns a
+// cudaError_t.
+extern "C" int flash_attn_bwd_dq_attrs(int head_dim, int is_bf16, int design, int dropout,
                                        int* out) {
+  if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
   return flash::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
+    const void* fn = kernel_of<D>(design, dropout);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return flash::func_attrs(
-        kernel_of<D>(is_bf16, dropout),
-        is_bf16 ? static_cast<int>(flash::mma_dyn_smem<flash::mma_ld(D)>()) : 0, out);
+        fn, design == flash::kDesignF32 ? 0 : static_cast<int>(dyn_smem_of<D>()), out);
   });
 }

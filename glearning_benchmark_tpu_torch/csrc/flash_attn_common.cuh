@@ -1,8 +1,10 @@
 // Shared by the flash-attention kernels (forward, dQ, dK/dV): constants,
 // type conversion, the dropout counter hash, the segment-range scans, the
-// backward kernels' parameter block, and the tensor-core building blocks of
-// the three kernels' bf16 route (mma.sync, ldmatrix, cp.async, the bf16
-// split of a second product's operand).
+// backward kernels' parameter block, the tensor-core building blocks of the
+// bf16 route (mma.sync, ldmatrix, cp.async, the bf16 split of a second
+// product's operand; wgmma and its shared-memory tiles for the backward
+// kernels at head dims 64 and 128), and the pieces of the wide route (the
+// FP32-pipe kernels of f32 at head dim 128 and of every head dim above 128).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -84,6 +86,7 @@ constexpr int kF32Tile = 64;   // f32 route: rows of the other axis per tile
 
 // The head dims with a kernel instance (ops/flash_attention.py HEAD_DIMS);
 // the wrappers zero-pad any other head dim up to 128 to the next of them.
+// The wide kernels read the head dim at run time and need no padding.
 template <typename F>
 int with_head_dim(int head_dim, F&& f) {
   switch (head_dim) {
@@ -95,6 +98,18 @@ int with_head_dim(int head_dim, F&& f) {
     case 128: return f(std::integral_constant<int, 128>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The kernels' designs, in the order of ops/flash_attention.py DESIGNS.
+// `design` there is the one place that chooses a launch's design; an entry
+// point runs the design it is given, or returns cudaErrorInvalidValue where
+// its source has no instance of it at that head dim and input type.
+enum Design : int { kDesignMma = 0, kDesignWgmma = 1, kDesignF32 = 2, kDesignWide = 3 };
+
+// Whether `design` takes inputs of this type: the wide route both, the f32
+// design f32, the tensor-core designs bf16.
+constexpr bool design_takes(int design, int is_bf16) {
+  return design == kDesignWide || (design == kDesignF32) == !is_bf16;
 }
 
 // bf16 route: shared row stride of a tile, D padded to the mma depth 16 and
@@ -202,7 +217,10 @@ struct BwdParams {
 // the range of non-zero ids among the block's threads and then the first and
 // last position of seg_b[0..L) whose id lies inside that range: positions
 // outside [first, last] can pair with no row of the block. An empty range
-// comes back as first = L, last = -1. Every thread of the block must call.
+// comes back as first = L, last = -1. Every thread of the block must call,
+// and the block is whole warps. Each reduction is taken in the warps first
+// and then by one shared atomic a warp: an atomic a thread on one shared
+// word serialises (hundreds of them on long rows).
 __device__ __forceinline__ void other_axis_range(const int32_t* seg_b, int L,
                                                  int32_t mine, int* first,
                                                  int* last) {
@@ -214,20 +232,29 @@ __device__ __forceinline__ void other_axis_range(const int32_t* seg_b, int L,
     r_last = -1;
   }
   __syncthreads();
-  if (mine != 0) {
-    atomicMin(&lo, mine);
-    atomicMax(&hi, mine);
+  const int32_t wlo = __reduce_min_sync(0xffffffffu, mine != 0 ? mine : INT32_MAX);
+  const int32_t whi = __reduce_max_sync(0xffffffffu, mine);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&lo, wlo);
+    atomicMax(&hi, whi);
   }
   __syncthreads();
   const int32_t l = lo, h = hi;
+  int f = L, t = -1;
   if (h != 0) {
     for (int j = threadIdx.x; j < L; j += blockDim.x) {
       const int32_t s = seg_b[j];
       if (s >= l && s <= h) {
-        atomicMin(&r_first, j);
-        atomicMax(&r_last, j);
+        f = min(f, j);
+        t = max(t, j);
       }
     }
+  }
+  f = __reduce_min_sync(0xffffffffu, f);
+  t = __reduce_max_sync(0xffffffffu, t);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&r_first, f);
+    atomicMax(&r_last, t);
   }
   __syncthreads();
   *first = r_first;
@@ -300,9 +327,12 @@ __device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* p) {
 //   products.
 // hi alone (2^-9) breaks the elementwise 4e-3 where a sum cancels; hi + lo
 // can miss it where a sum of terms near 1 cancels to 1e-4 of them (one dV
-// element in 67 million at head dim 128, PERF.md). The kernels take N = 3
-// at head dims 64 and 128 and N = 2 below (`split_terms`), where the third
-// product would cost up to 18% of the time of the earlier PRs' rows.
+// element in 67 million at head dim 128, PERF.md; the cancelling-sum case
+// of tests/test_torch_wide_heads.py). The kernels take N = 3 at head dims
+// 64 and 128 and N = 2 below (ROADMAP.md C4, open there): three terms below
+// 64 move the bits of every head-dim-16 run, and chip_smoke.py phase 10's
+// two-rank EP bf16 run, whose gradient sums already part from one
+// process's at the first step, then parts past its 2e-3 at step 3.
 __host__ __device__ constexpr int split_terms(int d) { return d >= 64 ? 3 : 2; }
 
 template <int N>
@@ -401,6 +431,300 @@ __device__ __forceinline__ void warp_seg_range(int32_t mine, int32_t* lo,
                                                int32_t* hi) {
   *lo = __reduce_min_sync(0xffffffffu, mine != 0 ? mine : INT32_MAX);
   *hi = __reduce_max_sync(0xffffffffu, mine);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): the backward kernels' bf16 route at head dims 64 and 128
+// ---------------------------------------------------------------------------
+
+// A shared tile of ROWS rows x D bf16 in wgmma's core-matrix layout without
+// swizzle: [D / 8][ROWS][8], so that each 8 x 8 core matrix (8 rows of 16
+// bytes) is 128 contiguous bytes, which wgmma reads free of bank conflicts.
+// One tile serves two ways:
+// - K-major (the depth K runs along the head dim: the operands of S = q k^T,
+//   dP = dO v^T): the next 8 columns lie ROWS * 16 bytes on (LBO), the next 8
+//   rows 128 bytes on (SBO); a 16-deep k-step moves the start 2 * ROWS * 16
+//   bytes;
+// - MN-major (K runs along the rows, N along the head dim: k in dQ = dS k,
+//   q and dO in dK = dS^T q, dV = P~^T dO): the next 8 rows lie 128 bytes on
+//   (LBO, the K direction), the next 8 columns ROWS * 16 bytes on (SBO); a
+//   k-step of 16 rows moves the start 256 bytes.
+
+// The 64-bit shared-memory matrix descriptor of wgmma: start address, LBO
+// and SBO (bytes, 16-byte units in the fields), layout type 0 (no swizzle).
+__device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32);
+}
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_kmajor(const __nv_bfloat16* tile, int kstep) {
+  return gmma_desc(tile + kstep * 2 * ROWS * 8, ROWS * 16, 128);
+}
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mnmajor(const __nv_bfloat16* tile, int kstep) {
+  return gmma_desc(tile + kstep * 16 * 8, 128, ROWS * 16);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of wgmma's registers
+// across this point (the products run asynchronously to the thread).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// Orders this thread's earlier shared-memory writes (cp.async, stores)
+// before later reads by wgmma, which go through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One warpgroup's m64nNk16 product, bf16 in, f32 accumulators in registers
+// (N / 2 a thread: element 4 i + e is row 16 warp + g + 8 (e >> 1), column
+// 8 i + 2 t + (e & 1), as mma.sync's n-tiles), in the two forms the
+// backward kernels use:
+// - ss (N 32, 64: S and dP): D (+)= A B^T with A and B K-major tiles in
+//   shared memory (acc 0: D is overwritten);
+// - rs_t (N 64, 128: the second products): D += A B with A from registers
+//   (the A fragment of mma.sync m16n8k16 for the warp's 16 rows) and B an
+//   MN-major tile.
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+  static __device__ __forceinline__ void rs_t(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void rs_t(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Rows [r0, r0 + ROWS) of a [*, D] bf16 operand (row stride `stride`
+// elements) into a shared tile in the core-matrix layout above; rows at or
+// beyond `rend` become zeros. With `vec`, by cp.async in 16-byte pieces: a
+// warp takes 8 rows x 4 pieces, so that each quarter warp writes 128
+// contiguous shared bytes and each row's 64 global bytes are whole sectors;
+// else by plain loads. Needs 128 threads, D a multiple of 32 and ROWS * D / 8
+// a multiple of 128.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int64_t stride, int r0, int rend, bool vec) {
+  constexpr int kGroups = D / 8;  // 16-byte pieces a row
+  static_assert(kGroups % 4 == 0 && ROWS % 8 == 0, "tile shape");
+  if (vec) {
+#pragma unroll
+    for (int it = 0; it < ROWS * kGroups / 128; ++it) {
+      const int w = it * 4 + (threadIdx.x >> 5);
+      const int lane = threadIdx.x & 31;
+      const int r = (w / (kGroups / 4)) * 8 + (lane & 7);
+      const int cg = (w % (kGroups / 4)) * 4 + (lane >> 3);
+      const bool ok = r0 + r < rend;
+      const __nv_bfloat16* s = ok ? src + static_cast<int64_t>(r0 + r) * stride + cg * 8 : src;
+      cp_async<16>(dst + (cg * ROWS + r) * 8, s, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * D; e += 128) {
+      const int r = e / D;
+      const int d = e - r * D;
+      dst[((d >> 3) * ROWS + r) * 8 + (d & 7)] =
+          r0 + r < rend ? src[static_cast<int64_t>(r0 + r) * stride + d]
+                        : __ushort_as_bfloat16(0);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the wide route: f32 at head dim 128 and every head dim above 128
+// ---------------------------------------------------------------------------
+
+// A block of 128 threads owns kWideRows rows of its own axis (a row a lane)
+// and one chunk of kWideChunk output columns (grid z: chunk z of
+// ceil(D / kWideChunk)); warp w holds columns [32 w, 32 w + 32) of the chunk
+// of each row, so that a warp's 32 lanes read the same shared address
+// (one broadcast wavefront a 16-byte load). A dot product over the head dim
+// is the sum of the
+// four warps' parts, taken through shared memory in a fixed order
+// (`wide_reduce`). The other axis runs in tiles of kWideTile rows, staged in
+// shared memory as f32 one column chunk at a time, so that no array a
+// thread holds grows with the head dim.
+constexpr int kWideRows = 32;
+constexpr int kWideSplit = 4;  // warps: column blocks of a chunk
+constexpr int kWideCols = 32;
+constexpr int kWideChunk = kWideSplit * kWideCols;  // 128
+constexpr int kWideTile = 16;
+
+__host__ __device__ constexpr int wide_chunks(int d) {
+  return (d + kWideChunk - 1) / kWideChunk;
+}
+
+// The first head-dim column of this warp's block in chunk `chunk`.
+__device__ __forceinline__ int wide_col0(int chunk) {
+  return chunk * kWideChunk + (threadIdx.x >> 5) * kWideCols;
+}
+
+// This thread's kWideCols elements of a global row (T = float or bf16) in
+// chunk `chunk`, as f32; columns at or beyond D are zeros, and so is every
+// element when `row` is nullptr.
+template <typename T>
+__device__ __forceinline__ void load_wide(float (&dst)[kWideCols], const T* row, int chunk,
+                                          int D) {
+  const int c0 = wide_col0(chunk);
+#pragma unroll
+  for (int i = 0; i < kWideCols; ++i)
+    dst[i] = (row != nullptr && c0 + i < D) ? to_f32(row[c0 + i]) : 0.f;
+}
+
+// Rows [r0, r0 + kWideTile) of chunk `chunk` of a [*, D] operand (row
+// stride `stride`) into a shared [kWideTile][kWideChunk] f32 tile: rows at
+// or beyond `rend`, and columns at or beyond D, become zeros. All 128
+// threads take part.
+template <typename T>
+__device__ __forceinline__ void stage_wide(float (*dst)[kWideChunk], const T* src,
+                                           int64_t stride, int r0, int rend, int chunk,
+                                           int D) {
+  for (int e = threadIdx.x; e < kWideTile * kWideChunk; e += 128) {
+    const int r = e / kWideChunk;
+    const int cc = e - r * kWideChunk;
+    const int col = chunk * kWideChunk + cc;
+    dst[r][cc] = (r0 + r < rend && col < D)
+                     ? to_f32(src[static_cast<int64_t>(r0 + r) * stride + col])
+                     : 0.f;
+  }
+}
+
+// This thread's part of the dot product of its kWideCols elements with
+// this warp's columns of a shared tile row (f32), in four interleaved sums
+// (four independent FMA chains instead of one of 32).
+__device__ __forceinline__ float wide_dot(const float (&mine)[kWideCols], const float* row) {
+  const float* r = row + (threadIdx.x >> 5) * kWideCols;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kWideCols / 4; ++k) {
+    const float4 t = *reinterpret_cast<const float4*>(r + 4 * k);
+    acc[0] = fmaf(mine[4 * k], t.x, acc[0]);
+    acc[1] = fmaf(mine[4 * k + 1], t.y, acc[1]);
+    acc[2] = fmaf(mine[4 * k + 2], t.z, acc[2]);
+    acc[3] = fmaf(mine[4 * k + 3], t.w, acc[3]);
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// acc += w * (this warp's columns of a shared tile row).
+__device__ __forceinline__ void wide_axpy(float (&acc)[kWideCols], float w, const float* row) {
+  const float* r = row + (threadIdx.x >> 5) * kWideCols;
+#pragma unroll
+  for (int k = 0; k < kWideCols / 4; ++k) {
+    const float4 t = *reinterpret_cast<const float4*>(r + 4 * k);
+    acc[4 * k] = fmaf(w, t.x, acc[4 * k]);
+    acc[4 * k + 1] = fmaf(w, t.y, acc[4 * k + 1]);
+    acc[4 * k + 2] = fmaf(w, t.z, acc[4 * k + 2]);
+    acc[4 * k + 3] = fmaf(w, t.w, acc[4 * k + 3]);
+  }
+}
+
+// Each x[j] summed over the four warps (their column blocks) in a fixed
+// order, the same in every warp: the full dot products of this lane's row.
+// `red` is shared scratch; the block syncs once inside.
+template <int N>
+__device__ __forceinline__ void wide_reduce(float (&x)[N], float (*red)[N][kWideRows]) {
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < N; ++j) red[w][j][lane] = x[j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    x[j] = ((red[0][j][lane] + red[1][j][lane]) + red[2][j][lane]) + red[3][j][lane];
+}
+
+// This thread's columns of chunk `chunk` of a global output row, from f32.
+template <typename T>
+__device__ __forceinline__ void store_wide(T* row, const float (&src)[kWideCols], int chunk,
+                                           int D, float mul) {
+  const int c0 = wide_col0(chunk);
+#pragma unroll
+  for (int i = 0; i < kWideCols; ++i)
+    if (c0 + i < D) row[c0 + i] = from_f32<T>(src[i] * mul);
 }
 
 }  // namespace flash

@@ -75,16 +75,33 @@
 // hands the kernel the scale of the true one. At 128 the bf16 route's two
 // double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
 // memory, so that route keeps them in dynamic shared memory there
-// (`MmaTiles`, `launch_dyn`); the f32 route's tiles shrink to 32
-// rows there (`f32_tile`) and its per-thread arrays of 128 floats spill to
-// local memory: right, not fast (PERF.md gives the times).
+// (`MmaTiles`, `launch_dyn`).
 //
-// f32 (the FP32-pipe route). Tensor cores take no f32 input, and TF32 would
-// not hold f32 accuracy. One block of 128 threads takes 128 query rows, one
-// per thread, with q, the output accumulator and (m, l) in f32 registers,
-// and loops over key tiles of 64 staged in shared memory as f32 (every
-// thread reads the same key: broadcasts), in online-softmax chunks of 16
-// keys; it skips tiles and query blocks the mask rules out the same way.
+// f32 (the FP32-pipe route) up to head dim 64. Tensor cores take no f32
+// input, and TF32 would not hold f32 accuracy. One block of 128 threads
+// takes 128 query rows, one per thread, with q, the output accumulator and
+// (m, l) in f32 registers, and loops over key tiles of 64 staged in shared
+// memory as f32 (every thread reads the same key: broadcasts), in
+// online-softmax chunks of 16 keys; it skips tiles and query blocks the
+// mask rules out the same way.
+//
+// f32 at head dim 128 and every head dim above 128 (both input types): the
+// wide FP32-pipe route (`attn_fwd_kernel_wide`, flash_attn_common.cuh
+// `kWideRows`). A block owns 32 query rows and one chunk of 128 columns of
+// O (grid z = ceil(D / 128)); a row is held by 4 threads, 32 columns each,
+// so that no thread keeps a full-width row (one row a thread spilled 440
+// bytes at 128): lane i of each of the four warps, warp w holding columns
+// [32 w, 32 w + 32) of the chunk. Key tiles of 16 are staged as f32 one
+// column chunk at a time: S is summed over every chunk of K (the four
+// warps' parts through shared memory in a fixed order, `wide_reduce`), then the online softmax takes the tile and the V chunk of the
+// block's columns is staged for P~ V. Above 128 this recomputes S once per
+// column chunk (ceil(D / 128) times), the price of holding any head dim in
+// fixed registers; the head dim is a run-time argument, so any head dim
+// runs unpadded. LSE is written by the blocks of chunk 0.
+//
+// The wrapper names each launch's design (ops/flash_attention.py `design`,
+// the `Design` codes of flash_attn_common.cuh); the entry point runs it, or
+// returns cudaErrorInvalidValue where this source has no instance of it.
 
 #include "flash_attn_common.cuh"
 
@@ -471,17 +488,119 @@ __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
       l > 0.f ? (m + log2f(l)) * kLn2 : kNegInf;
 }
 
-// The instance a launch runs and its dynamic shared bytes (bf16 route).
+// The wide route (see the header note): 32 query rows a block (a row a
+// lane), one chunk of 128 columns of O (grid z), 32 columns a warp.
+template <typename T>
+__global__ void __launch_bounds__(128) attn_fwd_kernel_wide(const Params p, const int D) {
+  __shared__ __align__(16) float tile[kWideTile][kWideChunk];  // K chunks, then V chunk z
+  __shared__ float red_s[kWideSplit][kWideTile][kWideRows];
+  __shared__ int32_t segs[kWideTile];
+
+  const int nc = gridDim.z;
+  const int z = blockIdx.z;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int row = blockIdx.y * kWideRows + (threadIdx.x & 31);
+  const bool in_range = row < p.L;
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const int32_t sq = in_range ? seg_b[row] : 0;
+  const int32_t sq_match = sq != 0 ? sq : -1;  // a pad row attends nothing
+  const T* qrow = sq != 0 ? static_cast<const T*>(p.q) + b * p.q_sb + row * p.q_sl + h * p.q_sh
+                          : nullptr;
+
+  float qr[kWideCols], acc[kWideCols];
+#pragma unroll
+  for (int i = 0; i < kWideCols; ++i) acc[i] = 0.f;
+  if (nc == 1) load_wide(qr, qrow, 0, D);
+  float m = kNegInf;  // running max of the log2-scaled logits
+  float l = 0.f;      // running sum of undropped probabilities
+
+  int k_first, k_last;
+  other_axis_range(seg_b, p.L, threadIdx.x < kWideRows ? sq : 0, &k_first, &k_last);
+  const int kend = k_last + 1;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  for (int s0 = k_first; s0 < kend; s0 += kWideTile) {
+    const int i = threadIdx.x;
+    if (i < kWideTile) segs[i] = s0 + i < kend ? seg_b[s0 + i] : 0;
+    __syncthreads();
+    bool mine = false;
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) mine |= segs[j] == sq_match;
+    if (!__syncthreads_or(mine)) continue;  // no allowed pair in the block
+    float sc[kWideTile];
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) sc[j] = 0.f;
+    for (int chunk = 0; chunk < nc; ++chunk) {
+      if (chunk > 0) __syncthreads();  // the previous chunk is read
+      stage_wide(tile, kp, p.k_sl, s0, kend, chunk, D);
+      if (nc > 1) load_wide(qr, qrow, chunk, D);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kWideTile; ++j) sc[j] += wide_dot(qr, tile[j]);
+    }
+    wide_reduce(sc, red_s);  // syncs: K is read, the tile takes V
+    stage_wide(tile, vp, p.v_sl, s0, kend, z, D);
+    // log2-scaled logits on allowed pairs, -1e30 elsewhere; the tile's max
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) {
+      sc[j] = segs[j] == sq_match ? sc[j] * p.scale_log2 : kNegInf;
+      m_new = fmaxf(m_new, sc[j]);
+    }
+    __syncthreads();
+    if (m_new > m) {
+      const float alpha = exp2f(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < kWideCols; ++i) acc[i] *= alpha;
+      m = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kWideTile; ++j) {
+      if (segs[j] != sq_match) continue;
+      float pj = exp2f(sc[j] - m);
+      l += pj;
+      if (p.dropout) {
+        const uint32_t hv = hash_u32(p.seed, static_cast<uint32_t>(bh) + p.bh_offset,
+                                     static_cast<uint32_t>(row),
+                                     static_cast<uint32_t>(s0 + j));
+        pj = hv >= p.keep_thresh ? pj * p.keep_scale : 0.f;
+      }
+      wide_axpy(acc, pj, tile[j]);
+    }
+    __syncthreads();  // the tile is restaged by the next iteration
+  }
+
+  if (!in_range) return;
+  const float inv = l > 0.f ? 1.f / l : 0.f;  // pad rows: exact zeros
+  store_wide(static_cast<T*>(p.o) + ((static_cast<int64_t>(b) * p.L + row) * p.H + h) * D,
+             acc, z, D, inv);
+  if (z == 0 && threadIdx.x < kWideRows)
+    p.lse[static_cast<int64_t>(bh) * p.L + row] = l > 0.f ? (m + log2f(l)) * kLn2 : kNegInf;
+}
+
+// The instance of `design` at (head dim D, dropout), nullptr where this
+// source has none; the wide route is `wide_kernel`.
 template <int D>
-const void* kernel_of(int is_bf16, int dropout) {
-  if (!is_bf16) return reinterpret_cast<const void*>(attn_fwd_kernel_f32<D>);
-  return dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, true>)
-                 : reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, false>);
+const void* kernel_of(int design, int dropout) {
+  if (design == kDesignMma)
+    return dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, true>)
+                   : reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, false>);
+  if constexpr (D < 128)
+    if (design == kDesignF32) return reinterpret_cast<const void*>(attn_fwd_kernel_f32<D>);
+  return nullptr;
+}
+const void* wide_kernel(int is_bf16) {
+  return is_bf16 ? reinterpret_cast<const void*>(attn_fwd_kernel_wide<bf16>)
+                 : reinterpret_cast<const void*>(attn_fwd_kernel_wide<float>);
 }
 
 template <int D>
-void launch(const Params& p, int is_bf16, cudaStream_t stream) {
-  if (is_bf16) {
+int launch(const Params& p, int design, cudaStream_t stream) {
+  if (kernel_of<D>(design, p.dropout) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kDesignMma) {
     const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
                     rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
@@ -490,17 +609,25 @@ void launch(const Params& p, int is_bf16, cudaStream_t stream) {
       launch_dyn(attn_fwd_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
     else
       launch_dyn(attn_fwd_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
-  } else {
+  } else if constexpr (D < 128) {
     const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
     attn_fwd_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_d(int head_dim, const Params& p, int is_bf16, cudaStream_t stream) {
-  return with_head_dim(head_dim, [&](auto d) {
-    launch<decltype(d)::value>(p, is_bf16, stream);
+int dispatch_d(int head_dim, int is_bf16, int design, const Params& p, cudaStream_t stream) {
+  if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kDesignWide) {
+    const dim3 grid(p.B * p.H, (p.L + kWideRows - 1) / kWideRows, wide_chunks(head_dim));
+    if (is_bf16)
+      attn_fwd_kernel_wide<bf16><<<grid, 128, 0, stream>>>(p, head_dim);
+    else
+      attn_fwd_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
-  });
+  }
+  return with_head_dim(head_dim,
+                       [&](auto d) { return launch<decltype(d)::value>(p, design, stream); });
 }
 
 }  // namespace
@@ -513,7 +640,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               int64_t k_sb, int64_t k_sl, int64_t k_sh,
                               int64_t v_sb, int64_t v_sl, int64_t v_sh,
                               int B, int L, int H, int head_dim, int is_bf16,
-                              float scale, int dropout, uint32_t seed,
+                              int design, float scale, int dropout, uint32_t seed,
                               uint32_t keep_thresh, float keep_scale,
                               uint32_t bh_offset, void* stream) {
   Params p;
@@ -535,17 +662,22 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   p.keep_thresh = keep_thresh;
   p.keep_scale = keep_scale;
   p.bh_offset = bh_offset;
-  return dispatch_d(head_dim, p, is_bf16, static_cast<cudaStream_t>(stream));
+  return dispatch_d(head_dim, is_bf16, design, p, static_cast<cudaStream_t>(stream));
 }
 
-// The resources of the instance a launch at (head_dim, is_bf16, dropout)
-// runs: out[4] = static shared bytes, dynamic shared bytes, registers a
-// thread, local (spilled) bytes a thread. Returns a cudaError_t.
-extern "C" int flash_attn_fwd_attrs(int head_dim, int is_bf16, int dropout,
+// The resources of the instance of `design` a launch at (head_dim,
+// is_bf16, dropout) runs: out[4] = static shared bytes, dynamic shared
+// bytes, registers a thread, local (spilled) bytes a thread. Returns a
+// cudaError_t.
+extern "C" int flash_attn_fwd_attrs(int head_dim, int is_bf16, int design, int dropout,
                                     int* out) {
+  if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (design == kDesignWide) return func_attrs(wide_kernel(is_bf16), 0, out);
   return with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    return func_attrs(kernel_of<D>(is_bf16, dropout),
-                      is_bf16 ? static_cast<int>(mma_dyn_smem<mma_ld(D)>()) : 0, out);
+    const void* fn = kernel_of<D>(design, dropout);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return func_attrs(fn, design == kDesignMma ? static_cast<int>(mma_dyn_smem<mma_ld(D)>()) : 0,
+                      out);
   });
 }

@@ -19,9 +19,11 @@ its design and what bounds it on an H100.
   :func:`flash_attention_bwd_reference`. Nothing falls back.
 - :data:`LAUNCHES` counts launches per kernel, so a run can show that its
   path went through each of them.
-- The kernels have instances at the head dims :data:`HEAD_DIMS` (4 to 128);
-  the wrappers run any other head dim up to 128 through the next instance,
-  zero-padded (:func:`pad_head_dim`). Above 128 every route raises.
+- Every head dim runs in the kernels. They have instances at the head dims
+  :data:`HEAD_DIMS` (4 to 128), and the wrappers run any other head dim up
+  to 128 through the next instance, zero-padded (:func:`pad_head_dim`);
+  every head dim above 128 runs unpadded in the kernels' wide route, which
+  takes the head dim at run time (so does f32 at 128).
 - :func:`bound` and :func:`bound_bwd` give the least time the card could
   take for a kernel's work on given inputs (``chip_smoke.py`` and
   ``tools/flash_ab.py`` print it beside the kernel's time).
@@ -48,6 +50,7 @@ from ..utils.card import HBM_BYTES_S, PEAK_FLOPS, SFU_PER_SM_CLK, nvidia_smi
 
 NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # the kernels' instances (csrc: with_head_dim)
+DESIGNS = ("mma", "wgmma", "f32", "wide")   # csrc: Design, in this order
 _U32 = 0xFFFFFFFF
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -236,9 +239,9 @@ class _BwdParams(ctypes.Structure):
 
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_BWD_ARGTYPES = [ctypes.POINTER(_BwdParams), _I32, _I32, _PTR]
+_BWD_ARGTYPES = [ctypes.POINTER(_BwdParams), _I32, _I32, _I32, _PTR]
 _ARGTYPES = {
-    "flash_attn_fwd": ([_PTR] * 6 + [_I64] * 9 + [_I32] * 5
+    "flash_attn_fwd": ([_PTR] * 6 + [_I64] * 9 + [_I32] * 6
                        + [ctypes.c_float, _I32, ctypes.c_uint32,
                           ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32, _PTR]),
     "flash_attn_bwd_dq": _BWD_ARGTYPES,
@@ -299,14 +302,17 @@ def _kernel(name: str):
 def kernel_attrs(name: str, head_dim: int, dtype: torch.dtype,
                  dropout: bool) -> Dict[str, int]:
     """The resources of the instance of kernel ``name`` that a launch at
-    (head dim, dtype, dropout) runs, as ``cudaFuncGetAttributes`` reports them: static and
-    dynamic shared bytes, registers a thread, local (spilled) bytes a
-    thread. Needs the card."""
+    (head dim, dtype, dropout) runs (its :func:`design` at
+    :func:`padded_head_dim`), as ``cudaFuncGetAttributes`` reports them:
+    static and dynamic shared bytes, registers a thread, local (spilled)
+    bytes a thread. Needs the card."""
     fn = getattr(ctypes.CDLL(str(build()[name])), f"{name}_attrs")
-    fn.argtypes = [_I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [_I32, _I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)]
     fn.restype = _I32
     out = (ctypes.c_int * len(_ATTRS))()
-    err = fn(int(head_dim), int(dtype == torch.bfloat16), int(dropout), out)
+    d = padded_head_dim(head_dim)
+    err = fn(d, int(dtype == torch.bfloat16), DESIGNS.index(design(name, d, dtype)),
+             int(dropout), out)
     if err != 0:
         raise RuntimeError(f"{name}_attrs failed: CUDA error {err}")
     return dict(zip(_ATTRS, out))
@@ -325,15 +331,29 @@ def build_seconds() -> Dict[str, float]:
 # ---------------------------------------------------------------------------
 
 def padded_head_dim(d: int) -> int:
-    """The kernel instance head dim ``d`` runs at: the least of
-    :data:`HEAD_DIMS` at or above it. Above the largest it raises, on the
-    CPU as on the card (``ROADMAP.md`` §C: the JAX package runs any head
-    dim)."""
-    for inst in HEAD_DIMS:
-        if d <= inst:
-            return inst
-    raise ValueError(f"head dim {d} is above {HEAD_DIMS[-1]}, the largest the "
-                     "flash-attention kernels take")
+    """The head dim that head dim ``d`` runs at in the kernels: up to 128
+    the least of :data:`HEAD_DIMS` at or above it; above 128 ``d`` itself
+    (the wide route takes any head dim)."""
+    if d > HEAD_DIMS[-1]:
+        return d
+    return next(inst for inst in HEAD_DIMS if d <= inst)
+
+
+def design(name: str, head_dim: int, dtype: torch.dtype) -> str:
+    """The design kernel ``name`` runs at (head dim, input type): the one
+    place a launch's design is chosen. The launchers pass it to the C entry
+    points, which run it or refuse it (each source's header note): "mma"
+    (bf16 at head dims up to 32, and the forward at 64 and 128: warp-level
+    mma.sync), "wgmma" (the bf16 backward at 64 and 128), "f32" (f32 up to
+    64: the FP32 pipe, a row a thread) or "wide" (f32 at 128 and every head
+    dim above 128: the FP32 pipe, a row a lane, four warps of 32 columns
+    each to a chunk of 128 output columns)."""
+    d = padded_head_dim(head_dim)
+    if d > HEAD_DIMS[-1] or (d == HEAD_DIMS[-1] and dtype != torch.bfloat16):
+        return "wide"
+    if dtype != torch.bfloat16:
+        return "f32"
+    return "wgmma" if d >= 64 and name != "flash_attn_fwd" else "mma"
 
 
 def pad_head_dim(kernel: Callable, *args: torch.Tensor, **kwargs):
@@ -364,7 +384,8 @@ def _check(q, k, v, seg):
             or v.dtype != q.dtype:
         raise TypeError("q, k, v must all be float32 or all bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    padded_head_dim(d)
+    if d < 1:
+        raise ValueError(f"head dim {d} is not positive")
     if seg.shape != (b, l) or seg.dtype != torch.int32:
         raise ValueError(f"seg must be int32 [{b}, {l}], got {seg.dtype} "
                          f"{tuple(seg.shape)}")
@@ -390,12 +411,20 @@ def _check_cuda(q, k, v, seg):
     if not seg.is_contiguous():
         raise ValueError("seg must be contiguous")
     b, l, h, _ = q.shape
-    if b * h >= 2**31 or -(-l // 64) > 65535:   # grid (B*H, row tiles of 64 or 128)
+    if b * h >= 2**31 or -(-l // 32) > 65535:   # grid (B*H, row tiles of 32 to 128)
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
+def _design_code(name: str, q: torch.Tensor, force: Optional[str]) -> int:
+    """The C entry points' code of :func:`design` at ``q``'s head dim and
+    type, or of the design ``force`` names (``chip_smoke.py`` times the
+    wide route against the f32 design with it)."""
+    return DESIGNS.index(force or design(name, q.shape[-1], q.dtype))
+
+
 def _launch_fwd(q, k, v, seg, *, p_drop: float, seed: int, bh_offset: int,
-                scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                scale: float, force: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel at an instance head dim."""
     b, l, h, d = q.shape
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -411,8 +440,9 @@ def _launch_fwd(q, k, v, seg, *, p_drop: float, seed: int, bh_offset: int,
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
                  b, l, h, d, int(q.dtype == torch.bfloat16),
-                 scale, int(p_drop > 0.0), _seed_u32(seed),
-                 _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), bh_offset, stream)
+                 _design_code("flash_attn_fwd", q, force), scale, int(p_drop > 0.0),
+                 _seed_u32(seed), _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), bh_offset,
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
     LAUNCHES["flash_attn_fwd"] += 1
@@ -442,7 +472,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
-                p_drop: float, seed: int, bh_offset: int, scale: float) -> None:
+                p_drop: float, seed: int, bh_offset: int, scale: float,
+                force: Optional[str]) -> None:
     """Fill ``flash::BwdParams`` and launch backward kernel ``name``."""
     _check_cuda(q, k, v, seg)
     b, l, h, d = q.shape
@@ -474,31 +505,35 @@ def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,
     fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(ctypes.byref(params), d, int(q.dtype == torch.bfloat16), stream)
+        err = fn(ctypes.byref(params), d, int(q.dtype == torch.bfloat16),
+                 _design_code(name, q, force), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
 
 
-def _launch_dq(q, k, v, seg, o, lse, do, *, p_drop, seed, bh_offset, scale):
+def _launch_dq(q, k, v, seg, o, lse, do, *, p_drop, seed, bh_offset, scale, force=None):
     """(dQ, delta) from the dQ kernel at an instance head dim."""
     b, l, h, d = q.shape
     dq = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     if dq.numel():
         _launch_bwd("flash_attn_bwd_dq", q, k, v, seg, o, lse, do, delta,
-                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed, bh_offset, scale)
+                    {"dq": dq, "dk": None, "dv": None}, p_drop, seed, bh_offset, scale,
+                    force)
     return dq, delta
 
 
-def _launch_dkv(q, k, v, seg, o, lse, do, delta, *, p_drop, seed, bh_offset, scale):
+def _launch_dkv(q, k, v, seg, o, lse, do, delta, *, p_drop, seed, bh_offset, scale,
+                force=None):
     """(dK, dV) from the dK/dV kernel at an instance head dim."""
     b, l, h, d = q.shape
     dk = torch.empty((b, l, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, l, h, d), dtype=v.dtype, device=q.device)
     if dk.numel():
         _launch_bwd("flash_attn_bwd_dkv", q, k, v, seg, o, lse, do, delta,
-                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed, bh_offset, scale)
+                    {"dq": None, "dk": dk, "dv": dv}, p_drop, seed, bh_offset, scale,
+                    force)
     return dk, dv
 
 

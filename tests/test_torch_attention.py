@@ -111,9 +111,12 @@ def test_wrapper_cpu_route_and_checks():
     assert fa.LAUNCHES == before          # no kernel launched on the CPU
     o2 = fa.flash_attention(q, k, v, key_mask=seg.bool())
     assert torch.equal(o2, o)
-    wide = torch.zeros(2, 70, 4, 136)      # head dims above 128 have no instance
+    wide = torch.from_numpy(_qkv((2, 70, 4, 136), seed=4)[0])   # above 128: runs unpadded
+    assert torch.equal(fa.flash_attention_fwd(wide, wide, wide, seg)[0],
+                       fa.flash_attention_reference(wide, wide, wide, seg)[0])
+    empty = torch.zeros(2, 70, 4, 0)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_fwd(wide, wide, wide, seg)
+        fa.flash_attention_fwd(empty, empty, empty, seg)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), v.half(), seg)
     with pytest.raises(ValueError, match="seg"):

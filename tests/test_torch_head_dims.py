@@ -1,16 +1,20 @@
 """Head dims the JAX package runs: the port's attention takes every head dim
-up to 128 (kernel instances at 4, 8, 16, 32, 64 and 128; any other head dim
-zero-padded to the next instance) and refuses what is above 128.
+(kernel instances at 4, 8, 16, 32, 64 and 128, any other head dim up to 128
+zero-padded to the next instance, every head dim above 128 unpadded in the
+kernels' wide route).
 
 - The port's ``SimpleTransformer`` against the flax one at head dims 12,
-  24 and 128 (weights through ``convert.py``, f32, one layer, L = 16):
-  logits within 1e-5, as ``tests/test_torch_transformer.py`` holds them
-  (the two sides differ only in summation order), and the gradients of a
-  loss within 1e-5 of each leaf's largest gradient.
+  24, 128, 160 and 256 (weights through ``convert.py``, f32, one layer,
+  L = 16; the flax side on its XLA path): logits within 1e-5, as
+  ``tests/test_torch_transformer.py`` holds them (the two sides differ only
+  in summation order), and the gradients of a loss within 1e-5 of each
+  leaf's largest gradient.
 - ``pad_head_dim`` with the plain version in place of the kernel: O, LSE,
   dQ, dK and dV equal the unpadded plain version's within 1e-5 absolute at
   head dims 12 and 100 with dropout on (the padded einsums sum zeros in
-  another order: measured 5e-7).
+  another order: measured 5e-7), and at 160 and 320, which pass unpadded.
+- Head dims 129-512 run at themselves in the wide route, on both input
+  types, in the three kernels.
 - On the card (``cuda`` marker, skipped here): the kernels at padded head
   dims against their plain version, with the tolerances of
   ``tests/test_torch_attention_bwd.py``.
@@ -46,8 +50,9 @@ def _batch(seed):
     return ids, mask, labels
 
 
-@pytest.mark.parametrize("d_model,nhead", [(48, 4), (48, 2), (256, 2)],
-                         ids=["head_dim_12", "head_dim_24", "head_dim_128"])
+@pytest.mark.parametrize("d_model,nhead", [(48, 4), (48, 2), (256, 2), (160, 1), (512, 2)],
+                         ids=["head_dim_12", "head_dim_24", "head_dim_128", "head_dim_160",
+                              "head_dim_256"])
 def test_transformer_matches_flax_at_head_dim(d_model, nhead):
     # flax is imported here: the card's machine runs this file's cuda tests
     # without it
@@ -104,7 +109,7 @@ def _inputs(d, seed, b=2, l=40, h=3):
     return q, k, v, do, torch.from_numpy(seg)
 
 
-@pytest.mark.parametrize("d", [12, 100])
+@pytest.mark.parametrize("d", [12, 100, 160, 320])
 def test_padding_wrapper_equals_unpadded_plain_version(d):
     q, k, v, do, seg = _inputs(d, seed=d)
     kw = dict(p_drop=0.1, seed=7, bh_offset=2)
@@ -127,13 +132,26 @@ def test_padded_head_dim_is_the_next_instance(d, inst):
     assert fa.padded_head_dim(d) == inst
 
 
-def test_head_dims_above_128_raise():
-    q, k, v, _, seg = _inputs(136, seed=1)
-    with pytest.raises(ValueError, match="above 128"):
-        fa.flash_attention_fwd(q, k, v, seg)
-    with pytest.raises(ValueError, match="above 128"):
-        SimpleTransformer(**_kwargs(272, 2)).eval()(
-            torch.ones(1, 4, dtype=torch.long), torch.ones(1, 4, dtype=torch.bool))
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
+
+
+@pytest.mark.parametrize("d", [129, 130, 136, 144, 160, 192, 200, 255, 256, 257, 320, 384,
+                               448, 511, 512])
+def test_head_dims_above_128_run_unpadded_in_the_wide_route(d):
+    assert fa.padded_head_dim(d) == d
+    for name in KERNELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert fa.design(name, d, dtype) == "wide"
+
+
+@pytest.mark.parametrize("d,dtype,designs", [
+    (16, torch.bfloat16, ("mma", "mma", "mma")),
+    (64, torch.bfloat16, ("mma", "wgmma", "wgmma")),
+    (100, torch.bfloat16, ("mma", "wgmma", "wgmma")),
+    (64, torch.float32, ("f32", "f32", "f32")),
+    (128, torch.float32, ("wide", "wide", "wide"))])
+def test_design_by_head_dim_and_type(d, dtype, designs):
+    assert tuple(fa.design(name, d, dtype) for name in KERNELS) == designs
 
 
 @pytest.mark.cuda
