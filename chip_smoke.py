@@ -10,16 +10,18 @@ Phases; any failure exits non-zero before the last line is printed:
 2. Build the three flash-attention kernels (forward, dQ, dK/dV) from
    ``glearning_benchmark_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
    compiler per source, side by side; each library's SASS must hold HMMA
-   (mma.sync) instructions, and the two backward libraries' HGMMA (wgmma)
-   ones.
+   (mma.sync) and HGMMA (wgmma) instructions.
 3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
    p = 0.1 (the ``use_flash`` rate). The keep pattern is read back from the
    kernel at 0.1 and at 26/256, the rate the training path hands the kernels
    (``train_rate``: the JAX package's quantised XLA rate), through the f32
-   route and the bf16 tensor-core route at head dims 64, 16 and 4, and must
-   equal the plain version's bit for bit. Then the served shapes as the model
+   route, the bf16 tensor-core routes at head dims 64, 128 and 256
+   (wgmma) and 16 and 4 (mma.sync), views TMA cannot read (mma.sync at 64
+   and 128, the wide route at 256) and the bf16 wide route at 320, and
+   must equal the plain version's bit for bit. Every forward held to its plain version also runs twice and
+   must give the same O and LSE bits. Then the served shapes as the model
    builds them: q, k, v as strided views of one fused qkv output, with the
    key masks of the served stand-in ZINC ``val`` rows, at [512, 1024, 4, 16]
    (AGTT-ZINC, the largest request bucket) and [256, 1024, 4, 4]
@@ -143,20 +145,26 @@ Phases; any failure exits non-zero before the last line is printed:
    seconds an epoch are printed beside the card. On four cards or more the
    ranks run over NCCL, a card each, and a four-rank run of data 2 x model
    2 (agtt_zinc width, f32) is held to one process the same way.
-11. The tools. Every instance of the three kernels (each head dim with an
-   instance and the wide route, bf16 and f32, with and without dropout):
+11. The tools. Every instance of the three kernels that the launchers can
+   choose (each head dim with an instance, the forward's wgmma instance at
+   256 and the wide route, bf16 and f32, views TMA can and cannot read,
+   with and without dropout):
    its design, shared memory, registers and spills as
    ``cudaFuncGetAttributes`` reports them; a redesigned instance (the
-   backward's wgmma ones, the wide route) must spill nothing. At the
-   mfu_bench rows [64, 1024, 8, D] with packed segments at p 26/256: head
-   dims 128 and 64 (bf16: the forward's mma.sync, the backward's wgmma;
-   f32: the wide route at 128, the f32 design at 64), a head dim between
-   instances (12, zero-padded to 16) and the wide route above 128 (256;
-   160, a chunk and a part), bf16 and f32 (16 batch rows for f32 above
-   128); the bf16 backward on the dense mfu rows (every token valid) at
-   128 and 64, and at flash_ab's xl [4, 4096, 8, 64] with its ragged key
-   mask. Each row is held to the plain versions (the tolerances of phases
-   3-4) and its inputs then timed beside the plain versions and SDPA. The
+   wgmma ones, the wide route) must spill nothing. At the mfu_bench rows
+   [64, 1024, 8, D] with packed segments at p 26/256: head dims 128 and 64
+   (bf16: wgmma; f32: the wide route at 128, the f32 design at 64), a head
+   dim between instances (12, zero-padded to 16) and above 128 (256; 160,
+   the bf16 forward's wgmma instance at 256 zero-padded, and the wide
+   route, a chunk and a part), bf16 and f32 (16 batch rows for f32 above
+   128); the bf16 kernels on the dense mfu rows (every token valid) at 128
+   and 64, and at flash_ab's xl [4, 4096, 8, 64] with its ragged key mask;
+   bf16 above the forward's wgmma instance (320, 16 batch rows: the wide
+   route). Each row is held to the plain versions (the tolerances of phases
+   3-4) and its inputs then timed beside the plain versions and SDPA.
+   Views TMA cannot read (an odd element offset) run the forward's mma.sync
+   design at 64 and 128 and the wide route at 256, are counted, held to the
+   plain version and timed. The
    f32 design against the wide route on the same f32 inputs (agtt-zinc
    packed train rows at head dim 16, packed mfu rows at 64): outputs held
    together, each kernel timed under both. Then
@@ -347,7 +355,7 @@ def sdpa_flags() -> str:
 def tensor_core_sass(fa) -> None:
     """The kernels' bf16 route runs on the tensor cores: every kernel
     library's machine code (``cuobjdump -sass``) holds HMMA (mma.sync)
-    instructions, and the two backward libraries HGMMA (wgmma) ones too."""
+    instructions and HGMMA (wgmma) ones."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.isfile(tool):
         raise AssertionError("cuobjdump not found: the tensor-core instructions cannot be checked")
@@ -359,7 +367,7 @@ def tensor_core_sass(fa) -> None:
         log(f"[build] {name}: {hmma} HMMA and {hgmma} HGMMA instructions in its SASS")
         if hmma == 0:
             raise AssertionError(f"{name}: no tensor-core (HMMA) instruction in its SASS")
-        if name != "flash_attn_fwd" and hgmma == 0:
+        if hgmma == 0:
             raise AssertionError(f"{name}: no wgmma (HGMMA) instruction in its SASS")
 
 
@@ -394,7 +402,10 @@ def qkv_views(shape, dtype, gen: torch.Generator) -> tuple:
 
 def compare(name, fa, q, k, v, seg, p_drop=0.0, seed=0, chunk=64, bh_offset=0):
     o, lse = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed, bh_offset)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, seg, p_drop, seed, bh_offset)
     torch.cuda.synchronize()
+    same_bits = torch.equal(o, o2) and torch.equal(lse, lse2)
+    del o2, lse2
     # the plain version is dense in L^2: run it on `chunk` rows at a time,
     # each chunk at its own place in the batch*head index space
     h = q.shape[2]
@@ -414,20 +425,32 @@ def compare(name, fa, q, k, v, seg, p_drop=0.0, seed=0, chunk=64, bh_offset=0):
     pad = seg == 0
     ok_pad = bool((o[pad] == 0).all())
     layout = "contiguous" if q.is_contiguous() else f"strides {list(q.stride())}"
+    design = fa.design("flash_attn_fwd", q.shape[-1], q.dtype, fa.tma_ok(q, k, v))
     log(f"[kernel] {name}: shape {list(q.shape)} {str(q.dtype)[6:]} {layout} "
-        f"p_drop {p_drop} bh_offset {bh_offset}: max|dO| {err.max().item():.3e} "
+        f"({design}) p_drop {p_drop} bh_offset {bh_offset}: max|dO| {err.max().item():.3e} "
         f"(rtol {O_RTOL[q.dtype]:g}), max|dLSE| {err_lse:.3e} "
-        f"(atol {LSE_ATOL:g}), pad rows zero {ok_pad}")
-    if not (ok_o and err_lse <= LSE_ATOL and ok_pad):
+        f"(atol {LSE_ATOL:g}), pad rows zero {ok_pad}, O/LSE bits equal on a second run "
+        f"{same_bits}")
+    if not (ok_o and err_lse <= LSE_ATOL and ok_pad and same_bits):
         raise AssertionError(f"kernel disagrees with its plain version: {name}")
     return max(err.max().item(), err_lse)
 
 
+def off_grid(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one element past a 16-byte boundary: TMA
+    cannot read it (``tma_ok``), so the forward runs another design."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
 def dropout_pattern(fa, seed: int, p_drop: float) -> None:
-    """Read the kernel's keep pattern back, through the f32 route and the
-    bf16 tensor-core route: with q = k = 0 every allowed key gets p = 1, and
-    a one-hot v maps key j to output column j - D w of window w; so O > 0
-    exactly where (row, key) is kept. L = 300 ends in a partial key tile."""
+    """Read the kernel's keep pattern back, through the f32 route, the bf16
+    tensor-core routes (wgmma at 64, 128 and 256, mma.sync at 16 and 4),
+    views TMA cannot read (mma.sync at 64 and 128, the wide route at 256)
+    and the bf16 wide route above 256 (320): with q = k = 0 every allowed
+    key gets p = 1, and a one-hot v maps key j to output column j - D w of
+    window w; so O > 0 exactly where (row, key) is kept. L = 300 ends in a
+    partial key tile."""
     b, l, h = 2, 300, 2
     seg = torch.ones(b, l, dtype=torch.int32, device="cuda")
     seg[1, 200:] = 0
@@ -435,24 +458,33 @@ def dropout_pattern(fa, seed: int, p_drop: float) -> None:
                                     device="cuda").view(b, h, l, l)
     allowed = ((seg[:, None, :, None] != 0)
                & (seg[:, None, None, :] != 0)).expand(b, h, l, l)
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 64),
-                     (torch.bfloat16, 16), (torch.bfloat16, 4)):
-        zeros = torch.zeros(b, l, h, d, device="cuda", dtype=dtype)
+    bf16 = torch.bfloat16
+    for dtype, d, design, place in (
+            (torch.float32, 64, "f32", torch.clone), (bf16, 64, "wgmma", torch.clone),
+            (bf16, 128, "wgmma", torch.clone), (bf16, 256, "wgmma", torch.clone),
+            (bf16, 16, "mma", torch.clone), (bf16, 4, "mma", torch.clone),
+            (bf16, 64, "mma", off_grid), (bf16, 128, "mma", off_grid),
+            (bf16, 256, "wide", off_grid), (bf16, 320, "wide", torch.clone)):
+        zeros = place(torch.zeros(b, l, h, d, device="cuda", dtype=dtype))
         eye = torch.eye(d, device="cuda", dtype=dtype)[:, None, :]
         kept = torch.zeros(b, h, l, l, dtype=torch.bool, device="cuda")
         for j0 in range(0, l, d):
             n = min(d, l - j0)
-            v = torch.zeros_like(zeros)
+            v = torch.zeros(b, l, h, d, device="cuda", dtype=dtype)
             v[:, j0:j0 + n] = eye[:n]
+            v = place(v)
+            if fa.design("flash_attn_fwd", d, dtype, fa.tma_ok(zeros, zeros, v)) != design:
+                raise AssertionError(f"keep pattern {dtype} D {d}: not the {design} design")
             o, _ = fa.flash_attention_fwd(zeros, zeros, v, seg, p_drop, seed)
             kept[..., j0:j0 + n] = (o[..., :n] > 0).permute(0, 2, 1, 3)
         torch.cuda.synchronize()
         same = torch.equal(kept, ref & allowed)
-        log(f"[kernel] dropout keep pattern {str(dtype)[6:]} D {d} (seed {seed}, "
-            f"p {p_drop}) equals the plain version's: {same} "
+        where = "" if place is torch.clone else ", a view off the 16-byte grid"
+        log(f"[kernel] dropout keep pattern {str(dtype)[6:]} D {d} ({design}{where}) "
+            f"(seed {seed}, p {p_drop}) equals the plain version's: {same} "
             f"(kept share {kept[allowed].float().mean().item():.4f})")
         if not same:
-            raise AssertionError(f"kernel dropout keep pattern differs: {dtype} D {d}")
+            raise AssertionError(f"kernel dropout keep pattern differs: {dtype} D {d}{where}")
 
 
 def fmt_bound(bd: dict) -> str:
@@ -573,17 +605,11 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str,
               q, k, v, seg, o, lse, do, p_drop, seed), iters),
           "flash_attn_bwd_dkv": cuda_ms(lambda: fa.flash_attention_bwd_dkv(
               q, k, v, seg, o, lse, do, delta, p_drop, seed), iters)}
-    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, seed), iters)
-    fwd_plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seg, p_drop, seed),
-                           plain_iters)
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
         q, k, v, seg, o, lse, do, p_drop, seed), plain_iters)
     allow = ((seg[:, None, :, None] == seg[:, None, None, :])
              & (seg[:, None, None, :] != 0))
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    with torch.no_grad():
-        lib_fwd_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=allow), iters)
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow)
     dot = do.transpose(1, 2)
     def sdpa_bwd():
@@ -600,13 +626,30 @@ def time_bwd(fa, q, k, v, seg, do, p_drop: float, seed: int, label: str,
             f"{fmt_bound(bd)}")
         res[name] = {"ms": min(ms[name]), "plain_ms": min(plain_ms),
                      "library_ms": min(lib_ms), **bd}
+    del out, qt, kt, vt, allow
+    res["flash_attn_fwd"] = time_fwd(fa, q, k, v, seg, p_drop, seed, label, iters, plain_iters)
+    return res
+
+
+def time_fwd(fa, q, k, v, seg, p_drop: float, seed: int, label: str, iters: int,
+             plain_iters: int) -> dict:
+    """Times of the forward kernel, the plain forward and SDPA's forward
+    with the same boolean mask (no dropout), as in :func:`time_bwd`."""
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, seg, p_drop, seed), iters)
+    fwd_plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seg, p_drop, seed),
+                           plain_iters)
+    allow = ((seg[:, None, :, None] == seg[:, None, None, :])
+             & (seg[:, None, None, :] != 0))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allow), iters)
     bd = bound(q, seg)
     log(f"[kernel] time flash_attn_fwd {label} {list(q.shape)} {str(q.dtype)[6:]} p_drop "
         f"{p_drop}: kernel {fmt_ms(fwd_ms)}, plain {fmt_ms(fwd_plain_ms)}, sdpa forward "
         f"(same mask, no dropout) {fmt_ms(lib_fwd_ms)}, {fmt_bound(bd)}")
-    res["flash_attn_fwd"] = {"ms": min(fwd_ms), "plain_ms": min(fwd_plain_ms),
-                             "library_ms": min(lib_fwd_ms), **bd}
-    return res
+    return {"ms": min(fwd_ms), "plain_ms": min(fwd_plain_ms),
+            "library_ms": min(lib_fwd_ms), **bd}
 
 
 def bwd_breakdown(fa, seg_train: torch.Tensor, gen: torch.Generator, p: float) -> None:
@@ -1884,6 +1927,7 @@ def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
 MFU_SHAPE = (64, 1024, 8, 128)   # tools/mfu_bench.py's d_model 1024 rows: B, L, H, D
 PADDED_HEAD_DIM = 12
 WIDE_HEAD_DIMS = (256, 160)      # the wide route: a whole chunk, and one and a partial one
+ABOVE_WGMMA = 320                # bf16 above the forward's wgmma instance: the wide route
 WIDE_F32_ROWS = 16               # batch rows of the f32 checks above 128 (slow plain version)
 XL_SHAPE = (4, 4096, 8, 64)      # tools/flash_ab.py's xl
 MFU_STEPS = 4                    # the timed block (and a half block of 2)
@@ -1894,22 +1938,31 @@ SERVE_REPS = 3
 
 
 def instances(fa) -> dict:
-    """Every instance of the three kernels (the head dims with an instance
-    and the wide route, each input type, with and without dropout): its
-    design and its resources as ``cudaFuncGetAttributes`` reports them. A
-    redesigned instance (wgmma, wide) must spill nothing."""
+    """Every instance of the three kernels that ``fa.design`` can choose (the
+    head dims with an instance, the forward's wgmma instance at 256, the
+    wide route, each input type, views TMA can and cannot read, with and
+    without dropout, and the forward's wgmma instances of the short hash):
+    its design and its resources as ``cudaFuncGetAttributes`` reports them.
+    A redesigned instance (wgmma, wide) must spill nothing."""
     out = {}
     for name in fa.SOURCES:
-        for d in fa.HEAD_DIMS + (WIDE_HEAD_DIMS[0],):
+        for d in fa.HEAD_DIMS + (WIDE_HEAD_DIMS[0], ABOVE_WGMMA):
             for dtype in (torch.bfloat16, torch.float32):
-                for drop in (True, False):
-                    design = fa.design(name, d, dtype)
-                    key = (f"{name}_{design}_d{'>128' if d > 128 else d}"
-                           f"_{str(dtype)[6:]}" + ("_dropout" if drop else ""))
-                    attrs = fa.kernel_attrs(name, d, dtype, dropout=drop)
-                    out[key] = {"design": design, **attrs}
-                    if design in ("wgmma", "wide") and attrs["local_bytes"] != 0:
-                        raise AssertionError(f"{key}: {attrs['local_bytes']} B spilled a thread")
+                for tma in (True, False):
+                    design = fa.design(name, d, dtype, tma)
+                    forms = [(True, False), (False, False)]
+                    if name == "flash_attn_fwd" and design == "wgmma":
+                        forms.append((True, True))      # the short-hash instance
+                    for drop, short in forms:
+                        key = (f"{name}_{design}_d{'>128' if design == 'wide' and d > 128 else d}"
+                               f"_{str(dtype)[6:]}" + ("_dropout" if drop else "")
+                               + ("_short_hash" if short else ""))
+                        attrs = fa.kernel_attrs(name, d, dtype, dropout=drop, short_hash=short,
+                                                tma=tma)
+                        out[key] = {"design": design, **attrs}
+                        if design in ("wgmma", "wide") and attrs["local_bytes"] != 0:
+                            raise AssertionError(
+                                f"{key}: {attrs['local_bytes']} B spilled a thread")
     for key, a in out.items():
         if a["design"] in ("wgmma", "wide"):
             log(f"[kernel] {key}: {a['static_smem_bytes']} B static + "
@@ -1920,14 +1973,16 @@ def instances(fa) -> dict:
 
 def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> tuple:
     """The kernels at the mfu_bench rows with packed segments at the
-    training rate ``p``: head dims 128 and 64 (the forward's mma.sync and
-    the backward's wgmma instances in bf16; in f32 the wide route at 128,
-    the f32 design at 64), a padded head dim (12), and the wide route above
-    128 (256, 160), bf16 and f32; then the bf16 backward on the dense
+    training rate ``p``: head dims 128 and 64 (the wgmma instances in bf16;
+    in f32 the wide route at 128, the f32 design at 64), a padded head dim
+    (12), and above 128 (256, 160: the bf16 forward's wgmma instance at 256,
+    the wide route), bf16 and f32; then the bf16 kernels on the dense
     mfu_bench rows (every token valid: the step's own shape) at 128 and 64,
-    and at xl (flash_ab's ragged key mask). Every row is held to the plain
-    versions before the same inputs are timed. Returns (forward errors,
-    backward errors, timings by shape)."""
+    and at xl (flash_ab's ragged key mask); the bf16 wide route above the
+    forward's wgmma instance (320, packed, 16 batch rows); then views TMA
+    cannot read (the forward at 64, 128 and 256). Every row is held to the
+    plain versions before the same inputs are timed. Returns (forward
+    errors, backward errors, timings by shape)."""
     from glearning_benchmark_tpu_torch.tools.flash_ab import inputs
 
     b, l, h, d = MFU_SHAPE
@@ -1956,6 +2011,7 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
         args = (*qkv_views(shape, torch.bfloat16, gen), dense,
                 strided_do(shape, torch.bfloat16, gen))
         label = f"mfu dense rows d{dim} bfloat16"
+        errs.append(compare(label, fa, *args[:4], p_drop=p, seed=11, chunk=8))
         berrs.append(compare_bwd(label, fa, *args, p, 11, chunk=8))
         timing[f"mfu_dense_rows_d{dim}_bfloat16_p{p}"] = time_bwd(
             fa, *args, p, 11, label, iters=20, plain_iters=2)
@@ -1964,12 +2020,58 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
     q, k, v, seg_xl, _ = inputs(*XL_SHAPE, torch.device("cuda"))
     do = strided_do(XL_SHAPE, torch.bfloat16, gen)
     label = "xl (flash_ab's ragged key mask) bfloat16"
+    errs.append(compare(label, fa, q, k, v, seg_xl, p_drop=p, seed=11, chunk=1))
     berrs.append(compare_bwd(label, fa, q, k, v, seg_xl, do, p, 11, chunk=1))
     timing[f"xl_d{XL_SHAPE[3]}_bfloat16_p{p}"] = time_bwd(
         fa, q, k, v, seg_xl, do, p, 11, label, iters=10, plain_iters=2)
     del q, k, v, do
     torch.cuda.empty_cache()
+    shape = (WIDE_F32_ROWS, l, h, ABOVE_WGMMA)
+    seg_d = seg[:WIDE_F32_ROWS].contiguous()
+    q, k, v = qkv_views(shape, torch.bfloat16, gen)
+    do = strided_do(shape, torch.bfloat16, gen)
+    label = f"mfu rows d{ABOVE_WGMMA} bfloat16"
+    if fa.design("flash_attn_fwd", ABOVE_WGMMA, q.dtype, fa.tma_ok(q, k, v)) != "wide":
+        raise AssertionError(f"{label}: the forward does not take the wide route")
+    errs.append(compare(label, fa, q, k, v, seg_d, p_drop=p, seed=11, chunk=8))
+    berrs.append(compare_bwd(label, fa, q, k, v, seg_d, do, p, 11, chunk=8))
+    timing[f"mfu_rows_d{ABOVE_WGMMA}_B{WIDE_F32_ROWS}_bfloat16_p{p}"] = time_bwd(
+        fa, q, k, v, seg_d, do, p, 11, label, iters=5, plain_iters=2)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    for dim, design in ((64, "mma"), (d, "mma"), (WIDE_HEAD_DIMS[0], "wide")):
+        err, ms = tma_refused_view(fa, gen, seg[:8].contiguous(), dim, design, p)
+        errs.append(err)
+        timing[f"mfu_rows_d{dim}_B8_bfloat16_off_grid_p{p}"] = {"flash_attn_fwd": ms}
     return errs, berrs, timing
+
+
+def tma_refused_view(fa, gen: torch.Generator, seg: torch.Tensor, d: int, design: str,
+                     p: float) -> tuple:
+    """The forward's dispatch rule: q, k, v views one element off the
+    16-byte grid (TMA cannot read them) run ``design`` at head dim ``d``
+    (mma.sync at 64 and 128, the wide route at 256), are counted in
+    ``TMA_REFUSED``, are held to the plain version and then timed. Returns
+    (the error, the forward's times)."""
+    b, l = seg.shape
+    h = MFU_SHAPE[2]
+    flat = torch.randn(b * l * 3 * h * d + 1, device="cuda", generator=gen).bfloat16()
+    qkv = flat[1:].view(b, l, 3 * h * d)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    if fa.tma_ok(q, k, v) or fa.design("flash_attn_fwd", d, q.dtype, tma=False) != design:
+        raise AssertionError(f"an odd-offset view at head dim {d} does not take {design}")
+    label = f"mfu rows d{d} bfloat16, a view off the 16-byte grid ({design})"
+    before = fa.TMA_REFUSED["flash_attn_fwd"]
+    err = compare(label, fa, q, k, v, seg, p_drop=p, seed=11, chunk=8)
+    refused = fa.TMA_REFUSED["flash_attn_fwd"] - before
+    log(f"[kernel] forward dispatch: {refused} launches of a view TMA cannot read took the "
+        f"{design} design at head dim {d} (the rule, before the launch; counted in "
+        f"TMA_REFUSED)")
+    if refused != 2:    # compare's two runs
+        raise AssertionError(f"the unaligned view's launches were not counted: {refused}")
+    ms = time_fwd(fa, q, k, v, seg, p, 11, label, iters=5 if design == "wide" else 20,
+                  plain_iters=2)
+    return err, ms
 
 
 def f32_against_wide(fa, rows: dict, gen: torch.Generator, p: float) -> None:
@@ -2373,7 +2475,7 @@ def main() -> int:
             "by_shape": {rows: {key: bt[name][key] for key in keys} for rows, bt in (
                 (f"ibtt_train_rows_p{p_train}", ibtt_btiming),
                 *((rows, bt) for rows, bt in gtiming.items() if name in bt),
-                *htiming.items())},
+                *((rows, bt) for rows, bt in htiming.items() if name in bt))},
             "instances": {k: v for k, v in resources.items() if k.startswith(name + "_")}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -44,14 +44,27 @@ constexpr uint32_t kHashBh = 0x9E3779B1u;
 constexpr uint32_t kHashRow = 0x85EBCA77u;
 constexpr uint32_t kHashCol = 0xC2B2AE3Du;
 
-__device__ __forceinline__ uint32_t hash_finish(uint32_t seed, uint32_t key) {
+// triple32 up to its last step (x ^= x >> 16)
+__device__ __forceinline__ uint32_t hash_mix(uint32_t seed, uint32_t key) {
   uint32_t x = key + seed;
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
-  x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t hash_finish(uint32_t seed, uint32_t key) {
+  const uint32_t x = hash_mix(seed, key);
+  return x ^ (x >> 16);
+}
+
+// The keep decision hash_finish(seed, key) >= thresh. SHORT (thresh a
+// multiple of 2^16, as the training rate 26/256 gives): the last step leaves
+// the high 16 bits alone, so it cannot move the comparison and is skipped.
+template <bool SHORT>
+__device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t key, uint32_t thresh) {
+  return (SHORT ? hash_mix(seed, key) : hash_finish(seed, key)) >= thresh;
 }
 
 __device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t bh,

@@ -27,10 +27,19 @@
 // never the limit at head dims 4-64; at 128 on dense rows they come near the
 // exps.
 //
-// Design, bf16 (the tensor-core route). Nothing of the Pallas grid carries
-// over (a sequential key axis with VMEM carries, Z=8 folded batch*head
-// rows). One block of 4 warps owns 64 query rows of one batch*head, 16 a
-// warp: the M of mma.sync.m16n8k16 (bf16 in, f32 accumulate).
+// Four designs, by head dim and input type (ops/flash_attention.py `design`
+// names a launch's): bf16 at head dims 4-32 warp-level mma.sync (below);
+// bf16 at 64, 128 and 256 warpgroup wgmma fed by TMA (`attn_fwd_kernel_wgmma`,
+// further below; a view whose pointer or strides TMA cannot take runs the
+// mma.sync design at 64 and 128, the wide route at 256); f32 up to 64 the
+// FP32 pipe a row a thread; f32 at 128 and every head dim the others do not
+// take, the wide route.
+//
+// Design, bf16 at head dims 4-32 (mma.sync). Nothing of the Pallas grid
+// carries over (a sequential key axis with VMEM carries, Z=8 folded
+// batch*head rows). One block of 4 warps owns 64 query rows of one
+// batch*head, 16 a warp: the M of mma.sync.m16n8k16 (bf16 in, f32
+// accumulate).
 //   - A tile with no valid query (most tiles of the served rows) writes its
 //     zeros and LSE and leaves before it scans any segment ids.
 //   - Otherwise the block finds the keys its rows may attend
@@ -62,20 +71,60 @@
 // A row's result depends on its own sequence alone (no atomics, fixed
 // order), so it is the same in batches of any size.
 //
-// Why mma.sync and not wgmma/TMA. wgmma's unit is a 64-row warpgroup tile
-// fed from shared memory, and TMA pays off on large tiles. At head dims
-// 4-16 every product is one 16-deep k-step and the tensor cores idle most
+// Why mma.sync and not wgmma/TMA at head dims 4-32. wgmma's unit is a 64-row
+// warpgroup tile fed from shared memory, and TMA pays off on large tiles. At
+// head dims 4-16 every product is one 16-deep k-step and the tensor cores idle most
 // of the time anyway: what limits the kernel is the elementwise work
 // between the products (mask, max, exp, hash) and the bytes. Warp-level
 // mma lets each warp skip the keys its own 16 rows may not attend and keeps
 // P in registers between the two products.
 //
-// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`); the
-// wrapper zero-pads any other head dim up to 128 to the next of them and
-// hands the kernel the scale of the true one. At 128 the bf16 route's two
-// double-buffered tiles take 69,632 bytes, past the 48 KB of static shared
-// memory, so that route keeps them in dynamic shared memory there
-// (`MmaTiles`, `launch_dyn`).
+// Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`), and
+// 256 in the wgmma design; the wrapper zero-pads any other head dim up to
+// 128 to the next of them (bf16 129-256 to 256) and hands the kernel the
+// scale of the true one. At 128 the mma.sync route's two double-buffered
+// tiles take 69,632 bytes, past the 48 KB of static shared memory, so that
+// route keeps them in dynamic shared memory there (`MmaTiles`,
+// `launch_dyn`).
+//
+// Design, bf16 at head dims 64, 128 and 256 (wgmma; `attn_fwd_kernel_wgmma`).
+// There the products dominate: per allowed pair 4 D FLOPs against one exp,
+// and mma.sync (a warp's 16 x 8 tiles, loads, products and softmax one after
+// the other in each warp) ran at 2-2.5x SDPA on dense rows and at 16x above
+// 128 on the FP32 pipe. A block owns 64 query rows a consumer warpgroup of
+// one batch*head, and has one producer warpgroup:
+//   - one producer warp (its warpgroup gives its registers to the consumers,
+//     setmaxnreg) loads the block's q once and then K and V tiles of 64 keys
+//     (32 at 256) with TMA into a ring of kFwdStages stages, each with a full
+//     and an empty mbarrier; the tensor maps cover the strided [B, L, H, D]
+//     view (row stride 3 H D in the fused qkv), built on the host at each
+//     launch (`tma_map`), one box a column group of 8 so that each tile lands
+//     in wgmma's core-matrix layout without swizzle (flash_attn_common.cuh);
+//     the producer also stages the tile's key segment ids and their range;
+//   - two consumer warpgroups (three at head dim 64, `fwd_consumers`): S =
+//     q k^T is a wgmma with both operands in shared memory (K-major), P~ V a
+//     wgmma with P~ from registers (the S accumulator is the A fragment) and
+//     V read MN-major; P~ goes in as three bf16 terms hi + mid + lo
+//     (`split_terms`, each rounded: `split_bf16x2`), as in the mma.sync
+//     design at 64 and 128;
+//   - overlap: each consumer issues the next tile's q k^T before this tile's
+//     P~ V, waits for the q k^T only (wgmma.wait_group 1), and runs the next
+//     tile's max, exp, hash under this tile's P~ V; the split into bf16 terms
+//     waits for P~ V (its A registers);
+//   - what bounds it once the products overlap is the per-pair integer and
+//     FP32 work (the dropout hash alone is about a quarter of the dense head
+//     dim 64 rows), so: no mask where a tile's keys and the warpgroup's rows
+//     share one segment (`FULL`); the scale folded into the exp's FMA; the
+//     1 / (1 - p_drop) applied once to O; acc rescaled only where a row's max
+//     moved; the hash's last step skipped where the keep threshold has 16 low
+//     zero bits (`hash_keep`, its own instance, `FwdDrop`);
+//   - a query tile with no valid row writes its zeros and LSE and leaves;
+//     the producer walks only the keys of `other_axis_range`, and a tile
+//     whose key segment ids miss a consumer's range issues no wgmma there;
+//   - epilogue: l summed across the quad in a fixed order, O = acc / l staged
+//     in the consumer's q tile (16-byte chunks swizzled by row) and stored in
+//     16-byte pieces; pad rows exact zeros. No atomics: the same bits on two
+//     runs and in batches of any size.
 //
 // f32 (the FP32-pipe route) up to head dim 64. Tensor cores take no f32
 // input, and TF32 would not hold f32 accuracy. One block of 128 threads
@@ -102,6 +151,8 @@
 // The wrapper names each launch's design (ops/flash_attention.py `design`,
 // the `Design` codes of flash_attn_common.cuh); the entry point runs it, or
 // returns cudaErrorInvalidValue where this source has no instance of it.
+
+#include <cuda.h>  // CUtensorMap and its enums; the library links no -lcuda
 
 #include "flash_attn_common.cuh"
 
@@ -374,6 +425,597 @@ __global__ void __launch_bounds__(kMmaThreads)
   store_rows<D, LD>(ob, o_sl, row0, 16, p.L, os, lane, 32);
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma route (bf16 at head dims 64, 128 and 256; see the header note)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdStages = 4;      // K/V tiles in the ring
+constexpr int kProducerRegs = 24;  // setmaxnreg: the producer warpgroup's registers
+// Consumer warpgroups of 64 query rows a block: three at head dim 64, where
+// a consumer needs the fewest registers and the softmax's latency wants the
+// most warps, two above.
+__host__ __device__ constexpr int fwd_consumers(int d) { return d <= 64 ? 3 : 2; }
+__host__ __device__ constexpr int fwd_rows(int d) { return 64 * fwd_consumers(d); }
+__host__ __device__ constexpr int fwd_threads(int d) { return 128 * (fwd_consumers(d) + 1); }
+// setmaxnreg: each consumer thread's registers, what the producer leaves
+__host__ __device__ constexpr int fwd_consumer_regs(int d) {
+  return fwd_consumers(d) == 3 ? 160 : 240;
+}
+static_assert(128 * kProducerRegs + 3 * 128 * 160 <= 65536 &&
+                  128 * kProducerRegs + 2 * 128 * 240 <= 65536,
+              "a block's registers fit the SM's 65,536");
+// keys a tile: 32 at head dim 256, where the O accumulator takes 128
+// registers a thread
+__host__ __device__ constexpr int fwd_keys(int d) { return d > 128 ? 32 : 64; }
+
+// The block's shared memory. q and each K and V tile in wgmma's core-matrix
+// layout [D / 8][rows][8] (flash_attn_common.cuh); after the key loop each
+// consumer's q tile stages its rows of O.
+template <int D>
+struct FwdSmem {
+  static constexpr int KN = fwd_keys(D);
+  bf16 q[fwd_consumers(D)][64 * D];
+  bf16 k[kFwdStages][KN * D];
+  bf16 v[kFwdStages][KN * D];
+  int32_t seg[kFwdStages][KN];      // the tile's key segment ids (0 beyond the range)
+  int32_t lo[kFwdStages];           // their least non-zero id
+  int32_t hi[kFwdStages];           // and their largest
+  int32_t uni[kFwdStages];          // the id every key of the tile has, else 0
+  uint64_t full[kFwdStages];        // the tile has landed (TMA bytes and the producer's ids)
+  uint64_t empty[kFwdStages];       // every consumer warp is done with it
+  uint64_t q_full;
+};
+// dynamic shared bytes of a launch: the struct and room to align it to 128
+template <int D>
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
+  return sizeof(FwdSmem<D>) + 128;
+}
+
+// The three TMA maps of a launch (q, k, v), kernel parameters in constant
+// space (__grid_constant__): TMA reads them by address.
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// one arrival that also announces `bytes` of TMA transfers to the phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// A box of the [B, L, H, D] map at (column c0, head h, row r, batch b) into
+// shared memory; its bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int h, int r, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(h), "r"(r),
+      "r"(b)
+      : "memory");
+}
+// `n` threads (whole warps of this consumer warpgroup) meet at barrier `id`
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// max, or sum, of this thread's KN / 4 elements of row i of an S tile
+// (element 4 n + 2 i + c), in four chains
+template <int KN, bool MAX>
+__device__ __forceinline__ float row_reduce(const float (&s)[KN / 2], int i) {
+  static_assert(KN % 32 == 0, "four chains of whole n-tile pairs");
+  auto op = [](float a, float b) { return MAX ? fmaxf(a, b) : a + b; };
+  float r0 = s[2 * i], r1 = s[2 * i + 1], r2 = s[4 + 2 * i], r3 = s[5 + 2 * i];
+#pragma unroll
+  for (int n = 2; n < KN / 8; n += 2) {
+    r0 = op(r0, s[4 * n + 2 * i]);
+    r1 = op(r1, s[4 * n + 2 * i + 1]);
+    r2 = op(r2, s[4 * n + 4 + 2 * i]);
+    r3 = op(r3, s[4 * n + 5 + 2 * i]);
+  }
+  return op(op(r0, r1), op(r2, r3));
+}
+
+// The softmax of one S tile of the consumer's 64 rows in its accumulator
+// registers (element 4 n + 2 i + c: this thread's row i, key 8 n + 2 t + c):
+// logits of allowed pairs (-1e30 elsewhere; FULL: the tile's keys and the
+// warpgroup's rows share one segment, nothing is masked), the new row max
+// m of the log2-scaled logits (across the quad), alpha = 2^(m_old - m_new)
+// for acc and l, then p = 2^(s scale - m) on allowed pairs only, l += p
+// undropped, and P~ = p keep in place of S (the 1 / (1 - p_drop) of the kept
+// ones is applied to O once, in the epilogue).
+template <int KN, bool DROP, bool SHORT, bool FULL>
+__device__ __forceinline__ void fwd_softmax(float (&s)[KN / 2], float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], const int32_t* segs,
+                                            const int32_t (&sq)[2], const uint32_t (&hrow)[2],
+                                            uint32_t col0, const Params& p) {
+  const int tg = threadIdx.x & 3;
+  if constexpr (!FULL) {
+#pragma unroll
+    for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int32_t sk = segs[8 * n + 2 * tg + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n + 2 * i + c;
+          s[e] = sk == sq[i] ? s[e] : kNegInf;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = row_reduce<KN, true>(s, i);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // a row with no allowed key so far keeps m far below any logit: its p
+    // are selected to 0 and its alpha is 0 or 1 on a zero acc and l
+    const float m_new = fmaxf(m[i], mx * p.scale_log2);
+    alpha[i] = ex2_approx(m[i] - m_new);
+    m[i] = m_new;
+  }
+  const uint32_t hcol = (col0 + 2 * tg) * kHashCol;
+#pragma unroll
+  for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 4 * n + 2 * i + c;
+        // a masked pair holds exactly -1e30: p is selected to 0, never
+        // computed from it
+        const float pr = FULL || s[e] != kNegInf
+                             ? ex2_approx(fmaf(s[e], p.scale_log2, -m[i]))
+                             : 0.f;
+        s[e] = pr;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + row_reduce<KN, false>(s, i);
+  if constexpr (DROP) {
+#pragma unroll
+    for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t hc = hcol + static_cast<uint32_t>(8 * n + c) * kHashCol;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n + 2 * i + c;
+          s[e] = hash_keep<SHORT>(p.seed, hrow[i] ^ hc, p.keep_thresh) ? s[e] : 0.f;
+        }
+      }
+    }
+  }
+}
+
+// One consumer warpgroup of the wgmma route (`wg` of the block's
+// fwd_consumers(D)): 64 query rows, 16 a warp. SHORT: hash_keep's short form.
+template <int D, bool DROP, bool SHORT>
+__device__ __forceinline__ void fwd_consumer(const Params& p, FwdSmem<D>& sm, const int wg,
+                                             const int tile0, const int k_first,
+                                             const int ntiles) {
+  constexpr int KN = fwd_keys(D);
+  constexpr int KD = D / 16;               // k-steps of q k^T
+  constexpr int OW = D > 128 ? 128 : D;    // columns of O one P~ V product covers
+  constexpr int NH = D / OW;               // products a k-step
+  constexpr int NS = split_terms(D);       // bf16 terms of P~
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const int64_t o_sl = static_cast<int64_t>(p.H) * D;  // O is contiguous
+  bf16* ob = static_cast<bf16*>(p.o) + static_cast<int64_t>(b) * p.L * o_sl + h * D;
+  float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
+  const int warp = (tid >> 5) & 3;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int wrow0 = tile0 + 64 * wg;  // the warpgroup's first row
+  int32_t wlo, whi;  // the warpgroup's segment-id range (whi 0: no valid row)
+  int32_t wuni;      // the id every row of the warpgroup has, else 0
+  {
+    int32_t lo = INT32_MAX, hi = 0;
+    bool pad = false;
+#pragma unroll
+    for (int j = lane; j < 64; j += 32) {
+      const int32_t s = wrow0 + j < p.L ? seg_b[wrow0 + j] : 0;
+      pad |= s == 0;
+      if (s != 0) {
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+    }
+    wlo = __reduce_min_sync(0xffffffffu, lo);
+    whi = __reduce_max_sync(0xffffffffu, hi);
+    wuni = !__any_sync(0xffffffffu, pad) && wlo == whi ? wlo : 0;
+  }
+  int rows[2];
+  int32_t sq[2];     // this thread's rows' segment ids; -1 on a pad row (pairs with no key)
+  uint32_t hrow[2];  // the dropout hash's (batch*head, row) terms
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = wrow0 + 16 * warp + g + 8 * i;
+    const int32_t s = rows[i] < p.L ? seg_b[rows[i]] : 0;
+    sq[i] = s != 0 ? s : -1;
+    hrow[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
+              (static_cast<uint32_t>(rows[i]) * kHashRow);
+  }
+  asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
+
+  float acc[NH][OW / 2];  // unnormalised O (wgmma layout, columns OW hh + ...)
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int e = 0; e < OW / 2; ++e) acc[hh][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the log2-scaled logits
+  float l[2] = {0.f, 0.f};          // this thread's part of the undropped sum
+  float alpha[2] = {1.f, 1.f};      // rescale of acc before the next P~ V
+  float sc[KN / 2];                 // S, then P~, of the tile in hand
+  SplitA<NS> pa[KN / 16];           // P~ as the A fragments of P~ V
+  const bf16* qs = sm.q[wg];
+
+  // the tile's stage is free once every warp of the warpgroup is done with it
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[t % kFwdStages]);
+  };
+  // the next tile below `limit` whose key ids meet this warpgroup's range
+  // (-1: none); tiles that do not are released unread
+  int u = 0;
+  auto next_live = [&](int limit) -> int {
+    for (; u < limit; ++u) {
+      const int st = u % kFwdStages;
+      mbar_wait(&sm.full[st], (u / kFwdStages) & 1);
+      if (whi != 0 && sm.hi[st] >= wlo && sm.lo[st] <= whi) return u++;
+      release(u);
+    }
+    return -1;
+  };
+  auto issue_s = [&](int t) {
+    const bf16* kt = sm.k[t % kFwdStages];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<KN>::ss(sc, desc_kmajor<64>(qs, kk), desc_kmajor<KN>(kt, kk), kk > 0);
+    wgmma_commit();
+  };
+  auto softmax = [&](int t) {
+    const int st = t % kFwdStages;
+    const uint32_t col0 = static_cast<uint32_t>(k_first + t * KN);
+    if (wuni != 0 && sm.uni[st] == wuni)  // the same for the whole warpgroup
+      fwd_softmax<KN, DROP, SHORT, true>(sc, m, l, alpha, sm.seg[st], sq, hrow, col0, p);
+    else
+      fwd_softmax<KN, DROP, SHORT, false>(sc, m, l, alpha, sm.seg[st], sq, hrow, col0, p);
+  };
+  auto split = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      split_bf16x2(sc[8 * kk], sc[8 * kk + 1], pa[kk], 0);
+      split_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3], pa[kk], 1);
+      split_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5], pa[kk], 2);
+      split_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7], pa[kk], 3);
+    }
+  };
+
+  // acc *= alpha (where a row of the warp moved its max), then acc += P~ V
+  // of tile t (committed, not waited)
+  auto issue_pv = [&](int t) {
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+        for (int e = 0; e < OW / 2; ++e) acc[hh][e] *= alpha[(e >> 1) & 1];
+    }
+    const bf16* vt = sm.v[t % kFwdStages];
+    wgmma_fence();
+#pragma unroll
+    for (int term = 0; term < NS; ++term)
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+#pragma unroll
+        for (int hh = 0; hh < NH; ++hh)
+          Wgmma<OW>::rs_t(acc[hh], pa[kk].t[term],
+                          desc_mnmajor<KN>(vt + hh * (OW / 8) * KN * 8, kk));
+    wgmma_commit();
+  };
+  auto wait_pv = [&](int t) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) fence_regs(acc[hh]);
+    release(t);
+  };
+  // q k^T of tile t alone, then its softmax and split
+  auto first_s = [&](int t) {
+    issue_s(t);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(t);
+    split();
+  };
+
+  // Each path below issues and waits for a fixed sequence of wgmma groups,
+  // and every one ends with none in flight: ptxas can follow the groups and
+  // need not serialise the products.
+  mbar_wait(&sm.q_full, 0);
+  int t = next_live(ntiles);
+  if (t >= 0) first_s(t);
+  while (t >= 0) {
+    // the next live tile within the ring (tile t holds its stage until its
+    // P~ V is done)
+    const int nx = next_live(min(ntiles, t + kFwdStages));
+    if (nx >= 0) {
+      // its q k^T goes in before this tile's P~ V, and its softmax runs
+      // under that P~ V; the split waits for the P~ V (its A registers)
+      issue_s(nx);
+      issue_pv(t);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax(nx);
+      wait_pv(t);
+      split();
+      t = nx;
+    } else {  // none within the ring: finish tile t, then look further
+      issue_pv(t);
+      wait_pv(t);
+      t = next_live(ntiles);
+      if (t >= 0) first_s(t);
+    }
+  }
+
+  // l across the quad, in a fixed order; O = acc / l staged in this
+  // warpgroup's q tile (16-byte chunk c of row r at chunk c ^ (r & 7): the
+  // quad's stores and the row reads meet no bank twice), then 16-byte
+  // stores; LSE in f32
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  bf16* os = sm.q[wg];
+  named_sync(1 + wg, 128);  // every warp's products have read q
+  fence_proxy_async();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool live = sq[i] > 0 && l[i] > 0.f;  // pad rows: exact zeros
+    const float inv = live ? p.keep_scale / l[i] : 0.f;
+    const int r = 16 * warp + g + 8 * i;
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int n = 0; n < OW / 8; ++n) {
+        const int col = hh * OW + 8 * n + 2 * tg;
+        *reinterpret_cast<__nv_bfloat162*>(os + r * D + ((((col >> 3) ^ (r & 7))) << 3) +
+                                           (col & 7)) =
+            __floats2bfloat162_rn(acc[hh][4 * n + 2 * i] * inv,
+                                  acc[hh][4 * n + 2 * i + 1] * inv);
+      }
+    if (tg == 0 && rows[i] < p.L)
+      lse_bh[rows[i]] = live ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
+  }
+  named_sync(1 + wg, 128);
+  for (int c = tid & 127; c < 64 * (D / 8); c += 128) {
+    const int r = c / (D / 8);
+    const int cc = c - r * (D / 8);
+    if (wrow0 + r < p.L)
+      *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(wrow0 + r) * o_sl + cc * 8) =
+          *reinterpret_cast<const uint4*>(os + r * D + ((cc ^ (r & 7)) << 3));
+  }
+}
+
+// The dropout forms of a wgmma instance: none, the hash, the hash's short
+// form (hash_keep; a keep threshold with 16 low zero bits). One instance
+// each, so that each holds one consumer loop in its registers.
+enum FwdDrop : int { kNoDrop = 0, kDrop = 1, kDropShort = 2 };
+__host__ __device__ constexpr int fwd_drop(int dropout, uint32_t keep_thresh) {
+  return !dropout ? kNoDrop : (keep_thresh & 0xFFFFu) == 0 ? kDropShort : kDrop;
+}
+
+template <int D, int DROP>
+__global__ void __launch_bounds__(fwd_threads(D), 1)
+    attn_fwd_kernel_wgmma(const Params p, const __grid_constant__ FwdMaps maps) {
+  constexpr int NC = fwd_consumers(D);
+  constexpr int ROWS = fwd_rows(D);
+  constexpr int KN = fwd_keys(D);
+  extern __shared__ __align__(128) unsigned char fwd_smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
+      fwd_smem_raw + ((128 - (smem_u32(fwd_smem_raw) & 127)) & 127));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int tile0 = blockIdx.y * ROWS;
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const int64_t o_sl = static_cast<int64_t>(p.H) * D;  // O is contiguous
+  bf16* ob = static_cast<bf16*>(p.o) + static_cast<int64_t>(b) * p.L * o_sl + h * D;
+  float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
+
+  // a query tile with no valid row: zeros and -1e30, nothing else
+  const int blk_row = tile0 + tid;
+  const int32_t blk_seg = (tid < ROWS && blk_row < p.L) ? seg_b[blk_row] : 0;
+  if (!__syncthreads_or(blk_seg != 0)) {
+    store_rows<D, D>(ob, o_sl, tile0, ROWS, p.L, nullptr, tid, fwd_threads(D));
+    if (tid < ROWS && blk_row < p.L) lse_bh[blk_row] = kNegInf;
+    return;
+  }
+  int k_first, k_last;
+  other_axis_range(seg_b, p.L, blk_seg, &k_first, &k_last);
+  const int kend = k_last + 1;
+  const int ntiles = (kend - k_first + KN - 1) / KN;  // >= 1: the block has a valid row
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&sm.full[s], 33);                   // the producer's 32 lanes and its tx
+      mbar_init(&sm.empty[s], 4 * NC);   // lane 0 of every consumer warp
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  if (wg == NC) {
+    // the producer: its warpgroup's registers go to the consumers, its first
+    // warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid - 128 * NC >= 32) return;
+    if (lane == 0) mbar_arrive_tx(&sm.q_full, NC * 64 * D * sizeof(bf16));
+    __syncwarp();
+    for (int c = lane; c < NC * (D / 8); c += 32) {
+      const int w = c / (D / 8);
+      const int cg = c - w * (D / 8);
+      tma_load(&sm.q[w][cg * 64 * 8], &maps.q, &sm.q_full, cg * 8, h, tile0 + 64 * w, b);
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % kFwdStages;
+      if (t >= kFwdStages) mbar_wait(&sm.empty[st], ((t / kFwdStages) - 1) & 1);
+      const int s0 = k_first + t * KN;
+      if (lane == 0) mbar_arrive_tx(&sm.full[st], 2 * KN * D * sizeof(bf16));
+      __syncwarp();
+      // rows past L arrive as zeros (TMA's out-of-bounds fill); rows in
+      // [kend, L) carry segment id 0 here and so pair with no query
+      for (int c = lane; c < 2 * (D / 8); c += 32) {
+        const bool is_v = c >= D / 8;
+        const int cg = is_v ? c - D / 8 : c;
+        tma_load((is_v ? sm.v[st] : sm.k[st]) + cg * KN * 8, is_v ? &maps.v : &maps.k,
+                 &sm.full[st], cg * 8, h, s0, b);
+      }
+      int32_t lo = INT32_MAX, hi = 0;
+      bool pad = false;
+#pragma unroll
+      for (int j = lane; j < KN; j += 32) {
+        const int32_t s = s0 + j < kend ? seg_b[s0 + j] : 0;
+        sm.seg[st][j] = s;
+        pad |= s == 0;
+        if (s != 0) {
+          lo = min(lo, s);
+          hi = max(hi, s);
+        }
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      pad = __any_sync(0xffffffffu, pad);
+      if (lane == 0) {
+        sm.lo[st] = lo;
+        sm.hi[st] = hi;
+        sm.uni[st] = !pad && lo == hi ? lo : 0;
+      }
+      mbar_arrive(&sm.full[st]);  // each lane's stores are released by its arrival
+    }
+    return;
+  }
+
+  // the consumers: the producer's registers are theirs
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(fwd_consumer_regs(D)));
+  fwd_consumer<D, DROP != kNoDrop, DROP == kDropShort>(p, sm, wg, tile0, k_first, ntiles);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda), reached through the runtime's entry-point
+// query so that the library does not link -lcuda; nullptr where it is missing.
+EncodeTiled tma_encoder() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Whether TMA can read a [B, L, H, D] bf16 view at `ptr` (strides in
+// elements): a 16-byte aligned base and strides (ops/flash_attention.py
+// `tma_ok` holds the wrapper to the same rule and more).
+bool tma_aligned(const void* ptr, int64_t sb, int64_t sl, int64_t sh) {
+  const int64_t bits = static_cast<int64_t>(reinterpret_cast<uintptr_t>(ptr)) |
+                       (2 * sb) | (2 * sl) | (2 * sh);
+  return bits % 16 == 0;
+}
+
+// The view as a 4-d map (D, H, L, B) with boxes of 8 columns x `rows` rows:
+// one box lands as one column group of the core-matrix layout.
+bool tma_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sl, int64_t sh, int B,
+             int L, int H, int D, int rows) {
+  const EncodeTiled encode = tma_encoder();
+  if (encode == nullptr || !tma_aligned(ptr, sb, sl, sh)) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * sh),
+                                 static_cast<cuuint64_t>(2 * sl),
+                                 static_cast<cuuint64_t>(2 * sb)};
+  const cuuint32_t box[4] = {8, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch the wgmma design at head dim D: the maps, then the kernel.
+template <int D>
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  FwdMaps maps;
+  if (!tma_map(&maps.q, p.q, p.q_sb, p.q_sl, p.q_sh, p.B, p.L, p.H, D, 64) ||
+      !tma_map(&maps.k, p.k, p.k_sb, p.k_sl, p.k_sh, p.B, p.L, p.H, D, fwd_keys(D)) ||
+      !tma_map(&maps.v, p.v, p.v_sb, p.v_sl, p.v_sh, p.B, p.L, p.H, D, fwd_keys(D)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.B * p.H, (p.L + fwd_rows(D) - 1) / fwd_rows(D));
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  switch (fwd_drop(p.dropout, p.keep_thresh)) {
+    case kNoDrop:
+      launch_dyn(attn_fwd_kernel_wgmma<D, kNoDrop>, grid, fwd_threads(D), smem, stream, p, maps);
+      break;
+    case kDrop:
+      launch_dyn(attn_fwd_kernel_wgmma<D, kDrop>, grid, fwd_threads(D), smem, stream, p, maps);
+      break;
+    default:
+      launch_dyn(attn_fwd_kernel_wgmma<D, kDropShort>, grid, fwd_threads(D), smem, stream, p,
+                 maps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The f32 route (see the header note): one query row per thread.
 template <int D>
 __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
@@ -581,37 +1223,66 @@ __global__ void __launch_bounds__(128) attn_fwd_kernel_wide(const Params p, cons
     p.lse[static_cast<int64_t>(bh) * p.L + row] = l > 0.f ? (m + log2f(l)) * kLn2 : kNegInf;
 }
 
-// The instance of `design` at (head dim D, dropout), nullptr where this
-// source has none; the wide route is `wide_kernel`.
+// The instance of `design` at (head dim D, dropout: 0 none, else the hash;
+// 2 the wgmma design's short-hash instance), nullptr where this source has
+// none; the wide route is `wide_kernel`.
 template <int D>
 const void* kernel_of(int design, int dropout) {
-  if (design == kDesignMma)
-    return dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, true>)
-                   : reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, false>);
-  if constexpr (D < 128)
-    if (design == kDesignF32) return reinterpret_cast<const void*>(attn_fwd_kernel_f32<D>);
+  if constexpr (D >= 64)
+    if (design == kDesignWgmma)
+      return dropout == kDropShort ? reinterpret_cast<const void*>(attn_fwd_kernel_wgmma<D, kDropShort>)
+             : dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_wgmma<D, kDrop>)
+                       : reinterpret_cast<const void*>(attn_fwd_kernel_wgmma<D, kNoDrop>);
+  if constexpr (D <= 128) {
+    if (design == kDesignMma)
+      return dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, true>)
+                     : reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, false>);
+    if constexpr (D < 128)
+      if (design == kDesignF32) return reinterpret_cast<const void*>(attn_fwd_kernel_f32<D>);
+  }
   return nullptr;
+}
+// the dynamic shared bytes a launch of `design` at head dim D asks for
+template <int D>
+size_t dyn_smem_of(int design) {
+  if constexpr (D >= 64)
+    if (design == kDesignWgmma) return fwd_smem_bytes<D>();
+  if constexpr (D <= 128)
+    if (design == kDesignMma) return mma_dyn_smem<mma_ld(D)>();
+  return 0;
 }
 const void* wide_kernel(int is_bf16) {
   return is_bf16 ? reinterpret_cast<const void*>(attn_fwd_kernel_wide<bf16>)
                  : reinterpret_cast<const void*>(attn_fwd_kernel_wide<float>);
 }
 
+// The head dims with an instance of `design`: with_head_dim's, and 256 in
+// the wgmma design.
+template <typename F>
+int with_fwd_head_dim(int head_dim, int design, F&& f) {
+  if (head_dim == 256 && design == kDesignWgmma) return f(std::integral_constant<int, 256>{});
+  return with_head_dim(head_dim, f);
+}
+
 template <int D>
 int launch(const Params& p, int design, cudaStream_t stream) {
   if (kernel_of<D>(design, p.dropout) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (design == kDesignMma) {
-    const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
-                    rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
-    const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
-    constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
-    if (p.dropout)
-      launch_dyn(attn_fwd_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
-    else
-      launch_dyn(attn_fwd_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
-  } else if constexpr (D < 128) {
-    const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
-    attn_fwd_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
+  if constexpr (D >= 64)
+    if (design == kDesignWgmma) return launch_wgmma<D>(p, stream);
+  if constexpr (D <= 128) {
+    if (design == kDesignMma) {
+      const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
+                      rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
+      const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+      constexpr size_t smem = mma_dyn_smem<mma_ld(D)>();
+      if (p.dropout)
+        launch_dyn(attn_fwd_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
+      else
+        launch_dyn(attn_fwd_kernel_mma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
+    } else if constexpr (D < 128) {
+      const dim3 grid(p.B * p.H, (p.L + kF32Rows - 1) / kF32Rows);
+      attn_fwd_kernel_f32<D><<<grid, kF32Rows, 0, stream>>>(p);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -626,8 +1297,9 @@ int dispatch_d(int head_dim, int is_bf16, int design, const Params& p, cudaStrea
       attn_fwd_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_head_dim(head_dim,
-                       [&](auto d) { return launch<decltype(d)::value>(p, design, stream); });
+  return with_fwd_head_dim(head_dim, design, [&](auto d) {
+    return launch<decltype(d)::value>(p, design, stream);
+  });
 }
 
 }  // namespace
@@ -666,18 +1338,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 }
 
 // The resources of the instance of `design` a launch at (head_dim,
-// is_bf16, dropout) runs: out[4] = static shared bytes, dynamic shared
+// is_bf16, dropout; 2: the wgmma design's short-hash instance, `FwdDrop`)
+// runs: out[4] = static shared bytes, dynamic shared
 // bytes, registers a thread, local (spilled) bytes a thread. Returns a
 // cudaError_t.
 extern "C" int flash_attn_fwd_attrs(int head_dim, int is_bf16, int design, int dropout,
                                     int* out) {
   if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == kDesignWide) return func_attrs(wide_kernel(is_bf16), 0, out);
-  return with_head_dim(head_dim, [&](auto d) {
+  return with_fwd_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return func_attrs(fn, design == kDesignMma ? static_cast<int>(mma_dyn_smem<mma_ld(D)>()) : 0,
-                      out);
+    return func_attrs(fn, static_cast<int>(dyn_smem_of<D>(design)), out);
   });
 }

@@ -22,8 +22,10 @@ its design and what bounds it on an H100.
 - Every head dim runs in the kernels. They have instances at the head dims
   :data:`HEAD_DIMS` (4 to 128), and the wrappers run any other head dim up
   to 128 through the next instance, zero-padded (:func:`pad_head_dim`);
-  every head dim above 128 runs unpadded in the kernels' wide route, which
-  takes the head dim at run time (so does f32 at 128).
+  the bf16 forward runs head dims 129-256 through its ``wgmma`` instance at
+  :data:`FWD_WGMMA_WIDE`, zero-padded; every other head dim above 128 runs
+  unpadded in the kernels' wide route, which takes the head dim at run time
+  (so does f32 at 128). :func:`design` names the design a launch runs.
 - :func:`bound` and :func:`bound_bwd` give the least time the card could
   take for a kernel's work on given inputs (``chip_smoke.py`` and
   ``tools/flash_ab.py`` print it beside the kernel's time).
@@ -50,6 +52,7 @@ from ..utils.card import HBM_BYTES_S, PEAK_FLOPS, SFU_PER_SM_CLK, nvidia_smi
 
 NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # the kernels' instances (csrc: with_head_dim)
+FWD_WGMMA_WIDE = 256     # the bf16 forward's wgmma instance above 128 (csrc: with_fwd_head_dim)
 DESIGNS = ("mma", "wgmma", "f32", "wide")   # csrc: Design, in this order
 _U32 = 0xFFFFFFFF
 
@@ -65,11 +68,16 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel launches since import (or since :func:`reset_launches`), by kernel
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# of those, the launches whose head dim runs wgmma but whose q, k, v views
+# TMA cannot read (:func:`tma_ok`): they ran mma.sync (64, 128) or the wide
+# route (256), a rule applied before the launch
+TMA_REFUSED: Dict[str, int] = {name: 0 for name in SOURCES}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TMA_REFUSED):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -300,19 +308,22 @@ def _kernel(name: str):
 
 
 def kernel_attrs(name: str, head_dim: int, dtype: torch.dtype,
-                 dropout: bool) -> Dict[str, int]:
+                 dropout: bool, short_hash: bool = False, tma: bool = True) -> Dict[str, int]:
     """The resources of the instance of kernel ``name`` that a launch at
     (head dim, dtype, dropout) runs (its :func:`design` at
-    :func:`padded_head_dim`), as ``cudaFuncGetAttributes`` reports them:
-    static and dynamic shared bytes, registers a thread, local (spilled)
-    bytes a thread. Needs the card."""
+    :func:`padded_head_dim`, for views :func:`tma_ok` passes or, ``tma``
+    False, fails), as ``cudaFuncGetAttributes`` reports them: static and
+    dynamic shared bytes, registers a thread, local (spilled) bytes a
+    thread. ``short_hash``: the wgmma forward's instance for a keep
+    threshold with 16 low zero bits (the training rate 26/256), which skips
+    the hash's last step. Needs the card."""
     fn = getattr(ctypes.CDLL(str(build()[name])), f"{name}_attrs")
     fn.argtypes = [_I32, _I32, _I32, _I32, ctypes.POINTER(ctypes.c_int)]
     fn.restype = _I32
     out = (ctypes.c_int * len(_ATTRS))()
-    d = padded_head_dim(head_dim)
-    err = fn(d, int(dtype == torch.bfloat16), DESIGNS.index(design(name, d, dtype)),
-             int(dropout), out)
+    d = padded_head_dim(head_dim, name, dtype)
+    err = fn(d, int(dtype == torch.bfloat16), DESIGNS.index(design(name, d, dtype, tma)),
+             2 if dropout and short_hash else int(dropout), out)
     if err != 0:
         raise RuntimeError(f"{name}_attrs failed: CUDA error {err}")
     return dict(zip(_ATTRS, out))
@@ -330,43 +341,72 @@ def build_seconds() -> Dict[str, float]:
 # the wrappers
 # ---------------------------------------------------------------------------
 
-def padded_head_dim(d: int) -> int:
-    """The head dim that head dim ``d`` runs at in the kernels: up to 128
-    the least of :data:`HEAD_DIMS` at or above it; above 128 ``d`` itself
-    (the wide route takes any head dim)."""
+def padded_head_dim(d: int, name: Optional[str] = None,
+                    dtype: Optional[torch.dtype] = None) -> int:
+    """The head dim that head dim ``d`` runs at in kernel ``name`` with
+    inputs of ``dtype``: up to 128 the least of :data:`HEAD_DIMS` at or
+    above it; above 128 :data:`FWD_WGMMA_WIDE` in the bf16 forward up to
+    that (its wgmma instance), else ``d`` itself (the wide route takes any
+    head dim). Without a name: the backward kernels' head dim."""
     if d > HEAD_DIMS[-1]:
-        return d
+        fwd_wgmma = name == "flash_attn_fwd" and dtype == torch.bfloat16
+        return FWD_WGMMA_WIDE if fwd_wgmma and d <= FWD_WGMMA_WIDE else d
     return next(inst for inst in HEAD_DIMS if d <= inst)
 
 
-def design(name: str, head_dim: int, dtype: torch.dtype) -> str:
+def tma_ok(*tensors: torch.Tensor) -> bool:
+    """Whether TMA can read each [B, L, H, D] bf16 view as the forward's
+    tensor maps take it: a 16-byte aligned pointer and strides, and each of
+    the H, L, B strides past the extent of the dims inside it (the fused
+    qkv's views and contiguous tensors do; a transposed view does not)."""
+    for t in tensors:
+        b, l, h, d = t.shape
+        sb, sl, sh, sd = t.stride()
+        esz = t.element_size()
+        if sd != 1 or t.data_ptr() % 16 or any(s * esz % 16 for s in (sb, sl, sh)):
+            return False
+        if (h > 1 and sh < d) or (l > 1 and sl < sh * h) or (b > 1 and sb < sl * l):
+            return False
+    return True
+
+
+def design(name: str, head_dim: int, dtype: torch.dtype, tma: bool = True) -> str:
     """The design kernel ``name`` runs at (head dim, input type): the one
     place a launch's design is chosen. The launchers pass it to the C entry
     points, which run it or refuse it (each source's header note): "mma"
-    (bf16 at head dims up to 32, and the forward at 64 and 128: warp-level
-    mma.sync), "wgmma" (the bf16 backward at 64 and 128), "f32" (f32 up to
+    (bf16 at head dims up to 32: warp-level mma.sync), "wgmma" (bf16 at 64
+    and 128, and the forward at 129-256 through its instance at 256:
+    warpgroup wgmma; the forward's operands come by TMA), "f32" (f32 up to
     64: the FP32 pipe, a row a thread) or "wide" (f32 at 128 and every head
-    dim above 128: the FP32 pipe, a row a lane, four warps of 32 columns
-    each to a chunk of 128 output columns)."""
-    d = padded_head_dim(head_dim)
+    dim above 128 that no wgmma instance takes: the FP32 pipe, a row a lane,
+    four warps of 32 columns each to a chunk of 128 output columns).
+    ``tma`` False (the forward's q, k, v fail :func:`tma_ok`): the forward
+    runs mma.sync at 64 and 128, the wide route above."""
+    d = padded_head_dim(head_dim, name, dtype)
+    if name == "flash_attn_fwd" and dtype == torch.bfloat16 and 64 <= d <= FWD_WGMMA_WIDE:
+        if tma:
+            return "wgmma"
+        return "mma" if d <= HEAD_DIMS[-1] else "wide"
     if d > HEAD_DIMS[-1] or (d == HEAD_DIMS[-1] and dtype != torch.bfloat16):
         return "wide"
     if dtype != torch.bfloat16:
         return "f32"
-    return "wgmma" if d >= 64 and name != "flash_attn_fwd" else "mma"
+    return "wgmma" if d >= 64 else "mma"
 
 
-def pad_head_dim(kernel: Callable, *args: torch.Tensor, **kwargs):
+def pad_head_dim(kernel: Callable, *args: torch.Tensor, name: Optional[str] = None,
+                 **kwargs):
     """``kernel(*args, scale=1/sqrt(D), **kwargs)`` at the next kernel
     instance: every [B, L, H, D] tensor of ``args`` is zero-padded along D to
-    :func:`padded_head_dim`, the others (seg, LSE, delta) pass as they are,
+    :func:`padded_head_dim` of kernel ``name`` (None: the backward's) and
+    the type of ``args[0]``, the others (seg, LSE, delta) pass as they are,
     and every [B, L, H, *] result is cut back to D. Zero columns change no
     q.k and no P, so the padded columns of O, dQ, dK and dV come out zero and
     are dropped; the scale stays the one of the true head dim. With D an
     instance, the tensors pass untouched (strided views stay views).
     ``kernel`` is a launcher or, in the tests, a plain version."""
     d = args[0].shape[-1]
-    pad = padded_head_dim(d) - d
+    pad = padded_head_dim(d, name, args[0].dtype) - d
     if pad:
         args = tuple(F.pad(t, (0, pad)) if t.dim() == 4 else t for t in args)
     outs = kernel(*args, scale=1.0 / d ** 0.5, **kwargs)
@@ -415,11 +455,12 @@ def _check_cuda(q, k, v, seg):
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
-def _design_code(name: str, q: torch.Tensor, force: Optional[str]) -> int:
+def _design_code(name: str, q: torch.Tensor, force: Optional[str],
+                 tma: bool = True) -> int:
     """The C entry points' code of :func:`design` at ``q``'s head dim and
     type, or of the design ``force`` names (``chip_smoke.py`` times the
     wide route against the f32 design with it)."""
-    return DESIGNS.index(force or design(name, q.shape[-1], q.dtype))
+    return DESIGNS.index(force or design(name, q.shape[-1], q.dtype, tma))
 
 
 def _launch_fwd(q, k, v, seg, *, p_drop: float, seed: int, bh_offset: int,
@@ -432,6 +473,8 @@ def _launch_fwd(q, k, v, seg, *, p_drop: float, seed: int, bh_offset: int,
     if o.numel() == 0:
         return o, lse
     fn = _kernel("flash_attn_fwd")
+    tma = tma_ok(q, k, v) if q.dtype == torch.bfloat16 else True
+    code = _design_code("flash_attn_fwd", q, force, tma)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
@@ -439,13 +482,14 @@ def _launch_fwd(q, k, v, seg, *, p_drop: float, seed: int, bh_offset: int,
                  q.stride(0), q.stride(1), q.stride(2),
                  k.stride(0), k.stride(1), k.stride(2),
                  v.stride(0), v.stride(1), v.stride(2),
-                 b, l, h, d, int(q.dtype == torch.bfloat16),
-                 _design_code("flash_attn_fwd", q, force), scale, int(p_drop > 0.0),
+                 b, l, h, d, int(q.dtype == torch.bfloat16), code, scale, int(p_drop > 0.0),
                  _seed_u32(seed), _keep_threshold(p_drop), 1.0 / (1.0 - p_drop), bh_offset,
                  stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
     LAUNCHES["flash_attn_fwd"] += 1
+    if not tma and force is None and design("flash_attn_fwd", d, q.dtype) == "wgmma":
+        TMA_REFUSED["flash_attn_fwd"] += 1
     return o, lse
 
 
@@ -467,8 +511,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, seg, p_drop, seed, bh_offset)
     _check_cuda(q, k, v, seg)
-    return pad_head_dim(_launch_fwd, q, k, v, seg, p_drop=p_drop, seed=seed,
-                        bh_offset=bh_offset)
+    o, lse = pad_head_dim(_launch_fwd, q, k, v, seg, name="flash_attn_fwd", p_drop=p_drop,
+                          seed=seed, bh_offset=bh_offset)
+    # above 128 the backward kernels read O as it is (unpadded): contiguous
+    return (o.contiguous() if q.shape[-1] > HEAD_DIMS[-1] else o), lse
 
 
 def _launch_bwd(name: str, q, k, v, seg, o, lse, do, delta, outs,

@@ -1,7 +1,8 @@
 """Head dims the JAX package runs: the port's attention takes every head dim
 (kernel instances at 4, 8, 16, 32, 64 and 128, any other head dim up to 128
-zero-padded to the next instance, every head dim above 128 unpadded in the
-kernels' wide route).
+zero-padded to the next instance; above 128 the bf16 forward's wgmma
+instance at 256, bf16 129-256 zero-padded to it, and every other head dim
+above 128 unpadded in the kernels' wide route).
 
 - The port's ``SimpleTransformer`` against the flax one at head dims 12,
   24, 128, 160 and 256 (weights through ``convert.py``, f32, one layer,
@@ -14,7 +15,11 @@ kernels' wide route).
   head dims 12 and 100 with dropout on (the padded einsums sum zeros in
   another order: measured 5e-7), and at 160 and 320, which pass unpadded.
 - Head dims 129-512 run at themselves in the wide route, on both input
-  types, in the three kernels.
+  types, in the backward kernels and the f32 forward; the bf16 forward runs
+  129-256 in its wgmma instance at 256 and above 256 in the wide route.
+- The bf16 forward's padding to 256, with the plain version in place of the
+  kernel: LSE within 1e-5 of the unpadded version's, O within one bf16
+  rounding (with dropout).
 - On the card (``cuda`` marker, skipped here): the kernels at padded head
   dims against their plain version, with the tolerances of
   ``tests/test_torch_attention_bwd.py``.
@@ -138,25 +143,56 @@ KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 @pytest.mark.parametrize("d", [129, 130, 136, 144, 160, 192, 200, 255, 256, 257, 320, 384,
                                448, 511, 512])
 def test_head_dims_above_128_run_unpadded_in_the_wide_route(d):
+    """The backward kernels and the f32 forward: unpadded, in the wide
+    route. The bf16 forward: its wgmma instance at 256 up to 256, the wide
+    route above."""
     assert fa.padded_head_dim(d) == d
     for name in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
-            assert fa.design(name, d, dtype) == "wide"
+            if name == "flash_attn_fwd" and dtype == torch.bfloat16:
+                wgmma = d <= fa.FWD_WGMMA_WIDE
+                assert fa.padded_head_dim(d, name, dtype) == (fa.FWD_WGMMA_WIDE if wgmma else d)
+                assert fa.design(name, d, dtype) == ("wgmma" if wgmma else "wide")
+            else:
+                assert fa.padded_head_dim(d, name, dtype) == d
+                assert fa.design(name, d, dtype) == "wide"
 
 
 @pytest.mark.parametrize("d,dtype,designs", [
     (16, torch.bfloat16, ("mma", "mma", "mma")),
-    (64, torch.bfloat16, ("mma", "wgmma", "wgmma")),
-    (100, torch.bfloat16, ("mma", "wgmma", "wgmma")),
+    (64, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
+    (100, torch.bfloat16, ("wgmma", "wgmma", "wgmma")),
     (64, torch.float32, ("f32", "f32", "f32")),
     (128, torch.float32, ("wide", "wide", "wide"))])
 def test_design_by_head_dim_and_type(d, dtype, designs):
     assert tuple(fa.design(name, d, dtype) for name in KERNELS) == designs
 
 
+@pytest.mark.parametrize("d", [129, 160, 200, 255])
+def test_forward_padding_to_the_wgmma_instance_equals_unpadded_plain_version(d):
+    """The bf16 forward pads 129-256 to its instance at 256: with the plain
+    version in place of the kernel (which sees head dim 256), LSE equals the
+    unpadded f32 plain version's within 1e-5 (the padded einsums sum zeros
+    in another order) and the bf16 O is within one bf16 rounding of it."""
+    q, k, v, _, seg = (t.bfloat16() if t.is_floating_point() else t
+                       for t in _inputs(d, seed=d))
+    kw = dict(p_drop=0.1, seed=7, bh_offset=2)
+    o, lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), seg, **kw)
+    seen = []
+
+    def plain(*args, **kwargs):
+        seen.append(args[0].shape[-1])
+        return fa.flash_attention_reference(*args, **kwargs)
+
+    po, plse = fa.pad_head_dim(plain, q, k, v, seg, name="flash_attn_fwd", **kw)
+    assert seen == [fa.FWD_WGMMA_WIDE] and po.shape == o.shape and po.dtype == torch.bfloat16
+    assert ((po.float() - o).abs() <= BF16_RTOL * o.abs() + ATOL).all()
+    np.testing.assert_allclose(plse.numpy(), lse.numpy(), atol=ATOL, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [12, 24, 48, 100])
+@pytest.mark.parametrize("d", [12, 24, 48, 100, 200])
 def test_kernels_at_padded_head_dims_match_plain(d, dtype):
     """The forward, dQ and dK/dV kernels at a head dim between instances,
     on q, k, v views of one fused qkv output, with dropout: within one bf16

@@ -211,12 +211,14 @@ def test_cancelling_sum_holds_on_the_card(d):
 @pytest.mark.parametrize("name", fa.SOURCES)
 def test_every_chosen_design_has_an_instance(name):
     """``kernel_attrs`` asks the C entry point for the instance of the design
-    ``fa.design`` chooses; it raises where the source has none."""
+    ``fa.design`` chooses, for views TMA can read and for views it cannot;
+    it raises where the source has none."""
     _card()
-    for d in fa.HEAD_DIMS + (160,):
+    for d in fa.HEAD_DIMS + (160, 256, 320):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (False, True):
-                assert fa.kernel_attrs(name, d, dtype, dropout)["registers"] > 0
+                for tma in (True, False):
+                    assert fa.kernel_attrs(name, d, dtype, dropout, tma=tma)["registers"] > 0
 
 
 @pytest.mark.cuda
@@ -231,7 +233,7 @@ def test_entry_points_refuse_a_design_without_an_instance(launch, d, dtype, forc
     q, k, v, do = _fused(2, 64, 2, d, getattr(torch, dtype), rng)
     seg = torch.ones(2, 64, dtype=torch.int32, device="cuda")
     kw = {"p_drop": 0.0, "seed": 0, "bh_offset": 0, "scale": d ** -0.5}
-    o, lse = fa._launch_fwd(q, k, v, seg, **kw)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg)
     _, delta = fa._launch_dq(q, k, v, seg, o, lse, do, **kw)
     calls = {"fwd": lambda: fa._launch_fwd(q, k, v, seg, force=force, **kw),
              "dq": lambda: fa._launch_dq(q, k, v, seg, o, lse, do, force=force, **kw),
