@@ -7,10 +7,11 @@ on one NVIDIA GPU: the quickest proof that the port still starts there.
 Phases; any failure exits non-zero before the last line is printed:
 
 1. Card: its name and power limit (``nvidia-smi``). No CUDA -> exit 1.
-2. Build the three flash-attention kernels (forward, dQ, dK/dV) from
-   ``glearning_benchmark_tpu_torch/csrc/*.cu`` with nvcc for sm_90a, one
-   compiler per source, side by side; each library's SASS must hold HMMA
-   (mma.sync) and HGMMA (wgmma) instructions.
+2. Build the three flash-attention kernels (forward, dQ, dK/dV) and the
+   hash-dropout kernel from ``glearning_benchmark_tpu_torch/csrc/*.cu``
+   with nvcc for sm_90a, one compiler per source, side by side; each
+   attention library's SASS must hold HMMA (mma.sync) and HGMMA (wgmma)
+   instructions.
 3. Forward kernel against its plain version on the card: the AGTT-ZINC shape
    [64, 1024, 4, 16] bf16 with a ragged key mask, packed segments with a
    pad tail, the IBTT-ZINC head dim 4 at L = 600, f32, and dropout
@@ -49,6 +50,26 @@ Phases; any failure exits non-zero before the last line is printed:
    all pad, one segment a row). The forward kernel's breakdown splits its
    time the same way, at the packed train rows and at the served AGTT
    rows.
+4b. The hash-dropout kernel (``csrc/hash_dropout.cu``). First which
+   rounding the plain path's ``x / c`` takes on the card and on the CPU
+   (the kernel multiplies by the f32 reciprocal; the card's plain path must
+   too). Then every entry point (``cheap_dropout``, ``hash_dropout``, the
+   attention-probability dropout's ``cheap_dropout`` over [B, H, L, L]) on
+   the shapes and placements of every site at agtt_zinc width (the
+   transformer's [B, L, d] and [B, L, d_ff], a DP rank's batch offset, MoE's
+   [E, B, C, f] with its batch on axis 1 and an expert block, an SP token
+   block, graph nodes [N, F] at a row offset), last axes of 30 and 1, and
+   two [2, 1024, 1024] tensors whose global index crosses 2**32, in bf16
+   and f32 at p 0.1, 26/256 and 0.5: one launch forward and one backward,
+   outputs and gradients equal to the plain version bit for bit; rate 0 is a
+   no-op with no launch and 255.9/256 raises. One agtt_zinc-width training
+   step (the first minibatch, from the config's seed) through the kernel,
+   twice, and through ``cheap_dropout_reference``: equal loss and
+   gradients, bit for bit, 6 launches a layer. Then the kernel, the plain
+   int64 path and the kernel's bound at [64, 1024, 1024] and [64, 1024,
+   4096] bf16 (mfu_bench's d_model 1024 rows), and ``tools.dropout_microbench``
+   at its default shape with 3 iterations. Every training phase below also
+   requires the kernel's launches (a token model's: 6 a layer and step).
 5. Serving at full width: an ``agtt_zinc``-width model (the literal below,
    random weights from ``--seed``, bf16 compute) is saved through the
    port's ``save_checkpoint``, restored by ``Predictor.from_checkpoint`` on
@@ -174,7 +195,11 @@ Phases; any failure exits non-zero before the last line is printed:
    with a block of 4 steps (every row ``valid`` with 0 < mfu <= 1, the
    attention kernels launched); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
    and xl; ``tools.serve_bench`` for agtt and MPNN at buckets 1 and 256
-   (1-epoch checkpoints on phase 7's corpus, 3 warm requests).
+   (1-epoch checkpoints on phase 7's corpus, 3 warm requests);
+   ``tools.scaling_bench`` at N = 1 and 2 (1,000 molecules a host, vocab
+   and ids held to one process's), one ``tools.run_benchmarks`` run
+   (mpnn-cycle, 1 epoch, on phase 7's corpus) and
+   ``examples.gcn_vs_gat`` (20 epochs; the hash-dropout kernel launched).
 12. One JSON line of every kernel (name, launches, errors, times, bound,
    every instance with its design and resources), then the result line
    ``{"ok": true, "device": {...}}``.
@@ -192,9 +217,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from glearning_benchmark_tpu_torch.ops import hash_dropout as hd
 from glearning_benchmark_tpu_torch.ops.flash_attention import allowed_pairs, bound, bound_bwd
 from glearning_benchmark_tpu_torch.utils.card import cuda_ms, nvidia_smi
 
@@ -317,6 +344,21 @@ SERVED_LOGIT_ATOL = 1e-6
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches(fa) -> None:
+    """Every kernel's launch counter to 0."""
+    fa.reset_launches()
+    hd.reset_launches()
+
+
+def launches_now(fa) -> dict:
+    """Every kernel's launches since the last :func:`reset_launches`."""
+    return {**fa.LAUNCHES, **hd.LAUNCHES}
+
+
+def attention_launches(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k != "hash_dropout"}
 
 
 def fmt_ms(readings: list) -> str:
@@ -703,6 +745,228 @@ def fwd_breakdown(fa, rows: dict, gen: torch.Generator, p: float) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the hash-dropout kernel against its plain version
+# ---------------------------------------------------------------------------
+
+DROP_RATES = (0.1, 26 / 256, 0.5)
+# mfu_bench's d_model 1024 rows: the transformer's [B, L, d] and [B, L, d_ff]
+DROP_TIME_SHAPES = ((64, 1024, 1024), (64, 1024, 4096))
+DROP_MICROBENCH_ITERS = 3
+
+
+def dropout_cases(row_bs: int, l: int) -> list:
+    """(label, kind, shape, placement) of every dropout site's tensor at
+    agtt_zinc width (d 64, d_ff 256, 4 experts of capacity 32 for MoE):
+    "blocked" runs ``cheap_dropout``, "element" ``hash_dropout``; the last
+    two place the tensor so that its global index crosses 2**32."""
+    half = l // 2
+    return [
+        ("transformer [B, L, d]", "blocked", (row_bs, l, 64), {}),
+        ("transformer [B, L, d_ff]", "blocked", (row_bs, l, 256), {}),
+        ("DP rank 1 of 2", "blocked", (row_bs, l, 64),
+         {"batch_offset": row_bs, "batch_total": 2 * row_bs}),
+        ("MoE [E, B, C, f], DP rank 1, EP rank 1", "blocked", (2, row_bs, 32, 256),
+         {"batch_axis": 1, "batch_offset": row_bs, "batch_total": 2 * row_bs,
+          "place": {0: (2, 4)}}),
+        ("SP token block 1 of 2, DP rank 1", "blocked", (row_bs, half, 64),
+         {"batch_offset": row_bs, "place": {1: (half, l)}}),
+        ("last axis 30", "blocked", (64, 128, 30), {}),
+        ("last axis 1", "blocked", (64, 128, 1), {"batch_offset": 3}),
+        ("GPS probabilities [B, H, L, L], rows 16..", "blocked", (16, 4, 128, 128),
+         {"batch_offset": 16}),
+        ("graph nodes [N, F], rows 4096..", "element", (4096, 64), {"batch_offset": 4096}),
+        ("[2, 1024, 1024] across 2**32", "blocked", (2, 1024, 1024),
+         {"batch_offset": 16383, "batch_total": 16385}),
+        ("[2, 1024, 1024] across 2**32", "element", (2, 1024, 1024), {"batch_offset": 4095}),
+    ]
+
+
+def dropout_fns(kind: str, seed: int, rate: float, place: dict) -> tuple:
+    """(the entry point, its plain version) of a case."""
+    from glearning_benchmark_tpu_torch.ops import attention as at
+
+    if kind == "element":
+        off = place["batch_offset"]
+        return (lambda t: at.hash_dropout(seed, t, rate, off),
+                lambda t: at.hash_dropout_reference(seed, t, rate, off))
+    return (lambda t: at.cheap_dropout(seed, t, rate, **place),
+            lambda t: at.cheap_dropout_reference(seed, t, rate, **place))
+
+
+def scale_rounding_probe(gen: torch.Generator) -> None:
+    """Which rounding of ``x / c`` (c a Python float, x a tensor) the plain
+    path takes: on the card x * (1 / c), the reciprocal once in f32, or a
+    true f32 division; on the CPU the same question. The kernel multiplies
+    by the f32 reciprocal (``hash_dropout.inverse_scale``); the card's plain
+    path must round the same."""
+    rows = []
+    for dev in ("cuda", "cpu"):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(1 << 20, device="cuda", generator=gen).to(dev, dt)
+            for c in (1 - 26 / 256, 0.9, 0.7, 0.5):
+                plain = x / c
+                mul = (x.float() * hd.inverse_scale(c)).to(dt)
+                div = (x.float() / torch.tensor(c, dtype=torch.float32, device=dev)).to(dt)
+                rows.append((dev, dt, c, int((plain != mul).sum()), int((plain != div).sum())))
+    for dev, dt, c, n_mul, n_div in rows:
+        log(f"[dropout] scale rounding on {dev}, {str(dt)[6:]}, x / {c}: differs from "
+            f"x * f32(1 / c) at {n_mul} and from f32 x / c at {n_div} of {1 << 20} elements")
+    if any(n_mul for dev, _, _, n_mul, _ in rows if dev == "cuda"):
+        raise AssertionError("the card's x / c does not round as x * (1 / c) in f32, "
+                             "which the kernel computes")
+
+
+def dropout_same_bits(label: str, fn, ref, shape, dtype, gen: torch.Generator) -> None:
+    """The entry point (one kernel launch forward, one backward) against
+    its plain version on the same x and gradient: equal outputs and
+    gradients, bit for bit."""
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
+    g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    hd.reset_launches()
+    out = fn(x)
+    (gx,) = torch.autograd.grad(out, x, g)
+    launches = hd.LAUNCHES["hash_dropout"]
+    xr = x.detach().requires_grad_()
+    want = ref(xr)
+    (gr,) = torch.autograd.grad(want, xr, g)
+    torch.cuda.synchronize()
+    if launches != 2 or not (torch.equal(out, want) and torch.equal(gx, gr)):
+        raise AssertionError(
+            f"hash dropout {label} {list(shape)} {dtype}: launches {launches} (want 2), "
+            f"{int((out != want).sum())} outputs and {int((gx != gr).sum())} gradients differ")
+
+
+def dropout_train_step(bundle, config: dict) -> None:
+    """One training step at agtt_zinc width (the first minibatch of the
+    run ``config`` describes, from its seed) through the kernel, twice, and
+    through the plain version (``cheap_dropout_reference`` in the
+    transformer's place): equal losses and gradients, bit for bit. The step
+    runs under ``torch.use_deterministic_algorithms`` (warnings only): a
+    gradient summed by atomics in another order on each run (the backward
+    of a gather) would part even two runs of the same step."""
+    import warnings
+    from unittest import mock
+
+    from glearning_benchmark_tpu_torch.models import transformer
+    from glearning_benchmark_tpu_torch.ops.attention import cheap_dropout_reference
+    from glearning_benchmark_tpu_torch.train.trainer import Layout, _batch_loss
+
+    def step():
+        model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, "cuda")
+        hd.reset_launches()
+        loss, _, _ = _batch_loss(model, arrays, idx[0], valid[0], bundle, gen, Layout(), 0.01)
+        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+        torch.cuda.synchronize()
+        return loss, dict(zip(opt.names, grads)), hd.LAUNCHES["hash_dropout"]
+
+    def differ(a, b) -> list:
+        return ([] if torch.equal(a[0], b[0]) else ["loss"]) + [
+            k for k, g in a[1].items()
+            if not ((g is None and b[1][k] is None) or torch.equal(g, b[1][k]))]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = [step(), step()]
+            with mock.patch.object(transformer, "cheap_dropout", cheap_dropout_reference):
+                runs.append(step())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nlayers = int(config["model"]["nlayers"])
+    again, plain = differ(runs[0], runs[1]), differ(runs[0], runs[2])
+    ops = sorted({str(w.message).split(" does not have")[0][:80] for w in caught})
+    log(f"[dropout] one agtt_zinc-width training step (deterministic algorithms; ops "
+        f"without a deterministic form: {ops or 'none'}): loss {runs[0][0].item():.6f} "
+        f"through the kernel ({runs[0][2]} launches), {runs[2][0].item():.6f} through the "
+        f"plain version ({runs[2][2]} launches); the kernel's step again: "
+        f"{'bit-equal' if not again else f'differs in {again}'}; the plain step, loss and "
+        f"{len(runs[0][1])} gradients: {'bit-equal' if not plain else f'differs in {plain}'}")
+    if [r[2] for r in runs] != [6 * nlayers, 6 * nlayers, 0] or again or plain:
+        raise AssertionError("the training step through the hash-dropout kernel differs "
+                             "from the plain one")
+
+
+def time_dropout(gen: torch.Generator, card: str) -> dict:
+    """Kernel, plain version and bound of ``cheap_dropout`` at 26/256 on
+    bf16 tensors of ``DROP_TIME_SHAPES`` (held bit-equal first). Returns
+    {"BxLxD": times}."""
+    from glearning_benchmark_tpu_torch.ops.attention import cheap_dropout_reference
+
+    out = {}
+    for shape in DROP_TIME_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        site = hd.blocked_site(shape, 7, 26, 1 - 26 / 256)
+        kernel = lambda: hd.launch(x, site)                       # noqa: E731
+        plain = lambda: cheap_dropout_reference(7, x, 26 / 256)   # noqa: E731
+        if not torch.equal(kernel(), plain()):
+            raise AssertionError(f"hash dropout {shape}: kernel and plain differ")
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+        bd = hd.bound(x, site)
+        out["x".join(map(str, shape))] = {
+            "ms": min(ms), "plain_ms": min(plain_ms), "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": None}
+        log(f"[dropout] time {list(shape)} bf16 p 26/256: kernel {fmt_ms(ms)} ms "
+            f"(bound {bd['bound_ms']:.4f} ms, {bd['bound_by']}: {bd['bytes'] / 1e9:.3f} GB; "
+            f"{bd['bound_ms'] / min(ms):.2f} of it), plain int64 ops {fmt_ms(plain_ms)} ms "
+            f"({min(plain_ms) / min(ms):.1f}x), no library call computes this hash; on {card}")
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def dropout_phase(gen: torch.Generator, bundle, config: dict, row_bs: int, l: int,
+                  tmp: str, card: str) -> dict:
+    """Phase 4b (module docstring). Returns the timings by shape."""
+    from glearning_benchmark_tpu_torch.ops import attention as at
+    from glearning_benchmark_tpu_torch.tools import dropout_microbench
+
+    t0 = time.perf_counter()
+    scale_rounding_probe(gen)
+    n = 0
+    for label, kind, shape, place in dropout_cases(row_bs, l):
+        if shape[-1] == 1024:            # the 2**32 cases: check the crossing
+            site = (hd.blocked_site(shape, 0, 26, 0.9, **place) if kind == "blocked" else
+                    hd.element_site(shape, 0, 1, 0.9, place["batch_offset"]))
+            first = ((place["batch_offset"] * math.prod(shape[1:]))
+                     // (4 if kind == "blocked" else 1))
+            rows, per_row = hd.words(site)
+            if not first < 2**32 < first + rows * per_row or site.base != first % 2**32:
+                raise AssertionError(f"{label} {kind}: its index does not cross 2**32")
+        for dt in (torch.bfloat16, torch.float32):
+            for i, rate in enumerate(DROP_RATES):
+                dropout_same_bits(f"{label} ({kind}) p {rate:.4f}",
+                                  *dropout_fns(kind, 1000 + 7 * i, rate, place), shape, dt, gen)
+                n += 1
+    x = torch.randn(8, 16, device="cuda", generator=gen)
+    hd.reset_launches()
+    if not (at.cheap_dropout(1, x, 0.0) is x and at.cheap_dropout(1, x, 0.001) is x
+            and at.hash_dropout(1, x, 0.0) is x and hd.LAUNCHES["hash_dropout"] == 0):
+        raise AssertionError("rate 0 (or one that rounds to 0/256) is not a no-op")
+    try:
+        at.cheap_dropout(1, x, 255.9 / 256)
+        raise AssertionError("a rate that rounds to 256/256 did not raise")
+    except ValueError:
+        pass
+    log(f"[dropout] {n} cases bit-equal to the plain version, forward and backward "
+        f"(each site's shape and placement, bf16 and f32, p {DROP_RATES}), the index "
+        f"across 2**32 included; rate 0 no launch; 255.9/256 raises; "
+        f"{time.perf_counter() - t0:.1f} s")
+    dropout_train_step(bundle, config)
+    timing = time_dropout(gen, card)
+    t1 = time.perf_counter()
+    rows = captured(dropout_microbench.main, [
+        "--iters", str(DROP_MICROBENCH_ITERS), "--out", os.path.join(tmp, "dropout_mb.json")])
+    variants = [r["variant"] for r in rows[:-1]]
+    if variants != list(dropout_microbench.VARIANTS) or not all(
+            r["fwdbwd_ms"] > 0 for r in rows[:-1]):
+        raise AssertionError(f"dropout_microbench: unexpected rows {rows}")
+    log(f"[dropout] dropout_microbench ({DROP_MICROBENCH_ITERS} iterations): {time.perf_counter() - t1:.1f} s")
+    log(f"[phase] hash dropout {time.perf_counter() - t0:.1f} s")
+    return timing
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serving
 # ---------------------------------------------------------------------------
 
@@ -844,16 +1108,18 @@ def train_config(model_name: str, model_cfg: dict, zinc_root: str, out_dir: str,
 
 def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
     """``train()`` of the port on cuda; checks the losses and the launch
-    counters (a graph model launches no attention kernel). Returns
-    (result, launches)."""
+    counters (a graph model launches no attention kernel; every model with
+    dropout launches the hash-dropout kernel, a token model 6 times a layer
+    and step: three sites, forward and backward). Returns (result,
+    launches)."""
     from glearning_benchmark_tpu_torch.train.trainer import train, train_batch_size
 
-    fa.reset_launches()
+    reset_launches(fa)
     t0 = time.perf_counter()
     res = train(config, model_name, limit=limit, device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = launches_now(fa)
     bundle = res.bundle
     tr = bundle.splits["train"]
     task = config["dataset"]["task"]
@@ -874,15 +1140,16 @@ def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
             f"rows, {len(res.step_losses[0])} steps an epoch; whole call {secs:.1f} s on "
             f"{card}")
         want = {"flash_attn_fwd": nlayers * (steps + eval_batches),
-                "flash_attn_bwd_dq": nlayers * steps, "flash_attn_bwd_dkv": nlayers * steps}
+                "flash_attn_bwd_dq": nlayers * steps, "flash_attn_bwd_dkv": nlayers * steps,
+                "hash_dropout": 6 * nlayers * steps}
         expect = (f"forward {nlayers} x ({steps} steps + {eval_batches} eval batches), "
-                  f"backward {nlayers} x {steps} each")
+                  f"backward {nlayers} x {steps} each, hash dropout 6 x {nlayers} x {steps}")
     else:
         log(f"[train] {model_name}-{task}: graphs [{bs}, {tr['adj'].shape[1]} nodes, "
             f"{bundle.in_dim} features], {bundle.n('train')} train graphs, "
             f"{len(res.step_losses[0])} steps an epoch; whole call {secs:.1f} s on {card}")
-        want = {name: 0 for name in launches}
-        expect = "none: the graph models use no hand-written kernel"
+        want = {**{name: 0 for name in launches}, "hash_dropout": launches["hash_dropout"]}
+        expect = "no attention kernel; the hash-dropout kernel at every dropout site"
     metric = "train/mae" if task == "zinc" else "train/acc"
     for h in res.history:
         log(f"[train] {model_name}-{task} epoch {h['epoch']}: train loss "
@@ -890,13 +1157,14 @@ def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
             f"{h[metric]:.4f}, grad norm {h['train/grad_norm']:.3f}, "
             f"{h['time/epoch_duration']:.2f} s, "
             f"{h['throughput/graphs_per_sec']:.1f} examples/s")
-    log(f"[train] {model_name}-{task}: kernel launches {launches} (expected {expect})")
+    log(f"[train] {model_name}-{task}: kernel launches {launches} (expected {expect}); "
+        f"hash dropout {launches['hash_dropout'] / max(steps, 1):.1f} launches a step")
     losses = [v for h in res.history for v in (h["train/loss"], h["val/loss"])]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{model_name}: a training or validation loss is not finite")
     if len(res.history) > 1 and not res.history[-1]["train/loss"] < res.history[0]["train/loss"]:
         raise AssertionError(f"{model_name}: the training loss did not fall")
-    if launches != want:
+    if launches != want or not launches["hash_dropout"] > 0:
         raise AssertionError(f"{model_name}: kernel launches {launches}, expected {want}")
     return res, launches
 
@@ -1015,8 +1283,8 @@ KERNEL_GROUPS = (
     ("LayerNorm forward", ("layer_norm", "LayerNorm")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma", "cublas", "gemv")),
     ("optimizer (foreach)", ("multi_tensor",)),
-    ("dropout hash ops (int64)", ("Bitwise", "bitwise", "shift", "<long", "long>",
-                                  "long,")),
+    ("hash-dropout kernel", ("hash_dropout",)),
+    ("int64 elementwise ops", ("Bitwise", "bitwise", "shift", "<long", "long>", "long,")),
 )
 
 
@@ -1581,10 +1849,11 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
             results["vocab_s"] = time.perf_counter() - t0
             continue
         fa.reset_launches()
+        hd.reset_launches()
         res = train(job["config"], job["model"], limit=job["limit"], verbose=False,
                     device=dev)
         torch.cuda.synchronize()
-        launches = dict(fa.LAUNCHES)
+        launches = {**fa.LAUNCHES, **hd.LAUNCHES}
         # the model train() returned (whole, on this rank) on the first val rows
         val = res.bundle.splits["val"]
         batch = {k: torch.from_numpy(v[:CPU_CHECK_ROWS]).to(dev) for k, v in val.items()}
@@ -1670,7 +1939,8 @@ def dp_against_single(name: str, ranks: list, single, single_launches: dict,
                 raise AssertionError(f"{name}: rank {r} disagrees with rank 0 on "
                                      f"(rank 0, rank {r}) {differ}")
     for r, g in enumerate(got):
-        if g["launches"] != single_launches:
+        if (attention_launches(g["launches"]) != attention_launches(single_launches)
+                or not g["launches"]["hash_dropout"] > 0):
             raise AssertionError(f"{name}: rank {r} kernel launches {g['launches']}, "
                                  f"one process {single_launches}")
     layout = (f"{len(got)} ranks sharing one card (not a scaling figure)"
@@ -1839,12 +2109,13 @@ def mesh_against_single(name: str, ranks: list, cfg: dict, single,
     for r, g in enumerate(got[1:], 1):
         if _metrics(g["history"]) != _metrics(got[0]["history"]):
             raise AssertionError(f"{name}: rank {r} disagrees with rank 0")
-    want = ({k: 0 for k in single_launches} if name.startswith("sp_")
-            else single_launches)
+    want = attention_launches(single_launches)
+    if name.startswith("sp_"):
+        want = {k: 0 for k in want}
     for r, g in enumerate(got):
-        if g["launches"] != want:
+        if attention_launches(g["launches"]) != want or not g["launches"]["hash_dropout"] > 0:
             raise AssertionError(f"{name}: rank {r} kernel launches {g['launches']}, "
-                                 f"expected {want}")
+                                 f"expected {want} and hash-dropout launches")
     layout = (f"{len(got)} ranks sharing one card (not a scaling figure)"
               if torch.cuda.device_count() < len(got) else f"{len(got)} ranks, a card each")
     for h, w in zip(got[0]["history"], single.history):
@@ -1935,6 +2206,8 @@ AB_SHAPES = "ibtt-zinc,agtt-zinc,xl"
 SERVE_FAMILIES = (("agtt", "agtt_graph_token"), ("mpnn", "mpnn_graph_token"))
 SERVE_BUCKETS = (1, 256)
 SERVE_REPS = 3
+SCALING_MOLS = 1000              # molecules a host of the scaling bench
+GCN_GAT_EPOCHS = 20
 
 
 def instances(fa) -> dict:
@@ -2159,17 +2432,17 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
         f"{time.perf_counter() - t0:.1f} s on {card}")
 
     t0 = time.perf_counter()
-    fa.reset_launches()
+    reset_launches(fa)
     rows = captured(mfu_bench.main, ["--steps", str(MFU_STEPS),
                                      "--out", os.path.join(tmp, "mfu.json")])[:-1]
-    launches = {"mfu_bench": dict(fa.LAUNCHES)}
+    launches = {"mfu_bench": launches_now(fa)}
     for row in rows:
         if not (row["valid"] and 0 < row["mfu"] <= 1):
             raise AssertionError(f"mfu_bench d_model {row['d_model']}: not a valid row: {row}")
     if [r["d_model"] for r in rows] != [256, 512, 1024]:
         raise AssertionError("mfu_bench did not run the three widths")
     if min(launches["mfu_bench"].values()) == 0:
-        raise AssertionError(f"mfu_bench ran no attention kernel: {launches}")
+        raise AssertionError(f"mfu_bench ran no attention or hash-dropout kernel: {launches}")
     log(f"[tools] mfu_bench: " + "; ".join(
         f"d_model {r['d_model']} step {r['step_s'] * 1e3:.2f} ms, mfu {r['mfu']:.4f}, "
         f"mfu_vs_measured {r['mfu_vs_measured']:.4f}" for r in rows)
@@ -2191,7 +2464,52 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
             raise AssertionError(f"serve_bench {family}: {res}")
     log(f"[tools] serve_bench {[f for f, _ in SERVE_FAMILIES]} buckets {SERVE_BUCKETS}: "
         f"{time.perf_counter() - t0:.1f} s")
+    launches.update(late_tools(fa, tmp, gt_root))
     return errs, berrs, timing, resources, launches
+
+
+def late_tools(fa, tmp: str, gt_root: str) -> dict:
+    """The scaling bench at N = 1 and 2 (``SCALING_MOLS`` a host), one run
+    of the results campaign (mpnn-cycle, 1 epoch, on phase 7's corpus) and
+    the GCN-vs-GAT example (``GCN_GAT_EPOCHS``). Returns the example's
+    launches."""
+    from glearning_benchmark_tpu_torch.examples import gcn_vs_gat
+    from glearning_benchmark_tpu_torch.tools import run_benchmarks, scaling_bench
+
+    t0 = time.perf_counter()
+    line = captured(scaling_bench.main, ["--mols", str(SCALING_MOLS), "--hosts", "1,2",
+                                         "--reps", "2", "--out",
+                                         os.path.join(tmp, "scaling.json")])[-1]
+    eff = line["tokenize_efficiency"]
+    if sorted(eff) != ["1", "2"] or not all(v > 0 for v in eff.values()):
+        raise AssertionError(f"scaling_bench: {line}")
+    log(f"[tools] scaling_bench at N = 1, 2 ({SCALING_MOLS} molecules a host; vocab and "
+        f"ids equal to one process's): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "campaign", "results.json")
+    line = captured(run_benchmarks.main, [
+        "--only", "mpnn-cycle", "--out", out, "--override", "train.epochs=1",
+        "--override", f"dataset.graph_token_root={json.dumps(gt_root)}",
+        "--override", f"output.out_dir={json.dumps(os.path.join(tmp, 'campaign'))}"])[-1]
+    with open(out) as f:
+        run = json.load(f)["mpnn-cycle"]
+    if line["errors"] or run["epochs"] != 1 or not 0 <= run["best_val"] <= 1:
+        raise AssertionError(f"run_benchmarks mpnn-cycle: {run}")
+    log(f"[tools] run_benchmarks mpnn-cycle, 1 epoch: best val {run['best_val']:.4f} (JAX "
+        f"package, 100 epochs: {run['jax_best_val']}); {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reset_launches(fa)
+    line = captured(gcn_vs_gat.main, ["--epochs", str(GCN_GAT_EPOCHS),
+                                      "--out", os.path.join(tmp, "gcn_vs_gat.json")])[-1]
+    launches = launches_now(fa)
+    acc = [v for r in line["accuracies"].values() for v in r.values()]
+    if not (all(0 <= v <= 1 for v in acc) and launches["hash_dropout"] > 0):
+        raise AssertionError(f"gcn_vs_gat: {line}, launches {launches}")
+    log(f"[tools] gcn_vs_gat, {GCN_GAT_EPOCHS} epochs: {line['accuracies']}; hash dropout "
+        f"{launches['hash_dropout']} launches; {time.perf_counter() - t0:.1f} s")
+    return {"gcn_vs_gat": launches}
 
 
 def main() -> int:
@@ -2222,7 +2540,11 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    for name, secs in fa.build_seconds().items():
+    with ThreadPoolExecutor(1) as pool:
+        hd_build = pool.submit(hd.build_seconds)       # beside the attention kernels
+        fa_secs = fa.build_seconds()
+        fa_secs["hash_dropout"] = hd_build.result()
+    for name, secs in fa_secs.items():
         log(f"[build] {name} for sm_90a: nvcc {secs:.1f} s")
     log(f"[build] all kernels built side by side in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2332,6 +2654,10 @@ def main() -> int:
                                 ibtt_seg_train, strided_do(ibtt_shape, torch.bfloat16, gen),
                                 p_train, 7, "ibtt-zinc train rows")
         bwd_breakdown(fa, seg_train, gen, p_train)
+
+        # phase 4b: the hash-dropout kernel against its plain version, one
+        # training step through both, its time and the dropout microbench
+        drop_timing = dropout_phase(gen, bundle, agtt_cfg, row_bs, l_train, tmp, card)
 
         paths = {"agtt": serve_checkpoint(tmp, "agtt", AGTT_ZINC_MODEL, graphs, args.seed),
                  "ibtt": serve_checkpoint(tmp, "ibtt", IBTT_ZINC_MODEL, ibtt_graphs,
@@ -2477,6 +2803,17 @@ def main() -> int:
                 *((rows, bt) for rows, bt in gtiming.items() if name in bt),
                 *((rows, bt) for rows, bt in htiming.items() if name in bt))},
             "instances": {k: v for k, v in resources.items() if k.startswith(name + "_")}})
+    t = drop_timing["x".join(map(str, DROP_TIME_SHAPES[-1]))]
+    kernels.append({
+        "name": "hash_dropout", "route": "cuda", "source": src + "hash_dropout.cu",
+        "replaces": "glearning_benchmark_tpu/ops/attention.py:62-153 (XLA-fused, no pallas_call)",
+        "launches": train_launches["hash_dropout"], "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "launches_by_path": {"train_agtt": train_launches["hash_dropout"],
+                             **{path: n["hash_dropout"] for path, n in
+                                {**graph_launches, **dp_launches}.items()}},
+        "by_shape": drop_timing})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

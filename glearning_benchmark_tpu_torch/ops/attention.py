@@ -9,8 +9,10 @@ the whole tensor, and the four bytes of word ``w`` cover the blocked
 positions ``w, w + S/4, w + 2S/4, w + 3S/4`` of the last axis.
 ``dropout_keep_mask`` draws its words from threefry2x32 as
 ``jax.random.bits`` does with ``jax_threefry_partitionable`` (the default
-of jax 0.9), from the key's two u32 words (``jax.random.key_data``); the
-hash helpers take an explicit ``int`` seed. ``multi_head_attention`` is the
+of jax 0.9), from the key's two u32 words (``jax.random.key_data``), and
+:func:`bernoulli` is ``jax.random.bernoulli`` on the same words (the
+dropout microbench's flax-style variant); the hash helpers take an
+explicit ``int`` seed. ``multi_head_attention`` is the
 eager reference of the XLA attention path; the model's attention goes
 through :mod:`.flash_attention` (and, sequence-parallel, through
 :mod:`.ring_attention`).
@@ -25,6 +27,13 @@ gives any other axes' (offset, global size), as a sequence-parallel rank's
 token block (axis 1) or an expert-parallel rank's experts (axis 0). With
 one process every offset is 0 and the masks are unchanged.
 
+``cheap_dropout`` and ``hash_dropout`` run on a CUDA tensor as one launch
+of the hash-dropout kernel (:mod:`.hash_dropout`, the counterpart of the
+fused XLA pass the JAX package's functions compile to), forward and
+backward; on a CPU tensor as their plain versions, the int64 torch ops of
+``cheap_dropout_reference`` and ``hash_dropout_reference``, which give the
+same bits.
+
 ``hash_dropout`` has no JAX counterpart: it stands in for flax's
 ``nn.Dropout`` (threefry Bernoulli masks) in the graph models, with the
 same counter hash at a full 32-bit threshold, so its rate is exact and the
@@ -38,6 +47,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from .flash_attention import _U32, _keep_threshold, _mul_u32
+from .hash_dropout import blocked_site, dropout, element_site, placement
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -72,6 +82,17 @@ def random_bits(key: Sequence[int], shape, device: torch.device | str = "cpu"
     idx = torch.arange(n, dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(key, idx >> 32, idx & _U32)
     return (x0 ^ x1).view(tuple(shape))
+
+
+def bernoulli(key: Sequence[int], p: float, shape,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: bool[shape], True where the
+    uniform f32 in [0, 1) of the element's threefry word (:func:`random_bits`;
+    its top 23 bits as the mantissa of a float in [1, 2), minus 1) lies
+    below the f32 of ``p``."""
+    bits = random_bits(key, shape, device)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return u < torch.tensor(p, dtype=torch.float32)
 
 
 def dropout_keep_mask(key: Sequence[int], shape, rate: float,
@@ -123,23 +144,7 @@ def _global_index(shape, device, batch_axis: int, batch_offset: int,
     n = 1
     for size in shape:
         n *= size
-    if batch_axis < 0 or batch_axis >= max(len(shape), 1):
-        raise ValueError(f"batch_axis {batch_axis} out of range for {shape}")
-    if batch_total is None:
-        if batch_axis > 0 and batch_offset > 0:
-            raise ValueError("a batch axis that is not the leading one needs "
-                             "batch_total")
-        batch_total = batch_offset + shape[batch_axis]
-    at = {batch_axis: (int(batch_offset), int(batch_total))}
-    for ax, (offset, total) in (place or {}).items():
-        if ax == batch_axis or not 0 <= ax < len(shape) - 1:
-            raise ValueError(f"place axis {ax} is the batch axis or out of range "
-                             f"for {shape} (the last axis holds the words)")
-        at[ax] = (int(offset), int(total))
-    for ax, (offset, total) in at.items():
-        if offset < 0 or offset + shape[ax] > total:
-            raise ValueError(f"block {offset}..{offset + shape[ax]} of axis {ax} "
-                             f"lies outside its global size {total}")
+    at = placement(shape, batch_axis, batch_offset, batch_total, place)
     arange = dict(dtype=torch.int64, device=device)
     if all(total == shape[ax] for ax, (_, total) in at.items() if ax != 0):
         # one contiguous run of the global tensor's indices
@@ -180,13 +185,14 @@ def hash_keep_mask(seed_u32: int, shape, rate: float,
     return keep[..., :s_last], thresh / 256.0
 
 
-def cheap_dropout(seed_u32: int, x: torch.Tensor, rate: float, *,
-                  batch_axis: int = 0, batch_offset: int = 0,
-                  batch_total: Optional[int] = None,
-                  place: Optional[Dict[int, Tuple[int, int]]] = None) -> torch.Tensor:
-    """Inverted dropout on activations by :func:`hash_keep_mask` (the same
-    placement arguments): kept elements are divided by ``1 - p'`` in x's
-    dtype, dropped ones are zero."""
+def cheap_dropout_reference(seed_u32: int, x: torch.Tensor, rate: float, *,
+                            batch_axis: int = 0, batch_offset: int = 0,
+                            batch_total: Optional[int] = None,
+                            place: Optional[Dict[int, Tuple[int, int]]] = None
+                            ) -> torch.Tensor:
+    """The plain version of :func:`cheap_dropout`: the keep mask of
+    :func:`hash_keep_mask` as int64 torch ops, then kept elements divided by
+    ``1 - p'`` in x's dtype, dropped ones zero."""
     if _quantised_threshold(rate) <= 0:
         return x
     keep, p_eff = hash_keep_mask(seed_u32, x.shape, rate, device=x.device,
@@ -196,19 +202,51 @@ def cheap_dropout(seed_u32: int, x: torch.Tensor, rate: float, *,
                                                             device=x.device))
 
 
-def hash_dropout(seed_u32: int, x: torch.Tensor, rate: float,
-                 batch_offset: int = 0) -> torch.Tensor:
-    """Inverted dropout with a full 32-bit threshold: element ``i`` of x
-    (its linear index; with ``batch_offset``, its index in a global tensor
-    of which x holds rows ``batch_offset ..`` of the leading axis) is kept
-    iff ``_hash1_u32(seed, i) >= rate * 2**32``, and kept elements are
-    divided by ``1 - rate`` in x's dtype."""
+def cheap_dropout(seed_u32: int, x: torch.Tensor, rate: float, *,
+                  batch_axis: int = 0, batch_offset: int = 0,
+                  batch_total: Optional[int] = None,
+                  place: Optional[Dict[int, Tuple[int, int]]] = None) -> torch.Tensor:
+    """Inverted dropout on activations by :func:`hash_keep_mask` (the same
+    placement arguments): kept elements are divided by ``1 - p'`` in x's
+    dtype, dropped ones are zero. Differentiable, with no mask kept
+    (``hash_dropout.HashDropoutFunction``): a CUDA tensor runs the
+    hash-dropout kernel, a CPU tensor :func:`cheap_dropout_reference`."""
+    thresh = _quantised_threshold(rate)
+    if thresh <= 0:
+        return x
+    site = blocked_site(x.shape, seed_u32, thresh, 1.0 - thresh / 256.0,
+                        batch_axis=batch_axis, batch_offset=batch_offset,
+                        batch_total=batch_total, place=place)
+    return dropout(x, site, lambda t: cheap_dropout_reference(
+        seed_u32, t, rate, batch_axis=batch_axis, batch_offset=batch_offset,
+        batch_total=batch_total, place=place))
+
+
+def hash_dropout_reference(seed_u32: int, x: torch.Tensor, rate: float,
+                           batch_offset: int = 0) -> torch.Tensor:
+    """The plain version of :func:`hash_dropout`, int64 torch ops."""
     if rate <= 0.0:
         return x
     idx = _global_index(x.shape, x.device, 0, int(batch_offset), None)
     keep = (_hash1_u32(int(seed_u32) & _U32, idx) >= _keep_threshold(rate)).view(x.shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
+
+
+def hash_dropout(seed_u32: int, x: torch.Tensor, rate: float,
+                 batch_offset: int = 0) -> torch.Tensor:
+    """Inverted dropout with a full 32-bit threshold: element ``i`` of x
+    (its linear index; with ``batch_offset``, its index in a global tensor
+    of which x holds rows ``batch_offset ..`` of the leading axis) is kept
+    iff ``_hash1_u32(seed, i) >= rate * 2**32``, and kept elements are
+    divided by ``1 - rate`` in x's dtype. Differentiable as
+    :func:`cheap_dropout` is: the kernel on a CUDA tensor,
+    :func:`hash_dropout_reference` on a CPU one."""
+    if rate <= 0.0:
+        return x
+    site = element_site(x.shape, seed_u32, _keep_threshold(rate), 1.0 - rate, batch_offset)
+    return dropout(x, site, lambda t: hash_dropout_reference(seed_u32, t, rate,
+                                                             batch_offset))
 
 
 def multi_head_attention(
@@ -225,8 +263,9 @@ def multi_head_attention(
     Returns [B, L, H, D]. With ``seg``, tokens attend only within their own
     segment; query rows that may attend nothing emit exact zeros.
     ``dropout_rate`` with a ``dropout_seed`` drops attention probabilities
-    by :func:`hash_keep_mask` over the [B, H, L, S] tensor, whose rows are
-    rows ``batch_offset ..`` of the global batch."""
+    by :func:`cheap_dropout` (the bits of :func:`hash_keep_mask`) over the
+    [B, H, L, S] tensor, whose rows are rows ``batch_offset ..`` of the
+    global batch."""
     d = q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=q.dtype))
     logits = torch.einsum("blhd,bshd->bhls", q, k) * scale
@@ -242,9 +281,6 @@ def multi_head_attention(
     probs = torch.softmax(logits, dim=-1)
     if allow is not None:
         probs = torch.where(allow, probs, 0.0)
-    if dropout_rate > 0.0 and dropout_seed is not None \
-            and _quantised_threshold(dropout_rate) > 0:
-        keep, p_eff = hash_keep_mask(dropout_seed, probs.shape, dropout_rate,
-                                     device=probs.device, batch_offset=batch_offset)
-        probs = torch.where(keep, probs / (1.0 - p_eff), 0.0)
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        probs = cheap_dropout(dropout_seed, probs, dropout_rate, batch_offset=batch_offset)
     return torch.einsum("bhls,bshd->blhd", probs, v)

@@ -7,7 +7,10 @@
 - ``tools.flash_ab``: the attention kernels against plain attention and
   ``scaled_dot_product_attention``;
 - ``tools.export_zinc`` and ``tools.graph_stats_report``: the ZINC export
-  and the corpus statistics report.
+  and the corpus statistics report;
+- ``tools.dropout_microbench``: how to draw and apply the FFN dropout mask;
+- ``tools.scaling_bench``: the north star at N processes;
+- ``tools.run_benchmarks``: the results campaign beside the JAX package's.
 
 Each prints one JSON object per result line, the summary last, every line
 with the card's name and power limit (``"card"``), and writes its results

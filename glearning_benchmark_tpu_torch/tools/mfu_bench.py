@@ -158,9 +158,10 @@ def time_block(step: Step, k: int) -> Tuple[float, float]:
 
 
 # kernel groups of the step's device time, by name: the attention kernels,
-# the cuBLAS GEMMs, the rest by kernel
+# the hash-dropout kernel, the cuBLAS GEMMs, the rest by kernel
 KERNEL_GROUPS = (("attention kernels", ("attn_fwd_kernel", "attn_bwd_dq_kernel",
                                         "attn_bwd_dkv_kernel")),
+                 ("hash-dropout kernel", ("hash_dropout",)),
                  ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")))
 
 

@@ -12,7 +12,11 @@ has the same function:
   ``save_zinc_npz`` and back through ``load_zinc_split``;
 - ``graph_stats_report`` equals the root tool's ``summarize`` and
   ``compare_corpora`` through the JAX package's modules, on 8 graphs an
-  algorithm.
+  algorithm;
+- ``dropout_microbench``: each variant's drop keeps the bits of its plain
+  mask (the threefry blocked bytes, ``jax.random.bernoulli``'s, the counter
+  hash), ``ops.attention.bernoulli`` equals ``jax.random.bernoulli`` bit for
+  bit, and the tool gives a row a variant at a tiny shape.
 """
 
 import importlib.util
@@ -28,7 +32,9 @@ import torch
 
 from glearning_benchmark_tpu_torch import bench
 from glearning_benchmark_tpu_torch.data.zinc import load_zinc_split
-from glearning_benchmark_tpu_torch.tools import flash_ab, graph_stats_report, mfu_bench, serve_bench
+from glearning_benchmark_tpu_torch.ops import attention
+from glearning_benchmark_tpu_torch.tools import (dropout_microbench, flash_ab, graph_stats_report,
+                                               mfu_bench, serve_bench)
 from glearning_benchmark_tpu_torch.tools.export_zinc import data_to_graph
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -160,3 +166,46 @@ def test_graph_stats_report_equals_the_root_tool(tmp_path):
                                                 "--out", str(tmp_path / "gs.json")])
     assert line["card"] == CPU and len(line["degree_mmd"]) == 2
     assert os.path.isfile(tmp_path / "gs.json")
+
+
+def _jax_key(key):
+    import jax.numpy as jnp
+
+    return jnp.asarray(np.asarray(key, np.uint32))      # a raw threefry key
+
+
+def test_bernoulli_equals_jax_bits():
+    import jax
+
+    for key, p, shape in (((0, 3), 0.9, (4, 33)), ((12345, 2**32 - 1), 0.5, (2, 3, 7))):
+        want = np.asarray(jax.random.bernoulli(_jax_key(key), p, shape))
+        np.testing.assert_array_equal(attention.bernoulli(key, p, shape).numpy(), want)
+
+
+def test_dropout_microbench_variants_keep_their_plain_bits():
+    import jax
+
+    shape, p = (2, 8, 13), dropout_microbench.P_DROP
+    ones = torch.ones(shape, dtype=torch.bfloat16)
+    ((key, seed), _), = dropout_microbench.site_keys(7, 1)
+    masks = {"where": attention.dropout_keep_mask(key, shape, p)[0].numpy(),
+             "bernoulli": np.asarray(jax.random.bernoulli(_jax_key(key), 1.0 - p, shape)),
+             "hash": attention.hash_keep_mask(seed, shape, p)[0].numpy()}
+    masks["mul"], masks["hash_kernel"] = masks["where"], masks["hash"]
+    fns = dropout_microbench.drop_fns(p)
+    assert set(fns) == set(masks)
+    for name, fn in fns.items():
+        np.testing.assert_array_equal((fn(key, seed, ones) != 0).numpy(), masks[name], name)
+    assert {fn for fn, _ in dropout_microbench.VARIANTS.values()} == set(fns) | {None}
+
+
+def test_dropout_microbench_gives_a_row_a_variant(tmp_path):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        dropout_microbench.main(["--d-model", "8", "--batch", "2", "--len", "6", "--iters",
+                                 "1", "--device", "cpu", "--out", str(tmp_path / "d.json")])
+    rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+    assert [r["variant"] for r in rows[:-1]] == list(dropout_microbench.VARIANTS)
+    assert all(r["fwdbwd_ms"] is None and r["card"] == CPU for r in rows[:-1])
+    assert rows[-1]["summary"] == "dropout_microbench"
+    assert json.loads((tmp_path / "d.json").read_text())["shape"]["d_ff"] == 32
