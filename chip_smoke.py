@@ -160,7 +160,12 @@ Phases; any failure exits non-zero before the last line is printed:
    kernels' launch counters on each rank are what the schedule implies
    (TP, PP and EP: the one process's; SP: none, the ring runs no kernel);
    losses finite and falling; the first 4 step losses within 1e-4
-   relative (f32) or 2e-3 (bf16) of the one process's; the best checkpoint,
+   relative (f32) or 2e-3 (bf16) of the one process's, where the bf16 EP
+   runs (auto and manual), whose top-1 routing can flip at router margins
+   near 1e-6, hold step 1 so and each of steps 2-4 against one process's
+   step from the ranks' own state before it (parameters, AdamW moments and
+   counts, the dropout seeds' position; the free-running losses are
+   printed beside them); the best checkpoint,
    gathered whole by the ranks, served on cuda by one process within 1e-6 of
    the logits of the model the ranks' ``train()`` returned. Examples/s and
    seconds an epoch are printed beside the card. On four cards or more the
@@ -171,9 +176,11 @@ Phases; any failure exits non-zero before the last line is printed:
    256 and the wide route, bf16 and f32, views TMA can and cannot read,
    with and without dropout):
    its design, shared memory, registers and spills as
-   ``cudaFuncGetAttributes`` reports them; a redesigned instance (the
-   wgmma ones, the wide route) must spill nothing. At the mfu_bench rows
-   [64, 1024, 8, D] with packed segments at p 26/256: head dims 128 and 64
+   ``cudaFuncGetAttributes`` reports them; every instance but the f32
+   design's (mma.sync, whose second products take three split terms at
+   every head dim, wgmma, the wide route) must spill nothing. At the
+   mfu_bench rows [64, 1024, 8, D] with packed segments at p 26/256: head
+   dims 128 and 64
    (bf16: wgmma; f32: the wide route at 128, the f32 design at 64), a head
    dim between instances (12, zero-padded to 16) and above 128 (256; 160,
    the bf16 forward's wgmma instance at 256 zero-padded, and the wide
@@ -198,7 +205,8 @@ Phases; any failure exits non-zero before the last line is printed:
    (1-epoch checkpoints on phase 7's corpus, 3 warm requests);
    ``tools.scaling_bench`` at N = 1 and 2 (1,000 molecules a host, vocab
    and ids held to one process's), one ``tools.run_benchmarks`` run
-   (mpnn-cycle, 1 epoch, on phase 7's corpus) and
+   (mpnn-cycle, 1 epoch, on phase 7's corpus), ``tools.roofline`` on its
+   result (the card's data-sheet peaks) and
    ``examples.gcn_vs_gat`` (20 epochs; the hash-dropout kernel launched).
 12. One JSON line of every kernel (name, launches, errors, times, bound,
    every instance with its design and resources), then the result line
@@ -1850,8 +1858,14 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
             continue
         fa.reset_launches()
         hd.reset_launches()
-        res = train(job["config"], job["model"], limit=job["limit"], verbose=False,
-                    device=dev)
+        states = []
+        restore = record_states(states, CPU_CHECK_STEPS) if job.get("stepwise") else None
+        try:
+            res = train(job["config"], job["model"], limit=job["limit"], verbose=False,
+                        device=dev)
+        finally:
+            if restore is not None:
+                restore()
         torch.cuda.synchronize()
         launches = {**fa.LAUNCHES, **hd.LAUNCHES}
         # the model train() returned (whole, on this rank) on the first val rows
@@ -1863,7 +1877,8 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
         results[job["name"]] = {
             "history": res.history, "steps": [s.tolist() for s in res.step_losses],
             "launches": launches, "seconds": time.perf_counter() - t0,
-            "sharded": sharding(res.bundle, job["config"], world), "logits": logits}
+            "sharded": sharding(res.bundle, job["config"], world), "logits": logits,
+            "states": states if rank == 0 else []}
     torch.save(results, f"{out}.{rank}")
     dist.destroy_process_group()
 
@@ -1913,6 +1928,63 @@ def run_ranks(jobs: list, tmp: str, ranks: int = DP_RANKS, name: str = "dp") -> 
     if codes != [0] * ranks:
         raise AssertionError(f"a rank failed: exit codes {codes}")
     return [torch.load(f"{out}.{r}", weights_only=False) for r in range(ranks)]
+
+
+def record_states(store: list, steps: int):
+    """Wrap the trainer's ``_batch_loss`` and ``_batch_grads`` so that the
+    state each of the training steps 2 to ``steps`` starts from is appended
+    to ``store``: the parameters, the AdamW moments and counts (split
+    tensors gathered whole: a collective every rank makes alike) and the
+    position of the dropout seeds' generator, all on the host. Nothing of
+    the run changes. Returns the function that takes the wrappers out."""
+    from glearning_benchmark_tpu_torch.train import trainer
+
+    batch_loss, batch_grads = trainer._batch_loss, trainer._batch_grads
+    seen = {"step": 0}
+
+    def loss_hook(model, arrays, idx_b, valid_b, bundle, generator, *rest):
+        seen["model"], seen["gen"] = model, generator.get_state()
+        return batch_loss(model, arrays, idx_b, valid_b, bundle, generator, *rest)
+
+    def grads_hook(loss, opt, layout):
+        seen["step"] += 1
+        if 1 < seen["step"] <= steps:      # before this step's update
+            snap = trainer._whole(trainer._snapshot(seen["model"], opt), opt.names,
+                                  layout.shards)
+            store.append({"step": seen["step"], "gen": seen["gen"],
+                          "params": {k: v.cpu() for k, v in snap["params"].items()},
+                          "opt": {**snap["opt"], **{w: [t.cpu() for t in snap["opt"][w]]
+                                                    for w in ("mu", "nu")}}})
+        return batch_grads(loss, opt, layout)
+
+    trainer._batch_loss, trainer._batch_grads = loss_hook, grads_hook
+
+    def restore() -> None:
+        trainer._batch_loss, trainer._batch_grads = batch_loss, batch_grads
+
+    return restore
+
+
+def steps_from_states(bundle, config: dict, model_name: str, states: list,
+                      device: str = "cuda") -> list:
+    """One process takes each step that ``record_states`` recorded from that
+    state (parameters, moments and counts, the dropout seeds' position) on
+    the same batch of the first epoch: its step losses, in order."""
+    from glearning_benchmark_tpu_torch.train.trainer import train_epoch
+
+    model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, device,
+                                                      model_name=model_name)
+    aux = float(config["model"].get("moe_aux_weight", 0.01))
+    out = []
+    for st in states:
+        model.load_state_dict(st["params"])
+        opt.load_state(st["opt"])
+        gen.set_state(st["gen"])
+        b = st["step"] - 1
+        _, loss = train_epoch(model, opt, arrays, idx[b:b + 1], valid[b:b + 1], bundle, gen,
+                              moe_aux_weight=aux)
+        out.append(float(loss[0]))
+    return out
 
 
 def _metrics(history: list) -> list:
@@ -2067,6 +2139,9 @@ MESH_LIMIT = 2048         # ZINC train graphs of the TP, PP and EP runs
 SP_LIMIT = 512            # of the SP runs (ibtt_zinc width, unpacked)
 SP_BATCH = 32
 MESH_STEP_RTOL = 1e-4     # f32 first steps, as phase 9 (bf16: STEP_LOSS_ATOL)
+# the bf16 runs whose top-1 routing can flip: their steps 2-4 are held step
+# by step, each from the ranks' own state (mesh_against_single)
+STEPWISE = ("ep_bfloat16", "ep_manual_bfloat16")
 
 
 def mesh_runs(tmp: str, bs: int) -> dict:
@@ -2099,8 +2174,18 @@ def mesh_runs(tmp: str, bs: int) -> dict:
 
 
 def mesh_against_single(name: str, ranks: list, cfg: dict, single,
-                        single_launches: dict, graphs, card: str) -> None:
-    """Phase 10's checks of one run (module docstring)."""
+                        single_launches: dict, graphs, card: str, model_name: str) -> None:
+    """Phase 10's checks of one run (module docstring). A run of
+    ``STEPWISE`` holds its step 1 against the one-process run and each of
+    its steps 2-4 against one process's step from the ranks' state before
+    it (``record_states``, ``steps_from_states``): two ranks sum the
+    router's gradients in another order than one process (2.0e-10 apart
+    after step 1), and from step 2 on tokens whose top-1 router margins are
+    near 1e-6 take another expert, so free-running runs part by chance, not
+    by a fault of the ranks' code. The free-running losses are printed
+    beside them."""
+    import copy
+
     import numpy as np
 
     from glearning_benchmark_tpu_torch.serve import Predictor
@@ -2129,6 +2214,22 @@ def mesh_against_single(name: str, ranks: list, cfg: dict, single,
     want_steps = np.asarray(single.step_losses[0][:CPU_CHECK_STEPS])
     if name.endswith("float32"):
         ok = bool(np.allclose(steps, want_steps, rtol=MESH_STEP_RTOL, atol=0))
+    elif name in STEPWISE:
+        states = got[0]["states"]
+        if [st["step"] for st in states] != list(range(2, len(steps) + 1)):
+            raise AssertionError(f"{name}: the ranks recorded the states of steps "
+                                 f"{[st['step'] for st in states]}")
+        one = copy.deepcopy(cfg)
+        one.pop("parallel")
+        held = np.array([want_steps[0]] + steps_from_states(single.bundle, one, model_name,
+                                                            states))
+        gaps = np.abs(steps - held)
+        log(f"[mesh] {name} step by step: the ranks' losses {steps.tolist()}; one process "
+            f"{held.tolist()} (step 1 from the same initial state, steps 2-"
+            f"{len(steps)} each from the ranks' state before it); |d| "
+            f"{[float(f'{g:.3e}') for g in gaps]} (atol {STEP_LOSS_ATOL:g}); free-running "
+            f"|d| {[float(f'{g:.3e}') for g in np.abs(steps - want_steps)]}, not held")
+        ok = bool(gaps.max() <= STEP_LOSS_ATOL)
     else:
         ok = bool(np.abs(steps - want_steps).max() <= STEP_LOSS_ATOL)
     hist = got[0]["history"]
@@ -2175,7 +2276,8 @@ def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
         single[name], launches[f"train_{name}_one_process"] = train_phase(
             fa, model_name, one, limit, card)
     for world in sorted({r[3] for r in runs.values()}):
-        jobs = [{"kind": "train", "name": name, "model": m, "config": cfg, "limit": limit}
+        jobs = [{"kind": "train", "name": name, "model": m, "config": cfg, "limit": limit,
+                 "stepwise": name in STEPWISE}
                 for name, (m, cfg, limit, w) in runs.items() if w == world]
         ranks = run_ranks(jobs, tmp, ranks=world, name=f"mesh{world}")
         log(f"[mesh] rank devices {[r['device'] for r in ranks]}, backend "
@@ -2184,7 +2286,8 @@ def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
             name = job["name"]
             one = "tp_float32" if name.startswith("data2") else name
             mesh_against_single(name, ranks, job["config"], single[name],
-                                launches[f"train_{one}_one_process"], graphs, card)
+                                launches[f"train_{one}_one_process"], graphs, card,
+                                job["model"])
             for r, rank in enumerate(ranks):
                 launches[f"train_{name}_rank{r}"] = rank[name]["launches"]
     return launches
@@ -2216,7 +2319,10 @@ def instances(fa) -> dict:
     wide route, each input type, views TMA can and cannot read, with and
     without dropout, and the forward's wgmma instances of the short hash):
     its design and its resources as ``cudaFuncGetAttributes`` reports them.
-    A redesigned instance (wgmma, wide) must spill nothing."""
+    Every instance of the bf16 route's designs (mma.sync at head dims 4-32,
+    whose second products take three split terms, and at 64 and 128 for
+    views TMA cannot read; wgmma; the wide route) must spill nothing; only
+    the f32 design may."""
     out = {}
     for name in fa.SOURCES:
         for d in fa.HEAD_DIMS + (WIDE_HEAD_DIMS[0], ABOVE_WGMMA):
@@ -2233,11 +2339,11 @@ def instances(fa) -> dict:
                         attrs = fa.kernel_attrs(name, d, dtype, dropout=drop, short_hash=short,
                                                 tma=tma)
                         out[key] = {"design": design, **attrs}
-                        if design in ("wgmma", "wide") and attrs["local_bytes"] != 0:
+                        if design != "f32" and attrs["local_bytes"] != 0:
                             raise AssertionError(
                                 f"{key}: {attrs['local_bytes']} B spilled a thread")
     for key, a in out.items():
-        if a["design"] in ("wgmma", "wide"):
+        if a["design"] != "f32":
             log(f"[kernel] {key}: {a['static_smem_bytes']} B static + "
                 f"{a['dynamic_smem_bytes']} B dynamic shared memory, {a['registers']} "
                 f"registers, {a['local_bytes']} B spilled a thread")
@@ -2470,11 +2576,11 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
 
 def late_tools(fa, tmp: str, gt_root: str) -> dict:
     """The scaling bench at N = 1 and 2 (``SCALING_MOLS`` a host), one run
-    of the results campaign (mpnn-cycle, 1 epoch, on phase 7's corpus) and
-    the GCN-vs-GAT example (``GCN_GAT_EPOCHS``). Returns the example's
-    launches."""
+    of the results campaign (mpnn-cycle, 1 epoch, on phase 7's corpus), the
+    roofline tool on its result and the GCN-vs-GAT example
+    (``GCN_GAT_EPOCHS``). Returns the example's launches."""
     from glearning_benchmark_tpu_torch.examples import gcn_vs_gat
-    from glearning_benchmark_tpu_torch.tools import run_benchmarks, scaling_bench
+    from glearning_benchmark_tpu_torch.tools import roofline, run_benchmarks, scaling_bench
 
     t0 = time.perf_counter()
     line = captured(scaling_bench.main, ["--mols", str(SCALING_MOLS), "--hosts", "1,2",
@@ -2498,6 +2604,15 @@ def late_tools(fa, tmp: str, gt_root: str) -> dict:
         raise AssertionError(f"run_benchmarks mpnn-cycle: {run}")
     log(f"[tools] run_benchmarks mpnn-cycle, 1 epoch: best val {run['best_val']:.4f} (JAX "
         f"package, 100 epochs: {run['jax_best_val']}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    line = captured(roofline.main, ["--results", out, "--out",
+                                    os.path.join(tmp, "campaign", "roofline.json")])[-1]
+    if not (line["run"] == "mpnn-cycle" and line["bound_s"] > 0 and line["x_of_bound"] > 0):
+        raise AssertionError(f"roofline mpnn-cycle: {line}")
+    log(f"[tools] roofline mpnn-cycle: {line['x_of_bound']:.1f}x of its bound "
+        f"({line['binding']}, flop {line['flop_bound_s'] * 1e3:.4f} ms, hbm "
+        f"{line['hbm_bound_s'] * 1e3:.4f} ms, measured {line['measured_s'] * 1e3:.1f} ms an "
+        f"epoch); {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     reset_launches(fa)

@@ -39,9 +39,8 @@
 // S^T = k q^T and dP^T = v dO^T by mma; P, the mask, keep/(1-p) and
 // dS = P (dP - delta) in the accumulator registers; dV += (P keep/(1-p))^T
 // dO and dK += dS^T q with the left operands straight from registers and dO
-// and q through ldmatrix.trans, each left operand as two bf16 terms hi +
-// lo (about 2^-17, `split_terms`; C4 in ROADMAP.md keeps it at two below
-// head dim 64). At these head dims every product is one
+// and q through ldmatrix.trans, each left operand as three bf16 terms hi +
+// mid + lo (`kSplitTerms`, exact for the f32 value). At these head dims every product is one
 // 16-deep k-step and the elementwise work between the products bounds the
 // kernel, so warp-level mma, which skips per warp, fits.
 //
@@ -63,7 +62,7 @@
 //     so two n-tiles are one k-step's A fragment) and dO and q read
 //     MN-major from the same shared tiles.
 // P keep/(1-p) and dS are not bf16: each goes in as three bf16 terms hi +
-// mid + lo (about 2^-25, `split_terms`), three products each. The query
+// mid + lo (`kSplitTerms`), three products each. The query
 // tile is 32 rather than 64 to keep the registers in bounds: dK and dV take
 // D registers a thread (128 at head dim 128), S^T and dP^T 32, the split
 // terms 48, and two blocks fit an SM, so one block's loads and elementwise
@@ -261,7 +260,7 @@ __global__ void __launch_bounds__(kMmaThreads)
           ds[n][e] = pr * (dp[n][e] * keepf - deltas[buf][j]);
         }
       }
-      SplitA<split_terms(D)> pa, sa;
+      SplitA<kSplitTerms> pa, sa;
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         split_bf16x2(pd[n][0], pd[n][1], pa, 2 * n);
@@ -463,7 +462,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         }
       }
     }
-    SplitA<split_terms(D)> pa[QN / 16], sa[QN / 16];
+    SplitA<kSplitTerms> pa[QN / 16], sa[QN / 16];
 #pragma unroll
     for (int kk = 0; kk < QN / 16; ++kk)
 #pragma unroll
@@ -472,7 +471,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     wgmma_fence();
     fence_regs(dv);
 #pragma unroll
-    for (int term = 0; term < split_terms(D); ++term)
+    for (int term = 0; term < kSplitTerms; ++term)
 #pragma unroll
       for (int kk = 0; kk < QN / 16; ++kk)
         Wgmma<D>::rs_t(dv, pa[kk].t[term], desc_mnmajor<QN>(gt, kk));
@@ -484,7 +483,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     wgmma_fence();
     fence_regs(dk);
 #pragma unroll
-    for (int term = 0; term < split_terms(D); ++term)
+    for (int term = 0; term < kSplitTerms; ++term)
 #pragma unroll
       for (int kk = 0; kk < QN / 16; ++kk)
         Wgmma<D>::rs_t(dk, sa[kk].t[term], desc_mnmajor<QN>(qt, kk));

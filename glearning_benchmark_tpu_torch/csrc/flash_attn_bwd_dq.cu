@@ -40,8 +40,8 @@
 // dS = P (dP - delta) in the accumulator registers; dQ += dS K with dS
 // straight from registers as the A operand (the accumulators of two
 // n-tiles are the A fragment of one k-step) and K through ldmatrix.trans;
-// dS goes in as two bf16 terms hi + lo (about 2^-17, `split_terms`; C4 in
-// ROADMAP.md keeps it at two below head dim 64). At these head dims every product is one 16-deep k-step, the tensor cores
+// dS goes in as three bf16 terms hi + mid + lo (`kSplitTerms`, exact for
+// the f32 value). At these head dims every product is one 16-deep k-step, the tensor cores
 // idle most of the time, and the elementwise work between the products
 // bounds the kernel: warp-level mma lets each warp skip what its 16 rows
 // may not attend.
@@ -65,7 +65,7 @@
 //     A fragment) and K read MN-major from the same shared tile.
 // dS is not bf16: rounding it would cost 2^-9 relative where gradients
 // cancel, beyond the elementwise 4e-3 the kernel is held to, so it goes in
-// as three bf16 terms hi + mid + lo (about 2^-25, `split_terms`), three
+// as three bf16 terms hi + mid + lo (`kSplitTerms`), three
 // products; the tensor cores have the room. The dQ accumulator (D / 2
 // registers a thread) is the block's only full-width state, so two blocks
 // fit an SM and one block's loads and elementwise work run under the
@@ -274,7 +274,7 @@ __global__ void __launch_bounds__(kMmaThreads)
           ds[n][e] = pr * (dpv - dlt[i]);
         }
       }
-      SplitA<split_terms(D)> sa;
+      SplitA<kSplitTerms> sa;
       split_bf16x2(ds[0][0], ds[0][1], sa, 0);
       split_bf16x2(ds[0][2], ds[0][3], sa, 1);
       split_bf16x2(ds[1][0], ds[1][1], sa, 2);
@@ -486,7 +486,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         }
       }
     }
-    SplitA<split_terms(D)> sa[KN / 16];
+    SplitA<kSplitTerms> sa[KN / 16];
 #pragma unroll
     for (int kk = 0; kk < KN / 16; ++kk) {
       split_bf16x2(sc[8 * kk], sc[8 * kk + 1], sa[kk], 0);
@@ -497,7 +497,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     wgmma_fence();
     fence_regs(acc);
 #pragma unroll
-    for (int term = 0; term < split_terms(D); ++term)
+    for (int term = 0; term < kSplitTerms; ++term)
 #pragma unroll
       for (int kk = 0; kk < KN / 16; ++kk)
         Wgmma<D>::rs_t(acc, sa[kk].t[term], desc_mnmajor<KN>(kt, kk));

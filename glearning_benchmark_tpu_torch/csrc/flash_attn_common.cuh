@@ -334,19 +334,17 @@ __device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* p) {
 }
 
 // The A operand of a second product (P~ or dS, f32 in the accumulator
-// registers) as N bf16 terms, each packed as A-fragment registers:
-// - N = 2, hi + lo: about 2^-17 relative;
-// - N = 3, hi + mid + lo: about 2^-25, as exact as the f32 plain version's
-//   products.
-// hi alone (2^-9) breaks the elementwise 4e-3 where a sum cancels; hi + lo
-// can miss it where a sum of terms near 1 cancels to 1e-4 of them (one dV
-// element in 67 million at head dim 128, PERF.md; the cancelling-sum case
-// of tests/test_torch_wide_heads.py). The kernels take N = 3 at head dims
-// 64 and 128 and N = 2 below (ROADMAP.md C4, open there): three terms below
-// 64 move the bits of every head-dim-16 run, and chip_smoke.py phase 10's
-// two-rank EP bf16 run, whose gradient sums already part from one
-// process's at the first step, then parts past its 2e-3 at step 3.
-__host__ __device__ constexpr int split_terms(int d) { return d >= 64 ? 3 : 2; }
+// registers) as kSplitTerms bf16 terms hi + mid + lo, each rounded and
+// packed as A-fragment registers. Three rounded terms hold every f32 value
+// in (2^-100, 1] exactly (each remainder is exact and the last has at most
+// 8 significant bits), so the second products carry P~ and dS at full f32
+// precision, as the plain version's products do; only the order of the f32
+// sums differs. hi alone (2^-9) breaks the elementwise 4e-3 where a sum
+// cancels, and hi + lo (about 2^-17) can still miss it where a sum of terms
+// near 1 cancels to 1e-4 of them (the cancelling-sum cases of
+// tests/test_torch_wide_heads.py and tests/test_torch_fwd_wgmma.py). Every
+// design of the bf16 route takes three terms at every head dim.
+constexpr int kSplitTerms = 3;
 
 template <int N>
 struct SplitA {

@@ -61,10 +61,10 @@
 //     and V through ldmatrix.trans: no round trip through shared memory.
 //     P~ is not bf16: one bf16 rounding (2^-9) on top of O's own rounding
 //     breaks the elementwise 4e-3 against the f32 plain version where
-//     p v cancels, so P~ is split into bf16 hi + lo and both are multiplied
-//     (about 2^-17), at head dims 64 and 128 into hi + mid + lo (about
-//     2^-25; `split_terms`; tests/test_torch_attention.py emulates both
-//     splits against one rounding).
+//     p v cancels, and hi + lo (about 2^-17) can still miss it, so P~ is
+//     split into three bf16 terms hi + mid + lo (`kSplitTerms`, exact for
+//     the f32 value) and each is multiplied; tests/test_torch_fwd_wgmma.py
+//     emulates the splits on its cancelling-sum case.
 //   - Epilogue: l summed across the quad in a fixed order, O = acc / l cast
 //     to bf16 and staged in shared memory, then stored in 16-byte pieces
 //     (8 at D = 4), pad rows as exact zeros; LSE = m + log l in f32.
@@ -105,8 +105,8 @@
 //     q k^T is a wgmma with both operands in shared memory (K-major), P~ V a
 //     wgmma with P~ from registers (the S accumulator is the A fragment) and
 //     V read MN-major; P~ goes in as three bf16 terms hi + mid + lo
-//     (`split_terms`, each rounded: `split_bf16x2`), as in the mma.sync
-//     design at 64 and 128;
+//     (`kSplitTerms`, each rounded: `split_bf16x2`), as in the mma.sync
+//     design;
 //   - overlap: each consumer issues the next tile's q k^T before this tile's
 //     P~ V, waits for the q k^T only (wgmma.wait_group 1), and runs the next
 //     tile's max, exp, hash under this tile's P~ V; the split into bf16 terms
@@ -381,7 +381,7 @@ __global__ void __launch_bounds__(kMmaThreads)
           s[n][e] = pr;
         }
       }
-      SplitA<split_terms(D)> pa;
+      SplitA<kSplitTerms> pa;
       split_bf16x2(s[0][0], s[0][1], pa, 0);
       split_bf16x2(s[0][2], s[0][3], pa, 1);
       split_bf16x2(s[1][0], s[1][1], pa, 2);
@@ -624,7 +624,7 @@ __device__ __forceinline__ void fwd_consumer(const Params& p, FwdSmem<D>& sm, co
   constexpr int KD = D / 16;               // k-steps of q k^T
   constexpr int OW = D > 128 ? 128 : D;    // columns of O one P~ V product covers
   constexpr int NH = D / OW;               // products a k-step
-  constexpr int NS = split_terms(D);       // bf16 terms of P~
+  constexpr int NS = kSplitTerms;          // bf16 terms of P~
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int bh = blockIdx.x;

@@ -11,6 +11,8 @@
 - ``tools.dropout_microbench``: how to draw and apply the FFN dropout mask;
 - ``tools.scaling_bench``: the north star at N processes;
 - ``tools.run_benchmarks``: the results campaign beside the JAX package's.
+- ``tools.roofline``: the campaign's epochs against the card's FLOP and HBM
+  bounds.
 
 Each prints one JSON object per result line, the summary last, every line
 with the card's name and power limit (``"card"``), and writes its results

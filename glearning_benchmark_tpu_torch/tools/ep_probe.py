@@ -1,5 +1,6 @@
-"""Where two expert-parallel ranks first part from one process: the
-measurement behind ``ROADMAP.md`` C4.
+"""Where two free-running expert-parallel ranks first part from one
+process: the measurement behind ``chip_smoke.py`` phase 10 holding its bf16
+EP runs step by step, each step from the ranks' own state.
 
     python -m glearning_benchmark_tpu_torch.tools.ep_probe
 

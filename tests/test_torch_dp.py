@@ -64,6 +64,10 @@ from glearning_benchmark_tpu_torch.convert import batch_stats_to_flax, params_to
 from glearning_benchmark_tpu_torch.data import generator
 from glearning_benchmark_tpu_torch.train import checkpoint, trainer
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
 CHILD_TIMEOUT = 240          # seconds a rank may take for all its jobs

@@ -15,6 +15,10 @@ import torch
 from glearning_benchmark_tpu.ops import attention as jax_attn
 from glearning_benchmark_tpu_torch.ops import attention as attn
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 SHAPES = [(7,), (3, 5), (2, 4, 16), (2, 3, 13), (2, 2, 9, 10), (1, 1, 1)]
 SEEDS = [0, 1, 12345, 2**31 - 2, 2**32 - 1]
 

@@ -22,6 +22,10 @@ from glearning_benchmark_tpu_torch.train.datasets import DatasetBundle
 from glearning_benchmark_tpu_torch.train.trainer import attention_dropout_rate, build_model
 from glearning_benchmark_tpu_torch.utils.config import load_config, normalize_config
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOKEN_CONFIGS = sorted(p.name for p in (REPO / "configs").glob("*.yaml")
                        if p.name.split("_")[0] in ("ibtt", "agtt"))

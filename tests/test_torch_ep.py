@@ -36,6 +36,10 @@ from glearning_benchmark_tpu_torch.train import trainer
 from test_torch_tp import (assert_token_run_equal, one_process, run_ranks,
                            same_on_every_rank, zinc_config)
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 B, L, D, F, E = 8, 8, 8, 16, 4
 

@@ -30,8 +30,11 @@ JAX package and the plain version.
   at head dims 64, 128 and 256: hi + lo misses the elementwise bound rtol
   4e-3 + atol 1e-5 there (by more than 2x), hi + mid + lo holds it
   (within 0.2 of it; within 0.8 with P perturbed by 3e-7 relative, the
-  kernel's own exp2). Three rounded terms hold every f32 P~ in (2^-100, 1] exactly.
-  On the card (``cuda``): the kernel's O against the f64 version.
+  kernel's own exp2); the same at head dims 8 and 16, the mma.sync
+  forward's. Three rounded terms hold every f32 P~ in (2^-100, 1] exactly.
+  On the card (``cuda``): the kernel's O against the f64 version, the wgmma
+  forward at 64, 128 and 256 and the mma.sync forward at 8 and 16 (every
+  bf16 design takes three terms, csrc ``kSplitTerms``).
 """
 
 import numpy as np
@@ -39,6 +42,10 @@ import pytest
 import torch
 
 from glearning_benchmark_tpu_torch.ops import flash_attention as fa
+
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
 
 BF16_RTOL, ATOL, LSE_ATOL = 4e-3, 1e-5, 1e-4
 TRAIN_RATE = 26 / 256
@@ -231,6 +238,7 @@ def test_views_tma_cannot_read_match_plain(d, design):
 # ---------------------------------------------------------------------------
 
 FWD_CANCEL_SEEDS = {64: 0, 128: 5, 256: 4}     # the cases below, by head dim
+MMA_CANCEL_SEEDS = {8: 1, 16: 2}               # the mma.sync forward's, by head dim
 
 
 def _split(x: torch.Tensor, terms: int) -> torch.Tensor:
@@ -288,9 +296,8 @@ def test_three_split_terms_hold_p_exactly():
     assert not torch.equal(_split(x, 2).double(), x.double())
 
 
-@pytest.mark.parametrize("d", sorted(FWD_CANCEL_SEEDS))
-def test_forward_cancelling_sum_needs_three_split_terms(d):
-    q, k, v, seg = fwd_cancelling_case(d, FWD_CANCEL_SEEDS[d])
+def _needs_three_terms(d: int, seed: int) -> None:
+    q, k, v, seg = fwd_cancelling_case(d, seed)
     p = _probs_f64(q, k, seg)
     ref = torch.einsum("bhls,bshd->blhd", p, v.double())[:, 0, 0, 0]
     assert ref.abs().max().item() < 2e-3             # the sums cancel
@@ -305,14 +312,27 @@ def test_forward_cancelling_sum_needs_three_split_terms(d):
     assert _worst(o(_split((p * (1 + 3e-7 * sign)).float(), 3)), ref) <= 0.8
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("d", sorted(FWD_CANCEL_SEEDS))
+def test_forward_cancelling_sum_needs_three_split_terms(d):
+    _needs_three_terms(d, FWD_CANCEL_SEEDS[d])
+
+
+@pytest.mark.parametrize("d", sorted(MMA_CANCEL_SEEDS))
+def test_mma_forward_cancelling_sum_needs_three_split_terms(d):
+    """The same construction at the mma.sync forward's head dims 8 and 16."""
+    _needs_three_terms(d, MMA_CANCEL_SEEDS[d])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", sorted({**FWD_CANCEL_SEEDS, **MMA_CANCEL_SEEDS}))
 def test_forward_cancelling_sum_holds_on_the_card(d):
-    """The wgmma forward at head dims 64, 128 and 256 on the cancelling-sum
-    case, against the f64 version: every element of O within the bound."""
+    """The forward on the cancelling-sum case, against the f64 version:
+    every element of O within the bound, the wgmma design at head dims 64,
+    128 and 256 and the mma.sync design at 8 and 16."""
     _card()
-    q, k, v, seg = (t.cuda() for t in fwd_cancelling_case(d, FWD_CANCEL_SEEDS[d]))
-    assert fa.design(FWD, d, q.dtype, fa.tma_ok(q, k, v)) == "wgmma"
+    seed = FWD_CANCEL_SEEDS[d] if d in FWD_CANCEL_SEEDS else MMA_CANCEL_SEEDS[d]
+    q, k, v, seg = (t.cuda() for t in fwd_cancelling_case(d, seed))
+    assert fa.design(FWD, d, q.dtype, fa.tma_ok(q, k, v)) == ("wgmma" if d >= 64 else "mma")
     o, _ = fa.flash_attention_fwd(q, k, v, seg)
     ref = torch.einsum("bhls,bshd->blhd", _probs_f64(q, k, seg), v.double())
     torch.cuda.synchronize()

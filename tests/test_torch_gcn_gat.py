@@ -12,6 +12,10 @@ import torch
 
 from glearning_benchmark_tpu_torch.examples import gcn_vs_gat as port
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

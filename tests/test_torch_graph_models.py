@@ -49,6 +49,10 @@ from glearning_benchmark_tpu_torch.ops import segment
 from glearning_benchmark_tpu_torch.ops.attention import hash_dropout
 from glearning_benchmark_tpu_torch.train.checkpoint import _flatten
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 B, N, F_IN, C = 6, 11, 3, 4
 # grad_floor: the share of the model's largest gradient below which a leaf
 # is measured against that share instead of its own largest gradient

@@ -25,6 +25,10 @@ from glearning_benchmark_tpu_torch.ops import attention as attn
 from glearning_benchmark_tpu_torch.ops import hash_dropout as hd
 from glearning_benchmark_tpu_torch.ops.flash_attention import _keep_threshold
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 U32 = np.uint64(0xFFFFFFFF)
 # (shape, placement of cheap_dropout): one process, DP, MoE [E, B, C, f]
 # (batch on axis 1), EP's expert block, SP's token block, a last axis of 1,

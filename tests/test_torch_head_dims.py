@@ -33,6 +33,10 @@ from glearning_benchmark_tpu_torch.convert import flax_path, load_flax_params
 from glearning_benchmark_tpu_torch.models.transformer import SimpleTransformer
 from glearning_benchmark_tpu_torch.ops import flash_attention as fa
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 VOCAB, L = 30, 16
 BF16_RTOL, F32_RTOL, ATOL = 4e-3, 1e-4, 1e-5
 

@@ -23,6 +23,10 @@ from glearning_benchmark_tpu_torch.tokenization.ibtt_fast import (
 from glearning_benchmark_tpu_torch.tokenization.vocab import (
     build_fixed_zinc_vocab, collect_dynamic_tokens, extend_vocab_with_dynamic_tokens)
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _string_vocab(mols, max_len=1024):
     fixed, _ = build_fixed_zinc_vocab()

@@ -38,6 +38,10 @@ from glearning_benchmark_tpu_torch.models.transformer import SimpleTransformer
 from glearning_benchmark_tpu_torch.serve import Predictor
 from glearning_benchmark_tpu_torch.train import checkpoint, trainer
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 OUT_ATOL = 1e-5
 AUX_RTOL = 1e-6
 GRAD_ATOL = 1e-5

@@ -27,6 +27,10 @@ from glearning_benchmark_tpu_torch.ops.attention import (cheap_dropout, hash_dro
                                                          multi_head_attention)
 from glearning_benchmark_tpu_torch.parallel.mesh import BatchShard, Mesh
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def test_host_shard_bounds_match_jax():
     for n in range(51):

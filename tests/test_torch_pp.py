@@ -32,6 +32,10 @@ from glearning_benchmark_tpu_torch.parallel.pipeline import check_pipeline
 from test_torch_tp import (ZINC_LIMIT, assert_token_run_equal, one_process, run_ranks,
                            same_on_every_rank, zinc_config)
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 MODEL = dict(vocab_size=100, d_model=16, nhead=4, nlayers=2, d_ff=32, max_pos=64,
              num_classes=7, bos_id=1, query_offsets=(2, 3), compute_dtype="float32")

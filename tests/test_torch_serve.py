@@ -36,6 +36,10 @@ from glearning_benchmark_tpu_torch import serve as port_serve
 from glearning_benchmark_tpu_torch.serve import Predictor
 from glearning_benchmark_tpu_torch.train import checkpoint as port_ckpt
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_LEN = 256
 N_GRAPHS = 21          # max_batch 8: buckets 8, 8 and 5 -> 8
@@ -237,7 +241,8 @@ def test_predict_cli_on_cpu(tmp_path, graphs):
         [sys.executable, "-m", "glearning_benchmark_tpu_torch.predict",
          "--checkpoint", path + ".npz", "--zinc-split", "val",
          "--zinc-root", str(root), "--device", "cpu"],
-        capture_output=True, text=True, cwd=REPO, timeout=120, check=True)
+        capture_output=True, text=True, cwd=REPO, timeout=120, check=True,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
     rows = [json.loads(line) for line in out.stdout.splitlines()]
     assert [r["index"] for r in rows] == list(range(N_GRAPHS))
     np.testing.assert_allclose([r["pred"] for r in rows], ref, atol=1e-5)

@@ -39,6 +39,10 @@ from glearning_benchmark_tpu_torch.train import trainer
 from test_torch_tp import (ZINC_LIMIT, assert_token_run_equal, one_process, run_ranks,
                            same_on_every_rank, zinc_config)
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 B, L, H, D = 2, 16, 2, 8
 P_DROP, SEED = 0.25, 1234

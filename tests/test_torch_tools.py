@@ -37,6 +37,10 @@ from glearning_benchmark_tpu_torch.tools import (dropout_microbench, flash_ab, g
                                                mfu_bench, serve_bench)
 from glearning_benchmark_tpu_torch.tools.export_zinc import data_to_graph
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CPU = {"name": "cpu", "power_limit": "none"}
 

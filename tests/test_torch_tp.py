@@ -52,6 +52,10 @@ from glearning_benchmark_tpu_torch.data import generator
 from glearning_benchmark_tpu_torch.parallel.mesh import Mesh, param_shard_spec
 from glearning_benchmark_tpu_torch.train import checkpoint, trainer
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_TIMEOUT = 300          # seconds a rank may take for all its jobs
 TOKEN_RTOL = 1e-5

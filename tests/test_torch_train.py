@@ -43,6 +43,10 @@ from glearning_benchmark_tpu_torch.train.optim import (
     warmup_cosine_decay_schedule,
 )
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL = 1e-4
 
@@ -381,7 +385,7 @@ def test_train_cli_and_served_checkpoint(tmp_path):
     config["train"]["epochs"] = 5
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(config))
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, "-m", "glearning_benchmark_tpu_torch.train", "--model",
          "agtt", "--config", str(path), "--epochs", "1", "--limit", "24",

@@ -46,6 +46,10 @@ from glearning_benchmark_tpu_torch.data.loader import load_examples_multi_algori
 from glearning_benchmark_tpu_torch.serve import Predictor, predict_records
 from glearning_benchmark_tpu_torch.train import checkpoint, trainer
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 LOSS_RTOL = 1e-4
 GRAPH_GN_RTOL = 1e-3
 GRAPH_EVAL_RTOL = 1e-2

@@ -30,6 +30,10 @@ from glearning_benchmark_tpu_torch.convert import (
 )
 from glearning_benchmark_tpu_torch.models.transformer import SimpleTransformer
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 VOCAB, L, Q_ID = 40, 96, 4
 
 # (name, model kwargs, q_token_id)

@@ -1,7 +1,7 @@
 """The backward kernels' redesign (wgmma at head dims 64 and 128), the wide
 route (f32 at head dim 128 and every head dim above 128) and the split of
-the bf16 route's second products (three bf16 terms at head dims 64 and
-128, two below: ``ROADMAP.md`` C4).
+the bf16 route's second products (three bf16 terms at every head dim, csrc
+``kSplitTerms``).
 
 - CPU: the cancelling-sum case. In one segment of 8 tokens, column 0 of dO
   is chosen on the bf16 grid so that dV[key 0, col 0] = sum_q P[q, 0]
@@ -20,9 +20,9 @@ the bf16 route's second products (three bf16 terms at head dims 64 and
     ``bh_offset`` 6; dQ, dK, dV bit-equal on a second run;
   - all three kernels at head dims 160, 256 and 320 (the wide route,
     unpadded);
-  - the cancelling-sum case against the f64 version at the head dims that
-    take three split terms (64, 128). Below 64 the kernels keep two (C4,
-    open) and miss it;
+  - the cancelling-sum case against the f64 version at head dims 8, 16
+    (mma.sync), 64 and 128 (wgmma): every bf16 design takes three split
+    terms;
   - the design ``fa.design`` chooses has an instance in its source at every
     head dim and type, and an entry point refuses a design it has no
     instance of.
@@ -34,11 +34,15 @@ import torch
 
 from glearning_benchmark_tpu_torch.ops import flash_attention as fa
 
+# one intra-op thread: the tier-1 run puts six pytest workers on one host,
+# where torch's own pool in each of them would oversubscribe the cores
+torch.set_num_threads(1)
+
 RTOL = {"bfloat16": 4e-3, "float32": 1e-4}
 ATOL = 1e-5
 TRAIN_RATE = 26 / 256
 CANCEL_SEEDS = {8: 1, 16: 0, 64: 2, 128: 2}     # the cases below, by head dim
-THREE_TERMS = (64, 128)          # csrc/flash_attn_common.cuh split_terms
+THREE_TERMS = fa.HEAD_DIMS       # every bf16 instance: csrc/flash_attn_common.cuh kSplitTerms
 
 
 def _split(x: torch.Tensor, terms: int) -> torch.Tensor:
@@ -192,11 +196,11 @@ def test_wide_head_dims_match_plain(d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", THREE_TERMS)
+@pytest.mark.parametrize("d", [d for d in THREE_TERMS if d in CANCEL_SEEDS])
 def test_cancelling_sum_holds_on_the_card(d):
-    """The bf16 kernels where they take three split terms, on the
+    """The bf16 kernels (three split terms at every head dim) on the
     cancelling-sum case, against the f64 version with the kernel's own O
-    and LSE."""
+    and LSE: mma.sync at 8 and 16, wgmma at 64 and 128."""
     _card()
     q, k, v, do, seg = (t.cuda() for t in cancelling_case(d, CANCEL_SEEDS[d]))
     o, lse = fa.flash_attention_fwd(q, k, v, seg)
