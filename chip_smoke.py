@@ -172,9 +172,9 @@ Phases; any failure exits non-zero before the last line is printed:
    ranks run over NCCL, a card each, and a four-rank run of data 2 x model
    2 (agtt_zinc width, f32) is held to one process the same way.
 11. The tools. Every instance of the three kernels that the launchers can
-   choose (each head dim with an instance, the forward's wgmma instance at
-   256 and the wide route, bf16 and f32, views TMA can and cannot read,
-   with and without dropout):
+   choose (each head dim with an instance, the three kernels' wgmma
+   instances at 256 and the wide route, bf16 and f32, views TMA can and
+   cannot read, with and without dropout):
    its design, shared memory, registers and spills as
    ``cudaFuncGetAttributes`` reports them; every instance but the f32
    design's (mma.sync, whose second products take three split terms at
@@ -182,14 +182,16 @@ Phases; any failure exits non-zero before the last line is printed:
    mfu_bench rows [64, 1024, 8, D] with packed segments at p 26/256: head
    dims 128 and 64
    (bf16: wgmma; f32: the wide route at 128, the f32 design at 64), a head
-   dim between instances (12, zero-padded to 16) and above 128 (256; 160,
-   the bf16 forward's wgmma instance at 256 zero-padded, and the wide
-   route, a chunk and a part), bf16 and f32 (16 batch rows for f32 above
-   128); the bf16 kernels on the dense mfu rows (every token valid) at 128
-   and 64, and at flash_ab's xl [4, 4096, 8, 64] with its ragged key mask;
-   bf16 above the forward's wgmma instance (320, 16 batch rows: the wide
-   route). Each row is held to the plain versions (the tolerances of phases
-   3-4) and its inputs then timed beside the plain versions and SDPA.
+   dim between instances (12, zero-padded to 16) and above 128 (256; 160:
+   bf16 the three kernels' wgmma instances at 256, 160 zero-padded, f32
+   the wide route, a chunk and a part), bf16 and f32 (16 batch rows for
+   f32 above 128); the bf16 kernels on the dense mfu rows (every token
+   valid) at 128 and 64, on the dense attention of mfu_bench's d_model
+   2048 step [16, 1024, 8, 256], and at flash_ab's xl [4, 4096, 8, 64]
+   with its ragged key mask; bf16 above the wgmma instances (320, 16 batch
+   rows: the wide route). Each row is held to the plain versions (the
+   tolerances of phases 3-4) and its inputs then timed beside the plain
+   versions and SDPA.
    Views TMA cannot read (an odd element offset) run the forward's mma.sync
    design at 64 and 128 and the wide route at 256, are counted, held to the
    plain version and timed. The
@@ -200,7 +202,9 @@ Phases; any failure exits non-zero before the last line is printed:
    must parse with a positive value, the byte-exactness checks held and the
    device encoder timed); ``tools.mfu_bench`` at d_model 256, 512 and 1024
    with a block of 4 steps (every row ``valid`` with 0 < mfu <= 1, the
-   attention kernels launched); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
+   attention kernels launched), then at d_model 2048, batch 16 (head dim
+   256: the backward's wgmma instances at 256; valid, each attention
+   kernel launched); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
    and xl; ``tools.serve_bench`` for agtt and MPNN at buckets 1 and 256
    (1-epoch checkpoints on phase 7's corpus, 3 warm requests);
    ``tools.scaling_bench`` at N = 1 and 2 (1,000 molecules a host, vocab
@@ -2300,8 +2304,11 @@ def mesh_phase(fa, tmp: str, graphs, card: str) -> dict:
 
 MFU_SHAPE = (64, 1024, 8, 128)   # tools/mfu_bench.py's d_model 1024 rows: B, L, H, D
 PADDED_HEAD_DIM = 12
-WIDE_HEAD_DIMS = (256, 160)      # the wide route: a whole chunk, and one and a partial one
-ABOVE_WGMMA = 320                # bf16 above the forward's wgmma instance: the wide route
+WIDE_HEAD_DIMS = (256, 160)      # above 128: bf16 the wgmma instance at 256 (160 zero-padded),
+                                 # f32 the wide route (a whole chunk, and one and a partial one)
+ABOVE_WGMMA = 320                # bf16 above the kernels' wgmma instance: the wide route
+D2048_SHAPE = (16, 1024, 8, 256) # mfu_bench --d-model 2048 --batch 16: its attention, dense
+D2048_ARGS = ["--d-model", "2048", "--batch", "16"]
 WIDE_F32_ROWS = 16               # batch rows of the f32 checks above 128 (slow plain version)
 XL_SHAPE = (4, 4096, 8, 64)      # tools/flash_ab.py's xl
 MFU_STEPS = 4                    # the timed block (and a half block of 2)
@@ -2315,8 +2322,8 @@ GCN_GAT_EPOCHS = 20
 
 def instances(fa) -> dict:
     """Every instance of the three kernels that ``fa.design`` can choose (the
-    head dims with an instance, the forward's wgmma instance at 256, the
-    wide route, each input type, views TMA can and cannot read, with and
+    head dims with an instance, the three kernels' wgmma instances at 256,
+    the wide route, each input type, views TMA can and cannot read, with and
     without dropout, and the forward's wgmma instances of the short hash):
     its design and its resources as ``cudaFuncGetAttributes`` reports them.
     Every instance of the bf16 route's designs (mma.sync at head dims 4-32,
@@ -2354,14 +2361,16 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
     """The kernels at the mfu_bench rows with packed segments at the
     training rate ``p``: head dims 128 and 64 (the wgmma instances in bf16;
     in f32 the wide route at 128, the f32 design at 64), a padded head dim
-    (12), and above 128 (256, 160: the bf16 forward's wgmma instance at 256,
-    the wide route), bf16 and f32; then the bf16 kernels on the dense
-    mfu_bench rows (every token valid: the step's own shape) at 128 and 64,
-    and at xl (flash_ab's ragged key mask); the bf16 wide route above the
-    forward's wgmma instance (320, packed, 16 batch rows); then views TMA
-    cannot read (the forward at 64, 128 and 256). Every row is held to the
-    plain versions before the same inputs are timed. Returns (forward
-    errors, backward errors, timings by shape)."""
+    (12), and above 128 (256, 160: bf16 the three kernels' wgmma instances
+    at 256, 160 zero-padded; f32 the wide route), bf16 and f32; then the
+    bf16 kernels on the dense mfu_bench rows (every token valid: the step's
+    own shape) at 128 and 64, on the dense attention of the d_model 2048
+    step (``D2048_SHAPE``, head dim 256), and at xl (flash_ab's ragged key
+    mask); the bf16 wide route above the wgmma instances (320, packed, 16
+    batch rows); then views TMA cannot read (the forward at 64, 128 and
+    256). Every row is held to the plain versions before the same inputs
+    are timed. Returns (forward errors, backward errors, timings by
+    shape)."""
     from glearning_benchmark_tpu_torch.tools.flash_ab import inputs
 
     b, l, h, d = MFU_SHAPE
@@ -2396,6 +2405,17 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
             fa, *args, p, 11, label, iters=20, plain_iters=2)
         del args
         torch.cuda.empty_cache()
+    b2, l2, h2, d2 = D2048_SHAPE
+    args = (*qkv_views(D2048_SHAPE, torch.bfloat16, gen),
+            torch.ones(b2, l2, dtype=torch.int32, device="cuda"),
+            strided_do(D2048_SHAPE, torch.bfloat16, gen))
+    label = f"d_model 2048 dense rows d{d2} bfloat16"
+    errs.append(compare(label, fa, *args[:4], p_drop=p, seed=11, chunk=4))
+    berrs.append(compare_bwd(label, fa, *args, p, 11, chunk=4))
+    timing[f"d2048_dense_rows_d{d2}_B{b2}_bfloat16_p{p}"] = time_bwd(
+        fa, *args, p, 11, label, iters=10, plain_iters=1)
+    del args
+    torch.cuda.empty_cache()
     q, k, v, seg_xl, _ = inputs(*XL_SHAPE, torch.device("cuda"))
     do = strided_do(XL_SHAPE, torch.bfloat16, gen)
     label = "xl (flash_ab's ragged key mask) bfloat16"
@@ -2553,6 +2573,24 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
         f"d_model {r['d_model']} step {r['step_s'] * 1e3:.2f} ms, mfu {r['mfu']:.4f}, "
         f"mfu_vs_measured {r['mfu_vs_measured']:.4f}" for r in rows)
         + f"; launches {launches['mfu_bench']}; {time.perf_counter() - t0:.1f} s")
+
+    # the reference's largest benched transformer: head dim 256, whose
+    # backward runs the dQ and dK/dV kernels' wgmma instances at 256
+    t0 = time.perf_counter()
+    reset_launches(fa)
+    row = captured(mfu_bench.main, D2048_ARGS + ["--steps", str(MFU_STEPS), "--out",
+                                                 os.path.join(tmp, "mfu2048.json")])[0]
+    launches["mfu_bench_d2048"] = launches_now(fa)
+    if not (row["valid"] and 0 < row["mfu"] <= 1 and row["head_dim"] == D2048_SHAPE[3]):
+        raise AssertionError(f"mfu_bench d_model 2048: not a valid row: {row}")
+    attn = attention_launches(launches["mfu_bench_d2048"])
+    if min(attn.values()) == 0:
+        raise AssertionError(f"mfu_bench d_model 2048 ran no attention kernel: {attn}")
+    designs = {name: fa.design(name, row["head_dim"], torch.bfloat16) for name in attn}
+    log(f"[tools] mfu_bench d_model 2048 batch {row['batch']} (head dim {row['head_dim']}): "
+        f"step {row['step_s'] * 1e3:.2f} ms, mfu {row['mfu']:.4f}, mfu_vs_measured "
+        f"{row['mfu_vs_measured']:.4f}; attention launches {attn}, designs {designs}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     ab = captured(flash_ab.main, ["--shapes", AB_SHAPES, "--out", os.path.join(tmp, "ab.json")])

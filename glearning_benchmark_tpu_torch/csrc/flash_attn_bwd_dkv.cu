@@ -69,6 +69,35 @@
 // work run under the other's products. No producer warp: the ring is filled
 // by the same threads two tiles ahead.
 //
+// bf16 at head dim 256 (129-255 zero-padded to it by the wrapper):
+// warpgroup wgmma on two warpgroups (`attn_bwd_dkv_kernel_wgmma_halves`).
+// The wide route ran at 200x the bound there. dK and dV of 64 keys x 256
+// columns would take 256 registers a thread in one warpgroup, so two
+// warpgroups share the block's 64 keys and each holds 128 columns of both
+// (128 registers). S^T and dP^T need the whole head dim; each is formed
+// once: warpgroup 0 takes S^T = k q^T and P (the mask, the exp), warpgroup
+// 1 takes dP^T = v dO^T and the keep (the hash), each on 16 k-steps of
+// m64n32k16, and each writes its 16 values a thread to shared memory (P,
+// dP keep/(1-p), keep/(1-p): 24 KB; the accumulator layouts of the two
+// warpgroups agree, so thread t reads what thread t of the other wrote).
+// Both then form P keep/(1-p) and dS from the same values in the same
+// order, split them into three bf16 terms and run dV += P~^T dO and dK +=
+// dS^T q on their own half of the columns (m64n128k16, dO and q read
+// MN-major from the column half of the shared tile). Shared memory: k and v
+// resident (64 KB), a three-stage ring of 32-query q/dO tiles (96 KB) and
+// the exchange, 189,568 B: one block an SM, eight warps. Registers: 241 a
+// thread (244 with dropout), 0 B spilled. The same cp.async ring as at 64
+// and 128 (no TMA: strided q and dO views are read as they are), chosen by
+// measurement (PERF.md §6, dense [16, 1024, 8, 256], each pair of times
+// from one call): the ring's copies cost 28% there (a probe that stopped
+// them ran 1.538 ms against 2.132), but a TMA ring (warp 0 issuing the forward's boxes of 8 columns
+// into an mbarrier a stage, a transposed dO copied first) ran 2.583 ms
+// against 2.229, and pipelining it (the next tile's S^T or dP^T and
+// hand-over under this tile's dV and dK products, a double-buffered
+// exchange, one barrier a tile) 2.478; launching a batch*head's tiles
+// together for L2 ran 2.069 against 2.129. The exchange's barrier costs
+// 0.13 ms there, the first products 0.19, the second 0.61.
+//
 // f32 at head dims 4-64: the FP32 pipe, a key a thread. A block of 128
 // threads owns 128 keys with k, v and the dK and dV accumulators of its key
 // in f32 registers and loops over query tiles of 64 staged in shared memory
@@ -77,8 +106,8 @@
 // against the wide route on the same inputs, which is why both stay
 // (PERF.md §6).
 //
-// f32 at head dim 128 and every head dim above 128 (both input types): the
-// wide FP32-pipe route (`attn_bwd_dkv_kernel_wide`, flash_attn_common.cuh
+// f32 at head dim 128 and above, bf16 above 256: the wide FP32-pipe route
+// (`attn_bwd_dkv_kernel_wide`, flash_attn_common.cuh
 // `kWideRows`). A block owns 32 keys and one chunk of 128 columns of dK and
 // dV (grid z = ceil(D / 128)); a key is held by 4 threads, lane i of each
 // warp, warp w holding columns [32 w, 32 w + 32), so that no thread keeps a
@@ -513,6 +542,256 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// The wgmma route at head dim 256 (see the header note): two warpgroups on
+// the block's 64 keys, each holding half of the columns of dK and dV;
+// warpgroup 0 forms S^T and P, warpgroup 1 dP^T and the keep, and each hands
+// the other its half through shared memory. Shared bytes of a launch: k and
+// v resident, the q/dO ring, and the exchange (P, dP keep/(1-p), keep/(1-p):
+// QN / 2 values a thread of a warpgroup each).
+constexpr int kDkvHalvesThreads = 256;
+template <int D>
+__host__ __device__ constexpr size_t dkv_halves_smem() {
+  return dkv_wgmma_smem<D>() + 3 * (kDkvQueries / 2) * 128 * sizeof(float);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kDkvHalvesThreads)
+    attn_bwd_dkv_kernel_wgmma_halves(const BwdParams p, const int vec) {
+  constexpr int NT = kDkvHalvesThreads;
+  constexpr int QN = kDkvQueries;
+  constexpr int KD = D / 16;    // k-steps of S^T and dP^T
+  constexpr int HALF = D / 2;   // columns of dK and dV a warpgroup holds
+  constexpr int NE = QN / 2;    // elements of S^T (dP^T) a thread holds
+  static_assert(HALF <= 128, "one m64n128 product a half");
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(wg_smem);  // [D / 8][64][8]
+  bf16* vs = ks + kMmaRows * D;
+  bf16* qs = vs + kMmaRows * D;                 // kDkvStages x [D / 8][QN][8]
+  bf16* dos = qs + kDkvStages * QN * D;
+  float* lses = reinterpret_cast<float*>(dos + kDkvStages * QN * D);  // [stage][QN]
+  float* deltas = lses + kDkvStages * QN;
+  int32_t* segs = reinterpret_cast<int32_t*>(deltas + kDkvStages * QN);
+  float* xp = reinterpret_cast<float*>(segs + kDkvStages * QN);  // [NE][128]: P
+  float* xd = xp + NE * 128;                                     // dP keep/(1-p)
+  float* xk = xd + NE * 128;                                     // keep/(1-p)
+  __shared__ int32_t wlo_s[NT / 32], whi_s[NT / 32];
+
+  const int tid = threadIdx.x;
+  const int tl = tid & 127;       // the thread in its warpgroup
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;       // the warpgroup: columns [HALF wg, HALF wg + HALF)
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int blk0 = blockIdx.y * kMmaRows;     // the block's first key
+  const int key0 = blk0 + (warp & 3) * 16;    // the warp's first key
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* gp = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
+  const float* delta_bh = p.delta + static_cast<int64_t>(bh) * p.L;
+
+  // the block's segment-id range (a query tile outside it is skipped) and query range
+  const int32_t my_seg = (lane < 16 && key0 + lane < p.L) ? seg_b[key0 + lane] : 0;
+  int32_t wlo, whi;
+  warp_seg_range(my_seg, &wlo, &whi);
+  if (lane == 0) {
+    wlo_s[warp] = wlo;
+    whi_s[warp] = whi;
+  }
+  int q_first, q_last;
+  other_axis_range(seg_b, p.L,
+                   (tid < kMmaRows && blk0 + tid < p.L) ? seg_b[blk0 + tid] : 0, &q_first,
+                   &q_last);  // syncs: wlo_s, whi_s are visible
+  const int32_t blo = min(min(wlo_s[0], wlo_s[1]), min(wlo_s[2], wlo_s[3]));
+  const int32_t bhi = max(max(whi_s[0], whi_s[1]), max(whi_s[2], whi_s[3]));
+  const int qend = q_last + 1;
+  const int ntiles = (qend - q_first + QN - 1) / QN;  // <= 0: none
+
+  // this thread's two keys (g and g+8 of the warp's 16)
+  int keys[2];
+  int32_t sk[2], sk_match[2];
+  uint32_t hkey[2];  // the dropout hash's (batch*head, key column) terms
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    keys[i] = key0 + g + 8 * i;
+    sk[i] = keys[i] < p.L ? seg_b[keys[i]] : 0;
+    sk_match[i] = sk[i] != 0 ? sk[i] : -1;  // a pad key pairs with no query
+    hkey[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
+              (static_cast<uint32_t>(keys[i]) * kHashCol);
+  }
+  asm volatile("" : "+r"(hkey[0]), "+r"(hkey[1]));
+  float dk[HALF / 2], dv[HALF / 2];  // this warpgroup's half, unscaled (wgmma layout)
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  auto stage = [&](int t) {
+    const int buf = t % kDkvStages;
+    const int l0 = q_first + t * QN;
+    stage_tile<D, QN, NT>(qs + buf * QN * D, qp, p.q_sl, l0, qend, vec);
+    stage_tile<D, QN, NT>(dos + buf * QN * D, gp, p.do_sl, l0, qend, vec);
+    const int i = tid & (QN - 1);
+    const bool ok = l0 + i < qend;
+    const int src = ok ? l0 + i : 0;
+    if (tid < QN) {
+      cp_async<4>(&lses[buf * QN + i], lse_bh + src, ok);
+      cp_async<4>(&segs[buf * QN + i], seg_b + src, ok);
+    } else if (tid < 2 * QN) {
+      cp_async<4>(&deltas[buf * QN + i], delta_bh + src, ok);
+    }
+  };
+  stage_tile<D, kMmaRows, NT>(ks, kp, p.k_sl, blk0, p.L, vec);
+  stage_tile<D, kMmaRows, NT>(vs, vp, p.v_sl, blk0, p.L, vec);
+#pragma unroll
+  for (int t = 0; t < kDkvStages - 1; ++t) {
+    if (t < ntiles) stage(t);
+    cp_async_commit();
+  }
+  // this warpgroup's operand of the first products, and its half of q and dO
+  const bf16* kvs = wg == 0 ? ks : vs;
+  const int half0 = wg * (HALF / 8) * QN * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + kDkvStages - 1 < ntiles) stage(t + kDkvStages - 1);
+    cp_async_commit();
+    cp_async_wait<kDkvStages - 1>();
+    fence_proxy_async();
+    const int buf = t % kDkvStages;
+    const int32_t* seg_t = segs + buf * QN;
+    const int32_t sq_t = tid < QN ? seg_t[tid] : 0;
+    if (!__syncthreads_or(sq_t != 0 && sq_t >= blo && sq_t <= bhi))
+      continue;  // no allowed pair for the block among these queries
+    const bf16* qt = qs + buf * QN * D;
+    const bf16* gt = dos + buf * QN * D;
+    const float* lse_t = lses + buf * QN;
+    const float* delta_t = deltas + buf * QN;
+    const int l0 = q_first + t * QN;
+
+    // warpgroup 0: S^T = k q^T; warpgroup 1: dP^T = v dO^T
+    float x[NE];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<QN>::ss(x, desc_kmajor<kMmaRows>(kvs, kk), desc_kmajor<QN>(wg == 0 ? qt : gt, kk),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+
+    // warpgroup 0: P in place of S^T; warpgroup 1: dP^T keep/(1-p), and the
+    // keep; each into the exchange
+    if (wg == 0) {
+#pragma unroll
+      for (int n = 0; n < QN / 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = n * 8 + 2 * tg + c;  // query in the tile
+          const int32_t sq = seg_t[j];
+          const float lse2 = lse_t[j] * kLog2e;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {      // this thread's key
+            const int e = 4 * n + 2 * i + c;
+            x[e] = sq == sk_match[i] ? ex2_approx(fmaf(x[e], p.scale_log2, -lse2)) : 0.f;
+            xp[e * 128 + tl] = x[e];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < QN / 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t hq = static_cast<uint32_t>(l0 + n * 8 + 2 * tg + c) * kHashRow;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * n + 2 * i + c;
+            if constexpr (DROP) {
+              const uint32_t hv = hash_finish(p.seed, hkey[i] ^ hq);
+              const float keepf = hv >= p.keep_thresh ? p.keep_scale : 0.f;
+              x[e] *= keepf;
+              xk[e * 128 + tl] = keepf;
+            }
+            xd[e * 128 + tl] = x[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the exchange is written
+
+    // both: P keep/(1-p) in x, dS = P (dP keep/(1-p) - delta) in y
+    float y[NE];
+#pragma unroll
+    for (int n = 0; n < QN / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float dl = delta_t[n * 8 + 2 * tg + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * n + 2 * i + c;
+          const float pr = wg == 0 ? x[e] : xp[e * 128 + tl];
+          const float dpk = wg == 0 ? xd[e * 128 + tl] : x[e];
+          x[e] = DROP ? pr * xk[e * 128 + tl] : pr;
+          y[e] = pr * (dpk - dl);
+        }
+      }
+    }
+    SplitA<kSplitTerms> pa[QN / 16], sa[QN / 16];
+#pragma unroll
+    for (int kk = 0; kk < QN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16x2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], pa[kk], r);
+    wgmma_fence();
+    fence_regs(dv);
+#pragma unroll
+    for (int term = 0; term < kSplitTerms; ++term)
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        Wgmma<HALF>::rs_t(dv, pa[kk].t[term], desc_mnmajor<QN>(gt + half0, kk));
+#pragma unroll
+    for (int kk = 0; kk < QN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16x2(y[8 * kk + 2 * r], y[8 * kk + 2 * r + 1], sa[kk], r);
+    wgmma_fence();
+    fence_regs(dk);
+#pragma unroll
+    for (int term = 0; term < kSplitTerms; ++term)
+#pragma unroll
+      for (int kk = 0; kk < QN / 16; ++kk)
+        Wgmma<HALF>::rs_t(dk, sa[kk].t[term], desc_mnmajor<QN>(qt + half0, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();  // buf is restaged at t + kDkvStages; the exchange is read
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= p.L) continue;
+    const int64_t out =
+        ((static_cast<int64_t>(b) * p.L + keys[i]) * p.H + h) * D + wg * HALF;
+    bf16* dkp = static_cast<bf16*>(p.dk) + out;
+    bf16* dvp = static_cast<bf16*>(p.dv) + out;
+    const bool pad = sk[i] == 0;  // dK = dV = 0 exactly
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n) {
+      const int col = n * 8 + 2 * tg;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + col) = __floats2bfloat162_rn(
+          pad ? 0.f : dk[4 * n + 2 * i] * p.scale, pad ? 0.f : dk[4 * n + 2 * i + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + col) = __floats2bfloat162_rn(
+          pad ? 0.f : dv[4 * n + 2 * i], pad ? 0.f : dv[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
 // The f32 route (see the header note): one key per thread.
 template <int D>
 __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
@@ -736,7 +1015,11 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel_wide(const BwdParams 
 // source has none; the wide route is `wide_kernel`.
 template <int D>
 const void* kernel_of(int design, int dropout) {
-  if constexpr (D >= 64) {
+  if constexpr (D > 128) {
+    if (design == kDesignWgmma)
+      return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma_halves<D, true>)
+                     : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma_halves<D, false>);
+  } else if constexpr (D >= 64) {
     if (design == kDesignWgmma)
       return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma<D, true>)
                      : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma<D, false>);
@@ -751,6 +1034,7 @@ const void* kernel_of(int design, int dropout) {
 }
 template <int D>
 constexpr size_t dyn_smem_of() {
+  if constexpr (D > 128) return dkv_halves_smem<D>();
   if constexpr (D >= 64) return dkv_wgmma_smem<D>();
   return mma_dyn_smem<mma_ld(D)>();
 }
@@ -769,7 +1053,14 @@ int launch(const BwdParams& p, int design, cudaStream_t stream) {
                                 rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D)));
     const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
     constexpr size_t smem = dyn_smem_of<D>();
-    if constexpr (D >= 64) {
+    if constexpr (D > 128) {
+      if (p.dropout)
+        launch_dyn(attn_bwd_dkv_kernel_wgmma_halves<D, true>, grid, kDkvHalvesThreads, smem,
+                   stream, p, vec);
+      else
+        launch_dyn(attn_bwd_dkv_kernel_wgmma_halves<D, false>, grid, kDkvHalvesThreads, smem,
+                   stream, p, vec);
+    } else if constexpr (D >= 64) {
       if (p.dropout)
         launch_dyn(attn_bwd_dkv_kernel_wgmma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
       else
@@ -798,8 +1089,9 @@ int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
       attn_bwd_dkv_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_head_dim(head_dim,
-                       [&](auto d) { return launch<decltype(d)::value>(p, design, stream); });
+  return with_design_head_dim(head_dim, design, [&](auto d) {
+    return launch<decltype(d)::value>(p, design, stream);
+  });
 }
 
 }  // namespace
@@ -822,7 +1114,7 @@ extern "C" int flash_attn_bwd_dkv_attrs(int head_dim, int is_bf16, int design, i
                                         int* out) {
   if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
-  return flash::with_head_dim(head_dim, [&](auto d) {
+  return flash::with_design_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -46,16 +46,18 @@
 // bounds the kernel: warp-level mma lets each warp skip what its 16 rows
 // may not attend.
 //
-// bf16 at head dims 64 and 128: warpgroup wgmma (sm_90a). There the
-// products dominate, and mma.sync (a warp's 16 x 8 tiles, full-width
-// accumulators in a warp, 208 registers, a few warps an SM) ran at 8x the
-// bound. One block is one warpgroup owning 64 query rows; q and dO of those
-// rows sit in shared memory for the block's life, and K, V and the key
-// segment ids stream through a two-stage cp.async ring (16-byte pieces,
-// each tile in wgmma's core-matrix layout, `stage_tile`; plain loads where
-// a pointer or stride does not fit). Per key tile of 64 that holds an
-// allowed pair for the block (the tile is skipped otherwise; 32 keys at
-// head dim 64, `dq_keys`):
+// bf16 at head dims 64, 128 and 256 (129-255 zero-padded to 256 by the
+// wrapper): warpgroup wgmma (sm_90a). There the products dominate, and
+// mma.sync (a warp's 16 x 8 tiles, full-width accumulators in a warp, 208
+// registers, a few warps an SM) ran at 8x the bound at 128, and the wide
+// route at 228x at 256. A block is one warpgroup (two at 256, `dq_groups`)
+// owning 64 query rows each; q and dO of those rows sit in shared memory
+// for the block's life, and K, V and the key segment ids stream through a
+// two-stage cp.async ring shared by the block's warpgroups (16-byte
+// pieces, each tile in wgmma's core-matrix layout, `stage_tile`; plain
+// loads where a pointer or stride does not fit). Per key tile of 64 that
+// holds an allowed pair for the warpgroup (the tile is skipped otherwise;
+// 32 keys at head dims 64 and 256, `dq_keys`):
 //   - S = q k^T and dP = dO v^T: wgmma m64n64k16, both operands from shared
 //     memory (K-major), D / 16 k-steps each, committed as one group;
 //   - P, the mask, the dropout keep (hash_u32 at (bh_offset + b h, query,
@@ -67,10 +69,23 @@
 // cancel, beyond the elementwise 4e-3 the kernel is held to, so it goes in
 // as three bf16 terms hi + mid + lo (`kSplitTerms`), three
 // products; the tensor cores have the room. The dQ accumulator (D / 2
-// registers a thread) is the block's only full-width state, so two blocks
-// fit an SM and one block's loads and elementwise work run under the
-// other's products. No producer warp: the ring is filled by the same
-// threads one tile ahead.
+// registers a thread) is the block's only full-width state, so at 64 and
+// 128 two blocks fit an SM and one block's loads and elementwise work run
+// under the other's products. At 256 the accumulator takes 128 registers
+// (two m64n128 products a k-step, `OW`), S and dP 16 each at 32 keys, and
+// the block 202 registers a thread (221 with dropout), 0 B spilled; q and
+// dO of the block's 128 rows take 128 KB and a K/V stage 32 KB, so one
+// block holds an SM (196,864 B), and its two warpgroups share each K/V
+// tile: eight warps an SM. No producer warp and no TMA: the ring is filled by the same
+// threads one tile ahead, and strided views (dO, q of the fused qkv) are
+// read as they are. Chosen by measurement at 256 (PERF.md §6, dense
+// [16, 1024, 8, 256], each pair of times from one call): the ring's
+// copies cost 15% there (a probe that stopped them ran 0.820 ms against
+// 0.964), but a TMA ring (three stages, warp 0 issuing the forward's boxes
+// of 8 columns into an mbarrier a stage) ran 1.262 ms against 0.968, and
+// pipelining it (the next tile's S and dP under this tile's dQ products)
+// 1.464; launching a batch*head's tiles together for L2 ran 1.006 against
+// 0.966.
 //
 // f32 at head dims 4-64: the FP32 pipe, a query row a thread. A block of
 // 128 threads owns 128 query rows with q, dO and the dQ accumulator of its
@@ -80,8 +95,8 @@
 // thread; chip_smoke.py phase 11 times it against the wide route on the
 // same inputs, which is why both stay (PERF.md §6).
 //
-// f32 at head dim 128 and every head dim above 128 (both input types):
-// the wide FP32-pipe route (`attn_bwd_dq_kernel_wide`, flash_attn_common.cuh
+// f32 at head dim 128 and above, bf16 above 256: the wide FP32-pipe route
+// (`attn_bwd_dq_kernel_wide`, flash_attn_common.cuh
 // `kWideRows`). A block owns 32 query rows and one chunk of 128 dQ columns
 // (grid z = ceil(D / 128)); a row is held by 4 threads, lane i of each
 // warp, warp w holding columns [32 w, 32 w + 32), so that no thread keeps a
@@ -309,41 +324,58 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 
-// The wgmma route (see the header note): shared bytes of a launch at head
-// dim D, and the instance.
+// The wgmma route (see the header note): the block's shape and shared
+// bytes at head dim D, and the instance.
+// Consumer warpgroups of 64 query rows a block: two at head dim 256, where
+// the block's shared memory (q and dO of its rows resident, the K/V ring)
+// lets one block an SM and one warpgroup would leave the SM four warps; the
+// two share each K and V tile. One below.
+__host__ __device__ constexpr int dq_groups(int d) { return d > 128 ? 2 : 1; }
+__host__ __device__ constexpr int dq_rows(int d) { return 64 * dq_groups(d); }
+__host__ __device__ constexpr int dq_threads(int d) { return 128 * dq_groups(d); }
 // Keys a tile: 64 at head dim 128; 32 at 64, where the smaller tiles let
-// three blocks share an SM (timed on the card: faster there, slower at 128).
-__host__ __device__ constexpr int dq_keys(int d) { return d >= 128 ? 64 : 32; }
+// three blocks share an SM (timed on the card: faster there, slower at 128),
+// and at 256, where S and dP then take 16 registers each beside the 128 of
+// the dQ accumulator.
+__host__ __device__ constexpr int dq_keys(int d) { return d == 128 ? 64 : 32; }
 constexpr int kDqStages = 2;   // tiles in the ring
 template <int D>
 __host__ __device__ constexpr size_t dq_wgmma_smem() {
-  return (2 * kMmaRows * D + kDqStages * 2 * dq_keys(D) * D) * sizeof(bf16) +
+  return (2 * dq_rows(D) * D + kDqStages * 2 * dq_keys(D) * D) * sizeof(bf16) +
          kDqStages * dq_keys(D) * sizeof(int32_t);
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(dq_threads(D))
     attn_bwd_dq_kernel_wgmma(const BwdParams p, const int vec) {
+  constexpr int NG = dq_groups(D);
+  constexpr int NT = dq_threads(D);
+  constexpr int NW = NT / 32;           // warps
+  constexpr int ROWS = dq_rows(D);
   constexpr int KN = dq_keys(D);
-  constexpr int KD = D / 16;  // k-steps of S and dP
+  constexpr int KD = D / 16;            // k-steps of S and dP
+  constexpr int OW = D > 128 ? 128 : D; // columns of dQ one dS K product covers
+  constexpr int NH = D / OW;            // products a k-step
   extern __shared__ __align__(128) unsigned char wg_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(wg_smem);  // [D / 8][64][8]
-  bf16* dos = qs + kMmaRows * D;
-  bf16* ks = dos + kMmaRows * D;                // kDqStages x [D / 8][KN][8]
+  bf16* qs = reinterpret_cast<bf16*>(wg_smem);  // NG x [D / 8][64][8]
+  bf16* dos = qs + ROWS * D;
+  bf16* ks = dos + ROWS * D;                    // kDqStages x [D / 8][KN][8]
   bf16* vs = ks + kDqStages * KN * D;
   int32_t* segs = reinterpret_cast<int32_t*>(vs + kDqStages * KN * D);
-  __shared__ float delta_s[kMmaRows];
-  __shared__ int32_t wlo_s[4], whi_s[4];
+  __shared__ float delta_s[ROWS];
+  __shared__ int32_t wlo_s[NW], whi_s[NW];
+  __shared__ int live_s[kDqStages][NG];  // NG 2: the tile meets warpgroup g's ids
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
+  const int wg = warp >> 2;                // the warpgroup: the block's rows [64 wg, 64 wg + 64)
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int tg = lane & 3;
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int blk0 = blockIdx.y * kMmaRows;  // the block's first row
+  const int blk0 = blockIdx.y * ROWS;      // the block's first row
   const int row0 = blk0 + warp * 16;       // the warp's first row
   const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
   const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -388,7 +420,8 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
   }
 
-  // the block's segment-id range (a key tile outside it is skipped) and key range
+  // the segment-id ranges of the block and of each warpgroup (a key tile
+  // outside one is skipped there) and the block's key range
   const int32_t my_seg = (lane < 16 && row0 + lane < p.L) ? seg_b[row0 + lane] : 0;
   int32_t wlo, whi;
   warp_seg_range(my_seg, &wlo, &whi);
@@ -397,10 +430,14 @@ __global__ void __launch_bounds__(kMmaThreads)
     whi_s[warp] = whi;
   }
   int k_first, k_last;
-  other_axis_range(seg_b, p.L, (tid < kMmaRows && blk0 + tid < p.L) ? seg_b[blk0 + tid] : 0,
+  other_axis_range(seg_b, p.L, (tid < ROWS && blk0 + tid < p.L) ? seg_b[blk0 + tid] : 0,
                    &k_first, &k_last);  // syncs: wlo_s, whi_s, delta_s are visible
-  const int32_t blo = min(min(wlo_s[0], wlo_s[1]), min(wlo_s[2], wlo_s[3]));
-  const int32_t bhi = max(max(whi_s[0], whi_s[1]), max(whi_s[2], whi_s[3]));
+  int32_t glo[NG], ghi[NG];
+#pragma unroll
+  for (int gg = 0; gg < NG; ++gg) {
+    glo[gg] = min(min(wlo_s[4 * gg], wlo_s[4 * gg + 1]), min(wlo_s[4 * gg + 2], wlo_s[4 * gg + 3]));
+    ghi[gg] = max(max(whi_s[4 * gg], whi_s[4 * gg + 1]), max(whi_s[4 * gg + 2], whi_s[4 * gg + 3]));
+  }
   const int kend = k_last + 1;
   const int ntiles = (kend - k_first + KN - 1) / KN;  // <= 0: none
 
@@ -420,23 +457,30 @@ __global__ void __launch_bounds__(kMmaThreads)
               (static_cast<uint32_t>(rows[i]) * kHashRow);
   }
   asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
-  float acc[D / 2];  // dQ of the warp's 16 rows, unscaled (wgmma layout)
+  float acc[NH][OW / 2];  // dQ of the warp's 16 rows, unscaled (wgmma layout, columns OW hh + ...)
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) acc[hh][i] = 0.f;
 
   auto stage = [&](int t) {
     const int buf = t % kDqStages;
     const int s0 = k_first + t * KN;
-    stage_tile<D, KN>(ks + buf * KN * D, kp, p.k_sl, s0, kend, vec);
-    stage_tile<D, KN>(vs + buf * KN * D, vp, p.v_sl, s0, kend, vec);
+    stage_tile<D, KN, NT>(ks + buf * KN * D, kp, p.k_sl, s0, kend, vec);
+    stage_tile<D, KN, NT>(vs + buf * KN * D, vp, p.v_sl, s0, kend, vec);
     if (tid < KN)
       cp_async<4>(&segs[buf * KN + tid], seg_b + (s0 + tid < kend ? s0 + tid : 0),
                   s0 + tid < kend);
   };
-  stage_tile<D, kMmaRows>(qs, qp, p.q_sl, blk0, p.L, vec);
-  stage_tile<D, kMmaRows>(dos, gp, p.do_sl, blk0, p.L, vec);
+#pragma unroll
+  for (int gg = 0; gg < NG; ++gg) {
+    stage_tile<D, 64, NT>(qs + gg * 64 * D, qp, p.q_sl, blk0 + 64 * gg, p.L, vec);
+    stage_tile<D, 64, NT>(dos + gg * 64 * D, gp, p.do_sl, blk0 + 64 * gg, p.L, vec);
+  }
   if (ntiles > 0) stage(0);
   cp_async_commit();
+  const bf16* qw = qs + wg * 64 * D;     // this warpgroup's rows
+  const bf16* dow = dos + wg * 64 * D;
 
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) stage(t + 1);
@@ -445,65 +489,91 @@ __global__ void __launch_bounds__(kMmaThreads)
     fence_proxy_async();
     const int buf = t % kDqStages;
     const int32_t* seg_t = segs + buf * KN;
-    const int32_t sk_t = tid < KN ? seg_t[tid] : 0;
-    if (!__syncthreads_or(sk_t != 0 && sk_t >= blo && sk_t <= bhi))
-      continue;  // no allowed pair for the block among these keys
-    const bf16* kt = ks + buf * KN * D;
-    const bf16* vt = vs + buf * KN * D;
-    const int s0 = k_first + t * KN;
-
-    float sc[KN / 2], dp[KN / 2];
-    wgmma_fence();
+    const int32_t sk_t = tid < KN ? seg_t[tid] : 0;  // the ids this thread staged
+    bool live = true;  // the tile meets this warpgroup's ids
+    if constexpr (NG == 1) {
+      if (!__syncthreads_or(sk_t != 0 && sk_t >= glo[0] && sk_t <= ghi[0]))
+        continue;  // no allowed pair for the block among these keys
+    } else {
+      static_assert(KN == 32, "warp 0 stages the tile's ids and reads them");
+      if (warp == 0) {
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      Wgmma<KN>::ss(sc, desc_kmajor<kMmaRows>(qs, kk), desc_kmajor<KN>(kt, kk), kk > 0);
-      Wgmma<KN>::ss(dp, desc_kmajor<kMmaRows>(dos, kk), desc_kmajor<KN>(vt, kk), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-
-    // dS in place of S; each of this thread's keys read once for its two rows
-#pragma unroll
-    for (int n = 0; n < KN / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = n * 8 + 2 * tg + c;  // key in the tile
-        const int32_t sk = seg_t[j];
-        const uint32_t hk = static_cast<uint32_t>(s0 + j) * kHashCol;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {      // this thread's row
-          const int e = 4 * n + 2 * i + c;
-          const float pr =
-              sk == sq_match[i] ? ex2_approx(fmaf(sc[e], p.scale_log2, -lse2[i])) : 0.f;
-          float dpv = dp[e];
-          if constexpr (DROP) {
-            const uint32_t hv = hash_finish(p.seed, hrow[i] ^ hk);
-            dpv = hv >= p.keep_thresh ? dpv * p.keep_scale : 0.f;
-          }
-          sc[e] = pr * (dpv - dlt[i]);
+        for (int gg = 0; gg < NG; ++gg) {
+          const unsigned hit =
+              __ballot_sync(0xffffffffu, sk_t != 0 && sk_t >= glo[gg] && sk_t <= ghi[gg]);
+          if (lane == 0) live_s[buf][gg] = hit != 0;
         }
       }
+      __syncthreads();
+      bool any = false;
+#pragma unroll
+      for (int gg = 0; gg < NG; ++gg) any |= live_s[buf][gg] != 0;
+      if (!any) continue;  // no allowed pair for the block among these keys
+      live = live_s[buf][wg] != 0;
     }
-    SplitA<kSplitTerms> sa[KN / 16];
+    if (live) {
+      const bf16* kt = ks + buf * KN * D;
+      const bf16* vt = vs + buf * KN * D;
+      const int s0 = k_first + t * KN;
+
+      float sc[KN / 2], dp[KN / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KN / 16; ++kk) {
-      split_bf16x2(sc[8 * kk], sc[8 * kk + 1], sa[kk], 0);
-      split_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3], sa[kk], 1);
-      split_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5], sa[kk], 2);
-      split_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7], sa[kk], 3);
+      for (int kk = 0; kk < KD; ++kk) {
+        Wgmma<KN>::ss(sc, desc_kmajor<64>(qw, kk), desc_kmajor<KN>(kt, kk), kk > 0);
+        Wgmma<KN>::ss(dp, desc_kmajor<64>(dow, kk), desc_kmajor<KN>(vt, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS in place of S; each of this thread's keys read once for its two rows
+#pragma unroll
+      for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = n * 8 + 2 * tg + c;  // key in the tile
+          const int32_t sk = seg_t[j];
+          const uint32_t hk = static_cast<uint32_t>(s0 + j) * kHashCol;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {      // this thread's row
+            const int e = 4 * n + 2 * i + c;
+            const float pr =
+                sk == sq_match[i] ? ex2_approx(fmaf(sc[e], p.scale_log2, -lse2[i])) : 0.f;
+            float dpv = dp[e];
+            if constexpr (DROP) {
+              const uint32_t hv = hash_finish(p.seed, hrow[i] ^ hk);
+              dpv = hv >= p.keep_thresh ? dpv * p.keep_scale : 0.f;
+            }
+            sc[e] = pr * (dpv - dlt[i]);
+          }
+        }
+      }
+      SplitA<kSplitTerms> sa[KN / 16];
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk) {
+        split_bf16x2(sc[8 * kk], sc[8 * kk + 1], sa[kk], 0);
+        split_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3], sa[kk], 1);
+        split_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5], sa[kk], 2);
+        split_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7], sa[kk], 3);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) fence_regs(acc[hh]);
+#pragma unroll
+      for (int term = 0; term < kSplitTerms; ++term)
+#pragma unroll
+        for (int kk = 0; kk < KN / 16; ++kk)
+#pragma unroll
+          for (int hh = 0; hh < NH; ++hh)
+            Wgmma<OW>::rs_t(acc[hh], sa[kk].t[term],
+                            desc_mnmajor<KN>(kt + hh * (OW / 8) * KN * 8, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int hh = 0; hh < NH; ++hh) fence_regs(acc[hh]);
     }
-    wgmma_fence();
-    fence_regs(acc);
-#pragma unroll
-    for (int term = 0; term < kSplitTerms; ++term)
-#pragma unroll
-      for (int kk = 0; kk < KN / 16; ++kk)
-        Wgmma<D>::rs_t(acc, sa[kk].t[term], desc_mnmajor<KN>(kt, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
     __syncthreads();  // buf is restaged at t + kDqStages
   }
   cp_async_wait<0>();
@@ -515,10 +585,12 @@ __global__ void __launch_bounds__(kMmaThreads)
                 ((static_cast<int64_t>(b) * p.L + rows[i]) * p.H + h) * D;
     const bool pad = sq[i] == 0;  // dQ = 0 exactly
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqp + n * 8 + 2 * tg) = __floats2bfloat162_rn(
-          pad ? 0.f : acc[4 * n + 2 * i] * p.scale,
-          pad ? 0.f : acc[4 * n + 2 * i + 1] * p.scale);
+    for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+      for (int n = 0; n < OW / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dqp + hh * OW + n * 8 + 2 * tg) =
+            __floats2bfloat162_rn(pad ? 0.f : acc[hh][4 * n + 2 * i] * p.scale,
+                                  pad ? 0.f : acc[hh][4 * n + 2 * i + 1] * p.scale);
   }
 }
 
@@ -770,14 +842,15 @@ int launch(const BwdParams& p, int design, cudaStream_t stream) {
                     rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D) &&
                     (D < 64 || (rows_vectorizable(p.q, p.q_sb, p.q_sl, p.q_sh, D) &&
                                 rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D)));
-    const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
     constexpr size_t smem = dyn_smem_of<D>();
     if constexpr (D >= 64) {
+      const dim3 grid(p.B * p.H, (p.L + dq_rows(D) - 1) / dq_rows(D));
       if (p.dropout)
-        launch_dyn(attn_bwd_dq_kernel_wgmma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
+        launch_dyn(attn_bwd_dq_kernel_wgmma<D, true>, grid, dq_threads(D), smem, stream, p, vec);
       else
-        launch_dyn(attn_bwd_dq_kernel_wgmma<D, false>, grid, kMmaThreads, smem, stream, p, vec);
+        launch_dyn(attn_bwd_dq_kernel_wgmma<D, false>, grid, dq_threads(D), smem, stream, p, vec);
     } else {
+      const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
       if (p.dropout)
         launch_dyn(attn_bwd_dq_kernel_mma<D, true>, grid, kMmaThreads, smem, stream, p, vec);
       else
@@ -801,8 +874,9 @@ int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
       attn_bwd_dq_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_head_dim(head_dim,
-                       [&](auto d) { return launch<decltype(d)::value>(p, design, stream); });
+  return with_design_head_dim(head_dim, design, [&](auto d) {
+    return launch<decltype(d)::value>(p, design, stream);
+  });
 }
 
 }  // namespace
@@ -824,7 +898,7 @@ extern "C" int flash_attn_bwd_dq_attrs(int head_dim, int is_bf16, int design, in
                                        int* out) {
   if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
-  return flash::with_head_dim(head_dim, [&](auto d) {
+  return flash::with_design_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

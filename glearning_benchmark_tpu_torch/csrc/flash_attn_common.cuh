@@ -2,9 +2,10 @@
 // type conversion, the dropout counter hash, the segment-range scans, the
 // backward kernels' parameter block, the tensor-core building blocks of the
 // bf16 route (mma.sync, ldmatrix, cp.async, the bf16 split of a second
-// product's operand; wgmma and its shared-memory tiles for the backward
-// kernels at head dims 64 and 128), and the pieces of the wide route (the
-// FP32-pipe kernels of f32 at head dim 128 and of every head dim above 128).
+// product's operand; wgmma and its shared-memory tiles for the kernels at
+// head dims 64, 128 and 256), and the pieces of the wide route (the
+// FP32-pipe kernels of f32 at head dim 128 and of every head dim above 128
+// that no wgmma instance takes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,6 +119,19 @@ int with_head_dim(int head_dim, F&& f) {
 // point runs the design it is given, or returns cudaErrorInvalidValue where
 // its source has no instance of it at that head dim and input type.
 enum Design : int { kDesignMma = 0, kDesignWgmma = 1, kDesignF32 = 2, kDesignWide = 3 };
+
+// The wgmma design's instance above 128 (ops/flash_attention.py
+// WGMMA_WIDE): the wrappers zero-pad bf16 head dims 129-255 to it.
+constexpr int kWgmmaWide = 256;
+
+// The head dims with an instance of `design`: with_head_dim's, and
+// kWgmmaWide in the wgmma design.
+template <typename F>
+int with_design_head_dim(int head_dim, int design, F&& f) {
+  if (head_dim == kWgmmaWide && design == kDesignWgmma)
+    return f(std::integral_constant<int, kWgmmaWide>{});
+  return with_head_dim(head_dim, f);
+}
 
 // Whether `design` takes inputs of this type: the wide route both, the f32
 // design f32, the tensor-core designs bf16.
@@ -445,7 +459,7 @@ __device__ __forceinline__ void warp_seg_range(int32_t mine, int32_t* lo,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma (sm_90a): the backward kernels' bf16 route at head dims 64 and 128
+// wgmma (sm_90a): the bf16 route at head dims 64, 128 and 256
 // ---------------------------------------------------------------------------
 
 // A shared tile of ROWS rows x D bf16 in wgmma's core-matrix layout without
@@ -595,17 +609,18 @@ struct Wgmma<128> {
 // beyond `rend` become zeros. With `vec`, by cp.async in 16-byte pieces: a
 // warp takes 8 rows x 4 pieces, so that each quarter warp writes 128
 // contiguous shared bytes and each row's 64 global bytes are whole sectors;
-// else by plain loads. Needs 128 threads, D a multiple of 32 and ROWS * D / 8
-// a multiple of 128.
-template <int D, int ROWS>
+// else by plain loads. Needs the block's THREADS threads, D a multiple of 32
+// and ROWS * D / 8 a multiple of THREADS.
+template <int D, int ROWS, int THREADS = 128>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            int64_t stride, int r0, int rend, bool vec) {
   constexpr int kGroups = D / 8;  // 16-byte pieces a row
-  static_assert(kGroups % 4 == 0 && ROWS % 8 == 0, "tile shape");
+  static_assert(kGroups % 4 == 0 && ROWS % 8 == 0 && ROWS * kGroups % THREADS == 0,
+                "tile shape");
   if (vec) {
 #pragma unroll
-    for (int it = 0; it < ROWS * kGroups / 128; ++it) {
-      const int w = it * 4 + (threadIdx.x >> 5);
+    for (int it = 0; it < ROWS * kGroups / THREADS; ++it) {
+      const int w = it * (THREADS / 32) + (threadIdx.x >> 5);
       const int lane = threadIdx.x & 31;
       const int r = (w / (kGroups / 4)) * 8 + (lane & 7);
       const int cg = (w % (kGroups / 4)) * 4 + (lane >> 3);
@@ -614,7 +629,7 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
       cp_async<16>(dst + (cg * ROWS + r) * 8, s, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < ROWS * D; e += 128) {
+    for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
       const int r = e / D;
       const int d = e - r * D;
       dst[((d >> 3) * ROWS + r) * 8 + (d & 7)] =
@@ -625,7 +640,7 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
 }
 
 // ---------------------------------------------------------------------------
-// the wide route: f32 at head dim 128 and every head dim above 128
+// the wide route: f32 at head dim 128 and above, bf16 above kWgmmaWide
 // ---------------------------------------------------------------------------
 
 // A block of 128 threads owns kWideRows rows of its own axis (a row a lane)

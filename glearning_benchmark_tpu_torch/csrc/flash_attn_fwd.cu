@@ -1256,14 +1256,6 @@ const void* wide_kernel(int is_bf16) {
                  : reinterpret_cast<const void*>(attn_fwd_kernel_wide<float>);
 }
 
-// The head dims with an instance of `design`: with_head_dim's, and 256 in
-// the wgmma design.
-template <typename F>
-int with_fwd_head_dim(int head_dim, int design, F&& f) {
-  if (head_dim == 256 && design == kDesignWgmma) return f(std::integral_constant<int, 256>{});
-  return with_head_dim(head_dim, f);
-}
-
 template <int D>
 int launch(const Params& p, int design, cudaStream_t stream) {
   if (kernel_of<D>(design, p.dropout) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -1297,7 +1289,7 @@ int dispatch_d(int head_dim, int is_bf16, int design, const Params& p, cudaStrea
       attn_fwd_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_fwd_head_dim(head_dim, design, [&](auto d) {
+  return with_design_head_dim(head_dim, design, [&](auto d) {
     return launch<decltype(d)::value>(p, design, stream);
   });
 }
@@ -1346,7 +1338,7 @@ extern "C" int flash_attn_fwd_attrs(int head_dim, int is_bf16, int design, int d
                                     int* out) {
   if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == kDesignWide) return func_attrs(wide_kernel(is_bf16), 0, out);
-  return with_fwd_head_dim(head_dim, design, [&](auto d) {
+  return with_design_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -22,10 +22,11 @@ its design and what bounds it on an H100.
 - Every head dim runs in the kernels. They have instances at the head dims
   :data:`HEAD_DIMS` (4 to 128), and the wrappers run any other head dim up
   to 128 through the next instance, zero-padded (:func:`pad_head_dim`);
-  the bf16 forward runs head dims 129-256 through its ``wgmma`` instance at
-  :data:`FWD_WGMMA_WIDE`, zero-padded; every other head dim above 128 runs
-  unpadded in the kernels' wide route, which takes the head dim at run time
-  (so does f32 at 128). :func:`design` names the design a launch runs.
+  in bf16 all three kernels run head dims 129-256 through their ``wgmma``
+  instance at :data:`WGMMA_WIDE`, zero-padded; f32 above 128 and bf16
+  above 256 run unpadded in the kernels' wide route, which takes the head
+  dim at run time (so does f32 at 128). :func:`design` names the design a
+  launch runs.
 - :func:`bound` and :func:`bound_bwd` give the least time the card could
   take for a kernel's work on given inputs (``chip_smoke.py`` and
   ``tools/flash_ab.py`` print it beside the kernel's time).
@@ -52,7 +53,7 @@ from ..utils.card import HBM_BYTES_S, PEAK_FLOPS, SFU_PER_SM_CLK, nvidia_smi
 
 NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # the kernels' instances (csrc: with_head_dim)
-FWD_WGMMA_WIDE = 256     # the bf16 forward's wgmma instance above 128 (csrc: with_fwd_head_dim)
+WGMMA_WIDE = 256     # the bf16 kernels' wgmma instance above 128 (csrc: kWgmmaWide)
 DESIGNS = ("mma", "wgmma", "f32", "wide")   # csrc: Design, in this order
 _U32 = 0xFFFFFFFF
 
@@ -343,14 +344,15 @@ def build_seconds() -> Dict[str, float]:
 
 def padded_head_dim(d: int, name: Optional[str] = None,
                     dtype: Optional[torch.dtype] = None) -> int:
-    """The head dim that head dim ``d`` runs at in kernel ``name`` with
-    inputs of ``dtype``: up to 128 the least of :data:`HEAD_DIMS` at or
-    above it; above 128 :data:`FWD_WGMMA_WIDE` in the bf16 forward up to
-    that (its wgmma instance), else ``d`` itself (the wide route takes any
-    head dim). Without a name: the backward kernels' head dim."""
+    """The head dim that head dim ``d`` runs at in kernel ``name`` (one of
+    :data:`SOURCES`) with inputs of ``dtype``: up to 128 the least of
+    :data:`HEAD_DIMS` at or above it; above 128 :data:`WGMMA_WIDE` in bf16
+    up to that (each kernel's wgmma instance), else ``d`` itself (the wide
+    route takes any head dim). Without a name: the wide route's head dim
+    above 128."""
     if d > HEAD_DIMS[-1]:
-        fwd_wgmma = name == "flash_attn_fwd" and dtype == torch.bfloat16
-        return FWD_WGMMA_WIDE if fwd_wgmma and d <= FWD_WGMMA_WIDE else d
+        wgmma = name in SOURCES and dtype == torch.bfloat16 and d <= WGMMA_WIDE
+        return WGMMA_WIDE if wgmma else d
     return next(inst for inst in HEAD_DIMS if d <= inst)
 
 
@@ -375,35 +377,36 @@ def design(name: str, head_dim: int, dtype: torch.dtype, tma: bool = True) -> st
     place a launch's design is chosen. The launchers pass it to the C entry
     points, which run it or refuse it (each source's header note): "mma"
     (bf16 at head dims up to 32: warp-level mma.sync), "wgmma" (bf16 at 64
-    and 128, and the forward at 129-256 through its instance at 256:
-    warpgroup wgmma; the forward's operands come by TMA), "f32" (f32 up to
-    64: the FP32 pipe, a row a thread) or "wide" (f32 at 128 and every head
-    dim above 128 that no wgmma instance takes: the FP32 pipe, a row a lane,
-    four warps of 32 columns each to a chunk of 128 output columns).
+    and 128, and at 129-256 through the instance at :data:`WGMMA_WIDE`:
+    warpgroup wgmma; the forward's operands come by TMA, the backward's by
+    cp.async), "f32" (f32 up to 64: the FP32 pipe, a row a thread) or
+    "wide" (f32 at 128 and above, bf16 above 256: the FP32 pipe, a row a
+    lane, four warps of 32 columns each to a chunk of 128 output columns).
     ``tma`` False (the forward's q, k, v fail :func:`tma_ok`): the forward
-    runs mma.sync at 64 and 128, the wide route above."""
+    runs mma.sync at 64 and 128, the wide route above; the backward reads
+    any view."""
     d = padded_head_dim(head_dim, name, dtype)
-    if name == "flash_attn_fwd" and dtype == torch.bfloat16 and 64 <= d <= FWD_WGMMA_WIDE:
-        if tma:
+    if dtype == torch.bfloat16 and 64 <= d <= WGMMA_WIDE:
+        if tma or name != "flash_attn_fwd":
             return "wgmma"
         return "mma" if d <= HEAD_DIMS[-1] else "wide"
-    if d > HEAD_DIMS[-1] or (d == HEAD_DIMS[-1] and dtype != torch.bfloat16):
+    if d >= HEAD_DIMS[-1]:
         return "wide"
     if dtype != torch.bfloat16:
         return "f32"
-    return "wgmma" if d >= 64 else "mma"
+    return "mma"
 
 
 def pad_head_dim(kernel: Callable, *args: torch.Tensor, name: Optional[str] = None,
                  **kwargs):
     """``kernel(*args, scale=1/sqrt(D), **kwargs)`` at the next kernel
     instance: every [B, L, H, D] tensor of ``args`` is zero-padded along D to
-    :func:`padded_head_dim` of kernel ``name`` (None: the backward's) and
-    the type of ``args[0]``, the others (seg, LSE, delta) pass as they are,
-    and every [B, L, H, *] result is cut back to D. Zero columns change no
-    q.k and no P, so the padded columns of O, dQ, dK and dV come out zero and
-    are dropped; the scale stays the one of the true head dim. With D an
-    instance, the tensors pass untouched (strided views stay views).
+    :func:`padded_head_dim` of kernel ``name`` and the type of ``args[0]``,
+    the others (seg, LSE, delta) pass as they are, and every [B, L, H, *]
+    result is cut back to D. Zero columns change no q.k and no P, so the
+    padded columns of O, dQ, dK and dV come out zero and are dropped; the
+    scale stays the one of the true head dim. With D an instance, the
+    tensors pass untouched (strided views stay views).
     ``kernel`` is a launcher or, in the tests, a plain version."""
     d = args[0].shape[-1]
     pad = padded_head_dim(d, name, args[0].dtype) - d
@@ -513,7 +516,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda(q, k, v, seg)
     o, lse = pad_head_dim(_launch_fwd, q, k, v, seg, name="flash_attn_fwd", p_drop=p_drop,
                           seed=seed, bh_offset=bh_offset)
-    # above 128 the backward kernels read O as it is (unpadded): contiguous
+    # above 128 the launchers read O as it is (unpadded): contiguous
     return (o.contiguous() if q.shape[-1] > HEAD_DIMS[-1] else o), lse
 
 
@@ -610,7 +613,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dq = flash_attention_bwd_reference(q, k, v, seg, o, lse, do, **kw)[0]
         return dq, flash_attention_delta(o, do)
     _check_cuda(q, k, v, seg)
-    return pad_head_dim(_launch_dq, q, k, v, seg, o, lse, do, **kw)
+    return pad_head_dim(_launch_dq, q, k, v, seg, o, lse, do, name="flash_attn_bwd_dq", **kw)
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -626,20 +629,22 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, seg, o, lse, do, **kw)[1:]
     _check_cuda(q, k, v, seg)
-    return pad_head_dim(_launch_dkv, q, k, v, seg, o, lse, do, delta, **kw)
+    return pad_head_dim(_launch_dkv, q, k, v, seg, o, lse, do, delta,
+                        name="flash_attn_bwd_dkv", **kw)
 
 
 def flash_attention_bwd(q, k, v, seg, o, lse, do, p_drop: float = 0.0,
                         seed: Optional[int] = None, bh_offset: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV): the dQ kernel, then the dK/dV kernel on the same stream,
-    the operands padded once for both (CPU tensors: one pass of
-    :func:`flash_attention_bwd_reference`)."""
+    the operands padded once for both (the two pad alike; CPU tensors: one
+    pass of :func:`flash_attention_bwd_reference`)."""
     kw = _bwd_args(q, k, v, seg, p_drop, seed, bh_offset)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, seg, o, lse, do, **kw)
     _check_cuda(q, k, v, seg)
-    return pad_head_dim(_launch_both, q, k, v, seg, o, lse, do, **kw)
+    return pad_head_dim(_launch_both, q, k, v, seg, o, lse, do, name="flash_attn_bwd_dq",
+                        **kw)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -5,8 +5,9 @@ JAX package and the plain version.
 - CPU: ``design("flash_attn_fwd", d, bf16)`` is "wgmma" at 64 and 128 and,
   through the instance at 256 (``padded_head_dim`` of the forward), at
   129-256; "mma" at 4-32; "f32"/"wide" for f32; the backward's designs
-  are unchanged. A view TMA cannot read (``tma_ok``) takes "mma" at 64 and
-  128 and the wide route at 256.
+  by head dim and type (its own wgmma instance at 256 since the backward's
+  redesign above 128, ``tests/test_torch_bwd_wgmma.py``). A view TMA cannot
+  read (``tma_ok``) takes "mma" at 64 and 128 and the wide route at 256.
 - CPU: the wrapper's CPU route at head dims 160 and 256 equals the plain
   version; the zero-padding to 256 (the plain version in the kernel's
   place sees head dim 256) keeps LSE within 1e-5 and the bf16 O within one
@@ -78,14 +79,14 @@ def test_bf16_forward_above_256_takes_the_wide_route(d):
     assert fa.design(FWD, d, torch.bfloat16) == "wide"
 
 
-@pytest.mark.parametrize("d,dtype,design", [
-    (16, torch.bfloat16, "mma"), (64, torch.bfloat16, "wgmma"),
-    (128, torch.bfloat16, "wgmma"), (160, torch.bfloat16, "wide"),
-    (256, torch.bfloat16, "wide"), (64, torch.float32, "f32"),
-    (128, torch.float32, "wide")])
-def test_backward_designs_are_unchanged(d, dtype, design):
+@pytest.mark.parametrize("d,dtype,design,padded", [
+    (16, torch.bfloat16, "mma", 16), (64, torch.bfloat16, "wgmma", 64),
+    (128, torch.bfloat16, "wgmma", 128), (160, torch.bfloat16, "wgmma", 256),
+    (256, torch.bfloat16, "wgmma", 256), (64, torch.float32, "f32", 64),
+    (128, torch.float32, "wide", 128)])
+def test_backward_designs_by_head_dim_and_type(d, dtype, design, padded):
     for name in BWD:
-        assert fa.padded_head_dim(d, name, dtype) == fa.padded_head_dim(d)
+        assert fa.padded_head_dim(d, name, dtype) == padded
         assert fa.design(name, d, dtype) == design
 
 

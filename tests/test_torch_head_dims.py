@@ -1,8 +1,8 @@
 """Head dims the JAX package runs: the port's attention takes every head dim
 (kernel instances at 4, 8, 16, 32, 64 and 128, any other head dim up to 128
-zero-padded to the next instance; above 128 the bf16 forward's wgmma
-instance at 256, bf16 129-256 zero-padded to it, and every other head dim
-above 128 unpadded in the kernels' wide route).
+zero-padded to the next instance; above 128 the three kernels' wgmma
+instance at 256, bf16 129-256 zero-padded to it, and f32 above 128 and
+bf16 above 256 unpadded in the kernels' wide route).
 
 - The port's ``SimpleTransformer`` against the flax one at head dims 12,
   24, 128, 160 and 256 (weights through ``convert.py``, f32, one layer,
@@ -14,9 +14,9 @@ above 128 unpadded in the kernels' wide route).
   dQ, dK and dV equal the unpadded plain version's within 1e-5 absolute at
   head dims 12 and 100 with dropout on (the padded einsums sum zeros in
   another order: measured 5e-7), and at 160 and 320, which pass unpadded.
-- Head dims 129-512 run at themselves in the wide route, on both input
-  types, in the backward kernels and the f32 forward; the bf16 forward runs
-  129-256 in its wgmma instance at 256 and above 256 in the wide route.
+- Head dims 129-512 in f32 run at themselves in the wide route, in all
+  three kernels; in bf16 the three kernels run 129-256 in their wgmma
+  instance at 256 and above 256 in the wide route.
 - The bf16 forward's padding to 256, with the plain version in place of the
   kernel: LSE within 1e-5 of the unpadded version's, O within one bf16
   rounding (with dropout).
@@ -146,16 +146,16 @@ KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
 
 @pytest.mark.parametrize("d", [129, 130, 136, 144, 160, 192, 200, 255, 256, 257, 320, 384,
                                448, 511, 512])
-def test_head_dims_above_128_run_unpadded_in_the_wide_route(d):
-    """The backward kernels and the f32 forward: unpadded, in the wide
-    route. The bf16 forward: its wgmma instance at 256 up to 256, the wide
-    route above."""
+def test_head_dims_above_128_route_by_input_type(d):
+    """f32, in every kernel: unpadded, in the wide route. bf16, in every
+    kernel: the wgmma instance at 256 up to 256, the wide route above.
+    Without a kernel's name: the wide route's head dim."""
     assert fa.padded_head_dim(d) == d
     for name in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
-            if name == "flash_attn_fwd" and dtype == torch.bfloat16:
-                wgmma = d <= fa.FWD_WGMMA_WIDE
-                assert fa.padded_head_dim(d, name, dtype) == (fa.FWD_WGMMA_WIDE if wgmma else d)
+            if dtype == torch.bfloat16:
+                wgmma = d <= fa.WGMMA_WIDE
+                assert fa.padded_head_dim(d, name, dtype) == (fa.WGMMA_WIDE if wgmma else d)
                 assert fa.design(name, d, dtype) == ("wgmma" if wgmma else "wide")
             else:
                 assert fa.padded_head_dim(d, name, dtype) == d
@@ -189,7 +189,7 @@ def test_forward_padding_to_the_wgmma_instance_equals_unpadded_plain_version(d):
         return fa.flash_attention_reference(*args, **kwargs)
 
     po, plse = fa.pad_head_dim(plain, q, k, v, seg, name="flash_attn_fwd", **kw)
-    assert seen == [fa.FWD_WGMMA_WIDE] and po.shape == o.shape and po.dtype == torch.bfloat16
+    assert seen == [fa.WGMMA_WIDE] and po.shape == o.shape and po.dtype == torch.bfloat16
     assert ((po.float() - o).abs() <= BF16_RTOL * o.abs() + ATOL).all()
     np.testing.assert_allclose(plse.numpy(), lse.numpy(), atol=ATOL, rtol=0)
 

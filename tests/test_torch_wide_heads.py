@@ -18,8 +18,9 @@ the bf16 route's second products (three bf16 terms at every head dim, csrc
   - the backward pair at head dims 64 and 128, bf16 and f32, at [3, 300, 2,
     D] (packed segments, a pad tail, a partial last tile), p 0 and 26/256,
     ``bh_offset`` 6; dQ, dK, dV bit-equal on a second run;
-  - all three kernels at head dims 160, 256 and 320 (the wide route,
-    unpadded);
+  - all three kernels at head dims 160, 256 and 320 (f32: the wide route,
+    unpadded; bf16: the wgmma instance at 256, 160 zero-padded to it, and
+    the wide route at 320);
   - the cancelling-sum case against the f64 version at head dims 8, 16
     (mma.sync), 64 and 128 (wgmma): every bf16 design takes three split
     terms;
@@ -190,8 +191,10 @@ def test_backward_pair_matches_plain(d, dtype, p_drop):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("d", [160, 256, 320])
 def test_wide_head_dims_match_plain(d, dtype):
-    """All three kernels above head dim 128 (the wide route, column chunks
-    of 128 and a partial last one at 160 and 320), with dropout."""
+    """All three kernels above head dim 128, with dropout: f32 on the wide
+    route (column chunks of 128 and a partial last one at 160 and 320), bf16
+    on the wgmma instance at 256 (160 zero-padded) and on the wide route at
+    320."""
     _check_all(d, dtype, TRAIN_RATE, bh_offset=6, seed=d)
 
 
@@ -238,7 +241,7 @@ def test_entry_points_refuse_a_design_without_an_instance(launch, d, dtype, forc
     seg = torch.ones(2, 64, dtype=torch.int32, device="cuda")
     kw = {"p_drop": 0.0, "seed": 0, "bh_offset": 0, "scale": d ** -0.5}
     o, lse = fa.flash_attention_fwd(q, k, v, seg)
-    _, delta = fa._launch_dq(q, k, v, seg, o, lse, do, **kw)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, seg, o, lse, do)   # padded where it must be
     calls = {"fwd": lambda: fa._launch_fwd(q, k, v, seg, force=force, **kw),
              "dq": lambda: fa._launch_dq(q, k, v, seg, o, lse, do, force=force, **kw),
              "dkv": lambda: fa._launch_dkv(q, k, v, seg, o, lse, do, delta, force=force, **kw)}
