@@ -84,7 +84,7 @@ Phases; any failure exits non-zero before the last line is printed:
    counters must equal layers x forward batches (forward kernel) and
    layers x train steps (each backward kernel); the best checkpoint must
    serve, its predictions on the first 32 ``val`` graphs equal to the
-   trainer's own eval logits (1e-6); and the first 4 steps repeated on the
+   trainer's own eval logits (1e-6); and the first 3 steps repeated on the
    CPU (same seed, dropout on) must give the card's per-step losses within
    2e-3. Then one
    epoch at ``ibtt_zinc`` width on 2,000 graphs, and ``[time]`` lines for
@@ -100,9 +100,9 @@ Phases; any failure exits non-zero before the last line is printed:
    on cycle_check, agtt and mpnn on shortest_path, mpnn and GPS on
    cycle_check and GPS on the stand-in ZINC, the configs' full widths:
    losses finite and falling, the attention kernels' launch counters equal
-   to layers x batches (zero for the graph models), the first four step
+   to layers x batches (zero for the graph models), the first three step
    losses within 2e-3 of the CPU's (the graph models: the first step at
-   their bf16 compute, and four steps at f32 compute on both sides; see
+   their bf16 compute, and three steps at f32 compute on both sides; see
    ``first_steps_on_cpu``), examples/s, seconds an epoch, launches a step
    and the device's busy share of steady steps. The trained MPNN and GPS
    checkpoints serve the sfn test graphs with the trainer's own eval logits
@@ -145,7 +145,7 @@ Phases; any failure exits non-zero before the last line is printed:
    also build the ZINC vocab over their
    shards of the 12,000 stand-in graphs, which must equal the one-process
    vocab. Last, agtt_zinc width with ``moe_experts: 4`` trains 3 epochs on
-   the full splits (launch counts as in phase 6), its first 4 steps are held
+   the full splits (launch counts as in phase 6), its first 3 steps are held
    against the CPU's (2e-3), its best checkpoint serves the trainer's own
    logits, and ``[time]`` lines profile its steady train steps.
 10. The other mesh axes, each through ``train()`` on two spawned ranks (as
@@ -173,8 +173,9 @@ Phases; any failure exits non-zero before the last line is printed:
    2 (agtt_zinc width, f32) is held to one process the same way.
 11. The tools. Every instance of the three kernels that the launchers can
    choose (each head dim with an instance, the three kernels' wgmma
-   instances at 256 and the wide route, bf16 and f32, views TMA can and
-   cannot read, with and without dropout):
+   instances at 256, the two backward kernels' wgmma_chunks instances at
+   320, 384, 448 and 512, and the wide route, bf16 and f32, views TMA can
+   and cannot read, with and without dropout):
    its design, shared memory, registers and spills as
    ``cudaFuncGetAttributes`` reports them; every instance but the f32
    design's (mma.sync, whose second products take three split terms at
@@ -188,10 +189,14 @@ Phases; any failure exits non-zero before the last line is printed:
    f32 above 128); the bf16 kernels on the dense mfu rows (every token
    valid) at 128 and 64, on the dense attention of mfu_bench's d_model
    2048 step [16, 1024, 8, 256], and at flash_ab's xl [4, 4096, 8, 64]
-   with its ragged key mask; bf16 above the wgmma instances (320, 16 batch
-   rows: the wide route). Each row is held to the plain versions (the
-   tolerances of phases 3-4) and its inputs then timed beside the plain
-   versions and SDPA.
+   with its ragged key mask; bf16 above the wgmma instances at 256 (320, 16
+   batch rows, and 512, 8 batch rows: the forward's wide route, the
+   backward's wgmma_chunks instances, each design logged and required).
+   Each row is held to the plain versions (the tolerances of phases 3-4)
+   and its inputs then timed beside the plain versions and SDPA. The
+   backward's padding copies at a head dim between wgmma_chunks instances
+   (300 on the d320 row's segments, padded to 320) are timed beside the
+   whole backward call.
    Views TMA cannot read (an odd element offset) run the forward's mma.sync
    design at 64 and 128 and the wide route at 256, are counted, held to the
    plain version and timed. The
@@ -204,7 +209,10 @@ Phases; any failure exits non-zero before the last line is printed:
    with a block of 4 steps (every row ``valid`` with 0 < mfu <= 1, the
    attention kernels launched), then at d_model 2048, batch 16 (head dim
    256: the backward's wgmma instances at 256; valid, each attention
-   kernel launched); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
+   kernel launched), then at d_model 2560, 8 heads, 2 layers, batch 8
+   (head dim 320: the backward's wgmma_chunks instances; the launch counts
+   set to 0 before it and read after, each attention kernel launched and
+   the backward's design required); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
    and xl; ``tools.serve_bench`` for agtt and MPNN at buckets 1 and 256
    (1-epoch checkpoints on phase 7's corpus, 3 warm requests);
    ``tools.scaling_bench`` at N = 1 and 2 (1,000 molecules a host, vocab
@@ -322,6 +330,11 @@ CORPUS_ALGORITHMS = ("ba", "sbm", "sfn")
 CORPUS_SHA256 = "c02147248dc59f93f3e93addeb5396f9412fea4601a8789a4ca90992dff1a792"
 IBTT_TRAIN_LIMIT = 2000
 CPU_CHECK_STEPS = 4
+# the card's first steps repeated on the CPU: the plain attention's int64
+# dropout hash makes a CPU step of the token models cost 10-20 s, the
+# slowest part of the script (at four steps these runs took 237.5 s in all
+# on the host of an H100 machine)
+CPU_REF_STEPS = 3
 MAX_LEN = 1024            # configs' dataset.max_len: the served row width
 MAX_BATCH = 512           # Predictor default
 WARMUP_BUCKETS = (1, 64, 512)
@@ -1232,14 +1245,14 @@ def first_epoch(bundle, config: dict, device: str, model=None,
 
 
 def first_steps(bundle, config: dict, model_name: str, device: str):
-    """Step losses of the first steps (at most ``CPU_CHECK_STEPS``) of the
+    """Step losses of the first steps (at most ``CPU_REF_STEPS``) of the
     run ``config`` describes, rebuilt from its seed on ``device``."""
     from glearning_benchmark_tpu_torch.train.trainer import train_epoch
 
     model, opt, arrays, idx, valid, gen = first_epoch(bundle, config, device,
                                                       model_name=model_name)
     _, losses = train_epoch(model, opt, arrays, idx, valid, bundle, gen,
-                            max_steps=CPU_CHECK_STEPS)
+                            max_steps=CPU_REF_STEPS)
     return losses.cpu().numpy()
 
 
@@ -2306,7 +2319,13 @@ MFU_SHAPE = (64, 1024, 8, 128)   # tools/mfu_bench.py's d_model 1024 rows: B, L,
 PADDED_HEAD_DIM = 12
 WIDE_HEAD_DIMS = (256, 160)      # above 128: bf16 the wgmma instance at 256 (160 zero-padded),
                                  # f32 the wide route (a whole chunk, and one and a partial one)
-ABOVE_WGMMA = 320                # bf16 above the kernels' wgmma instance: the wide route
+ABOVE_WGMMA = 320                # bf16 above the wgmma instance at 256: the forward's wide
+                                 # route, the backward's wgmma_chunks instance at 320
+CHUNK_HEAD_DIMS = (384, 448, 512)    # the backward's other wgmma_chunks instances
+ABOVE_CHUNKS = 640               # bf16 above them: the backward's wide route too
+CHUNKS_ROW = (8, 1024, 8, 512)   # the widest wgmma_chunks instance, packed
+PADDED_CHUNK_DIM = 300           # padded to 320 by the backward's wrappers
+D2560_ARGS = ["--d-model", "2560", "--heads", "8", "--layers", "2", "--batch", "8"]
 D2048_SHAPE = (16, 1024, 8, 256) # mfu_bench --d-model 2048 --batch 16: its attention, dense
 D2048_ARGS = ["--d-model", "2048", "--batch", "16"]
 WIDE_F32_ROWS = 16               # batch rows of the f32 checks above 128 (slow plain version)
@@ -2323,8 +2342,9 @@ GCN_GAT_EPOCHS = 20
 def instances(fa) -> dict:
     """Every instance of the three kernels that ``fa.design`` can choose (the
     head dims with an instance, the three kernels' wgmma instances at 256,
-    the wide route, each input type, views TMA can and cannot read, with and
-    without dropout, and the forward's wgmma instances of the short hash):
+    the backward's wgmma_chunks instances at 320-512, the wide route, each
+    input type, views TMA can and cannot read, with and without dropout,
+    and the forward's wgmma instances of the short hash):
     its design and its resources as ``cudaFuncGetAttributes`` reports them.
     Every instance of the bf16 route's designs (mma.sync at head dims 4-32,
     whose second products take three split terms, and at 64 and 128 for
@@ -2332,7 +2352,8 @@ def instances(fa) -> dict:
     the f32 design may."""
     out = {}
     for name in fa.SOURCES:
-        for d in fa.HEAD_DIMS + (WIDE_HEAD_DIMS[0], ABOVE_WGMMA):
+        for d in fa.HEAD_DIMS + (WIDE_HEAD_DIMS[0], ABOVE_WGMMA) + CHUNK_HEAD_DIMS + (
+                ABOVE_CHUNKS,):
             for dtype in (torch.bfloat16, torch.float32):
                 for tma in (True, False):
                     design = fa.design(name, d, dtype, tma)
@@ -2366,9 +2387,11 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
     bf16 kernels on the dense mfu_bench rows (every token valid: the step's
     own shape) at 128 and 64, on the dense attention of the d_model 2048
     step (``D2048_SHAPE``, head dim 256), and at xl (flash_ab's ragged key
-    mask); the bf16 wide route above the wgmma instances (320, packed, 16
-    batch rows); then views TMA cannot read (the forward at 64, 128 and
-    256). Every row is held to the plain versions before the same inputs
+    mask); bf16 above the wgmma instances at 256 (320, packed, 16 batch
+    rows, and ``CHUNKS_ROW``: the forward's wide route, the backward's
+    wgmma_chunks instances) and the backward's padding copies between its
+    instances (``padding_share``); then views TMA cannot read (the forward
+    at 64, 128 and 256). Every row is held to the plain versions before the same inputs
     are timed. Returns (forward errors, backward errors, timings by
     shape)."""
     from glearning_benchmark_tpu_torch.tools.flash_ab import inputs
@@ -2425,24 +2448,49 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
         fa, q, k, v, seg_xl, do, p, 11, label, iters=10, plain_iters=2)
     del q, k, v, do
     torch.cuda.empty_cache()
-    shape = (WIDE_F32_ROWS, l, h, ABOVE_WGMMA)
-    seg_d = seg[:WIDE_F32_ROWS].contiguous()
-    q, k, v = qkv_views(shape, torch.bfloat16, gen)
-    do = strided_do(shape, torch.bfloat16, gen)
-    label = f"mfu rows d{ABOVE_WGMMA} bfloat16"
-    if fa.design("flash_attn_fwd", ABOVE_WGMMA, q.dtype, fa.tma_ok(q, k, v)) != "wide":
-        raise AssertionError(f"{label}: the forward does not take the wide route")
-    errs.append(compare(label, fa, q, k, v, seg_d, p_drop=p, seed=11, chunk=8))
-    berrs.append(compare_bwd(label, fa, q, k, v, seg_d, do, p, 11, chunk=8))
-    timing[f"mfu_rows_d{ABOVE_WGMMA}_B{WIDE_F32_ROWS}_bfloat16_p{p}"] = time_bwd(
-        fa, q, k, v, seg_d, do, p, 11, label, iters=5, plain_iters=2)
-    del q, k, v, do
-    torch.cuda.empty_cache()
+    for rows, dim in ((WIDE_F32_ROWS, ABOVE_WGMMA), (CHUNKS_ROW[0], CHUNKS_ROW[3])):
+        shape, seg_d = (rows, l, h, dim), seg[:rows].contiguous()
+        q, k, v = qkv_views(shape, torch.bfloat16, gen)
+        do = strided_do(shape, torch.bfloat16, gen)
+        label = f"mfu rows d{dim} bfloat16"
+        designs = {name: fa.design(name, dim, q.dtype, fa.tma_ok(q, k, v)) for name in fa.SOURCES}
+        log(f"[kernel] {label} {list(shape)}: designs {designs}")
+        if designs != {"flash_attn_fwd": "wide", **{n: "wgmma_chunks" for n in fa.BWD_SOURCES}}:
+            raise AssertionError(f"{label}: not the forward's wide route and the backward's "
+                                 f"wgmma_chunks design: {designs}")
+        errs.append(compare(label, fa, q, k, v, seg_d, p_drop=p, seed=11, chunk=8))
+        berrs.append(compare_bwd(label, fa, q, k, v, seg_d, do, p, 11, chunk=8))
+        timing[f"mfu_rows_d{dim}_B{rows}_bfloat16_p{p}"] = time_bwd(
+            fa, q, k, v, seg_d, do, p, 11, label, iters=5, plain_iters=2)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    padding_share(fa, gen, seg[:WIDE_F32_ROWS].contiguous(),
+                  (WIDE_F32_ROWS, l, h, PADDED_CHUNK_DIM), p)
     for dim, design in ((64, "mma"), (d, "mma"), (WIDE_HEAD_DIMS[0], "wide")):
         err, ms = tma_refused_view(fa, gen, seg[:8].contiguous(), dim, design, p)
         errs.append(err)
         timing[f"mfu_rows_d{dim}_B8_bfloat16_off_grid_p{p}"] = {"flash_attn_fwd": ms}
     return errs, berrs, timing
+
+
+def padding_share(fa, gen: torch.Generator, seg: torch.Tensor, shape: tuple,
+                  p: float) -> None:
+    """The backward's padding copies (``ROADMAP.md`` B8) at a head dim
+    between wgmma_chunks instances: the whole backward call
+    (``flash_attention_bwd``: the pads, dQ and dK/dV at the padded head dim)
+    and the five ``F.pad`` copies it makes alone, on the same inputs."""
+    d = shape[-1]
+    pad = fa.padded_head_dim(d, "flash_attn_bwd_dq", torch.bfloat16) - d
+    q, k, v = qkv_views(shape, torch.bfloat16, gen)
+    do = strided_do(shape, torch.bfloat16, gen)
+    o, lse = fa.flash_attention_fwd(q, k, v, seg, p, 11)
+    call_ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, seg, o, lse, do, p, 11), 10)
+    pad_ms = cuda_ms(lambda: [torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v, o, do)], 10)
+    log(f"[kernel] padding copies {list(shape)} bfloat16 -> head dim {d + pad}: the five pads "
+        f"{fmt_ms(pad_ms)} of the backward call's {fmt_ms(call_ms)} (share "
+        f"{min(pad_ms) / min(call_ms):.3f})")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
 
 
 def tma_refused_view(fa, gen: torch.Generator, seg: torch.Tensor, d: int, design: str,
@@ -2590,6 +2638,24 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
     log(f"[tools] mfu_bench d_model 2048 batch {row['batch']} (head dim {row['head_dim']}): "
         f"step {row['step_s'] * 1e3:.2f} ms, mfu {row['mfu']:.4f}, mfu_vs_measured "
         f"{row['mfu_vs_measured']:.4f}; attention launches {attn}, designs {designs}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # a model with few heads above head dim 256: the backward's wgmma_chunks
+    # instances on the training path
+    t0 = time.perf_counter()
+    reset_launches(fa)
+    row = captured(mfu_bench.main, D2560_ARGS + ["--steps", str(MFU_STEPS), "--out",
+                                                 os.path.join(tmp, "mfu2560.json")])[0]
+    launches["mfu_bench_d2560"] = launches_now(fa)
+    if not (row["valid"] and 0 < row["mfu"] <= 1 and row["head_dim"] == ABOVE_WGMMA):
+        raise AssertionError(f"mfu_bench d_model 2560: not a valid row: {row}")
+    attn = attention_launches(launches["mfu_bench_d2560"])
+    designs = {name: fa.design(name, row["head_dim"], torch.bfloat16) for name in attn}
+    if min(attn.values()) == 0 or any(designs[n] != "wgmma_chunks" for n in fa.BWD_SOURCES):
+        raise AssertionError(f"mfu_bench d_model 2560: launches {attn}, designs {designs}")
+    log(f"[tools] mfu_bench d_model 2560 heads 8 layers {row['layers']} batch {row['batch']} "
+        f"(head dim {row['head_dim']}): step {row['step_s'] * 1e3:.2f} ms, mfu "
+        f"{row['mfu']:.4f}; attention launches {attn}, designs {designs}; "
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

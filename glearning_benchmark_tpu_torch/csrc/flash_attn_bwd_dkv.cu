@@ -22,7 +22,7 @@
 // (0.20 ms) with the tensor-core FLOPs close behind, so there the products
 // have to run at the tensor cores' rate (PERF.md).
 //
-// Four designs, by head dim and input type (ops/flash_attention.py
+// Five designs, by head dim and input type (ops/flash_attention.py
 // `design` names a launch's; `launch` runs it, or refuses a design this
 // source has no instance of). The Pallas grid
 // swaps its axes for this kernel and carries dK/dV in VMEM across the
@@ -98,6 +98,34 @@
 // together for L2 ran 2.069 against 2.129. The exchange's barrier costs
 // 0.13 ms there, the first products 0.19, the second 0.61.
 //
+// bf16 at head dims 257-512 (the wgmma_chunks design; the wrapper
+// zero-pads to its instances at 320, 384, 448 and 512, the next multiple of
+// 64): the kernel of head dim 256 over column chunks. The wide route ran at
+// 317x the bound at 320, and the 256 design does not stretch: its two
+// warpgroups hold dK and dV of 128 columns each in 241 registers a thread,
+// so D / 2 columns a warpgroup (160 at 320) would pass 255, and a third
+// warpgroup does not fit the SM's 64K registers. So the outputs are split
+// into two column chunks on grid z (D / 2 columns: 160, 192, 224, 256), a
+// block holding one, and within it each warpgroup holds a quarter of the
+// head dim of both dK and dV (D / 4 registers a thread). Each chunk's
+// blocks form S^T and dP^T over the whole head dim again (warpgroup 0 S^T
+// and P, warpgroup 1 dP^T and the keep, handed over as at 256), the price
+// of the split; the second products run m64n(D/4)k16 on the chunk's
+// columns of q and dO. k and v sit in shared memory, q, dO, LSE, delta and
+// the query segment ids stream through a two-stage ring of 32-query tiles
+// (16 at 448 and 512, where 32-query stages would pass a block's 227 KB).
+// Registers a thread with dropout (without) and dynamic shared memory at
+// 320 / 384 / 448 / 512 (PERF.md §6, chip_smoke.py phase 11): 212 (209) /
+// 231 (228) / 200 (197) / 201 (198), 189,184 / 221,952 / 184,704 / 209,280
+// B, 0 B spilled: one block, eight warps an SM. Chosen by measurement
+// (packed [16, 1024, 8, 320] and [8, 1024, 8, 384], p 26/256, each pair
+// of times from one call): a three-stage ring at 320 (it fits there,
+// 230,528 B) ran 1.9283 ms against 1.7916 for two stages, and 16-query
+// tiles 1.7959 against 1.4462 at 320 and 0.7216 against 0.6374 at 384.
+// Above 512 the wide route remains: k and v of 64 keys alone
+// take 128 KB at 512, and a 16-query ring beside them leaves no room for a
+// wider head dim.
+//
 // f32 at head dims 4-64: the FP32 pipe, a key a thread. A block of 128
 // threads owns 128 keys with k, v and the dK and dV accumulators of its key
 // in f32 registers and loops over query tiles of 64 staged in shared memory
@@ -106,7 +134,7 @@
 // against the wide route on the same inputs, which is why both stay
 // (PERF.md §6).
 //
-// f32 at head dim 128 and above, bf16 above 256: the wide FP32-pipe route
+// f32 at head dim 128 and above, bf16 above 512: the wide FP32-pipe route
 // (`attn_bwd_dkv_kernel_wide`, flash_attn_common.cuh
 // `kWideRows`). A block owns 32 keys and one chunk of 128 columns of dK and
 // dV (grid z = ceil(D / 128)); a key is held by 4 threads, lane i of each
@@ -342,10 +370,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 // dim D, and the instance.
 constexpr int kDkvQueries = 32;  // queries a tile
 constexpr int kDkvStages = 3;    // tiles in the ring
-template <int D>
+template <int D, int STAGES = kDkvStages, int QN = kDkvQueries>
 __host__ __device__ constexpr size_t dkv_wgmma_smem() {
-  return (2 * kMmaRows * D + kDkvStages * 2 * kDkvQueries * D) * sizeof(bf16) +
-         kDkvStages * kDkvQueries * (2 * sizeof(float) + sizeof(int32_t));
+  return (2 * kMmaRows * D + STAGES * 2 * QN * D) * sizeof(bf16) +
+         STAGES * QN * (2 * sizeof(float) + sizeof(int32_t));
 }
 
 template <int D, bool DROP>
@@ -542,36 +570,53 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// The wgmma route at head dim 256 (see the header note): two warpgroups on
-// the block's 64 keys, each holding half of the columns of dK and dV;
-// warpgroup 0 forms S^T and P, warpgroup 1 dP^T and the keep, and each hands
-// the other its half through shared memory. Shared bytes of a launch: k and
-// v resident, the q/dO ring, and the exchange (P, dP keep/(1-p), keep/(1-p):
-// QN / 2 values a thread of a warpgroup each).
+// The wgmma route at head dim 256 and the wgmma_chunks design above it (see
+// the header note): two warpgroups on the block's 64 keys, each holding half
+// of the block's columns of dK and dV; warpgroup 0 forms S^T and P,
+// warpgroup 1 dP^T and the keep, and each hands the other its half through
+// shared memory. Columns a block holds: the whole head dim at 256; above it
+// half of it, chunk blockIdx.z of two (D / 2 columns; S^T and dP^T over
+// the whole head dim in the blocks of both chunks). Shared bytes of a
+// launch: k and v resident, the q/dO ring, and the exchange (P, dP
+// keep/(1-p), keep/(1-p): QN / 2 values a thread of a warpgroup each).
 constexpr int kDkvHalvesThreads = 256;
+__host__ __device__ constexpr int dkv_chunk(int d) { return d > kWgmmaWide ? d / 2 : d; }
+// Tiles in the ring: three at 256; two above, where three would pass a
+// block's 227 KB at 384 and ran slower at 320 (header note).
+__host__ __device__ constexpr int dkv_halves_stages(int d) {
+  return d > kWgmmaWide ? 2 : kDkvStages;
+}
+// Queries a tile: 32 up to 384; 16 above, where a ring of 32-query tiles
+// beside k and v would pass a block's 227 KB.
+__host__ __device__ constexpr int dkv_halves_queries(int d) {
+  return d > 384 ? 16 : kDkvQueries;
+}
 template <int D>
 __host__ __device__ constexpr size_t dkv_halves_smem() {
-  return dkv_wgmma_smem<D>() + 3 * (kDkvQueries / 2) * 128 * sizeof(float);
+  return dkv_wgmma_smem<D, dkv_halves_stages(D), dkv_halves_queries(D)>() +
+         3 * (dkv_halves_queries(D) / 2) * 128 * sizeof(float);
 }
 
 template <int D, bool DROP>
 __global__ void __launch_bounds__(kDkvHalvesThreads)
     attn_bwd_dkv_kernel_wgmma_halves(const BwdParams p, const int vec) {
   constexpr int NT = kDkvHalvesThreads;
-  constexpr int QN = kDkvQueries;
+  constexpr int QN = dkv_halves_queries(D);  // queries a tile
+  constexpr int ST = dkv_halves_stages(D);   // tiles in the ring
   constexpr int KD = D / 16;    // k-steps of S^T and dP^T
-  constexpr int HALF = D / 2;   // columns of dK and dV a warpgroup holds
+  constexpr int CW = dkv_chunk(D);   // columns of dK and dV the block holds
+  constexpr int HALF = CW / 2;  // columns of dK and dV a warpgroup holds
   constexpr int NE = QN / 2;    // elements of S^T (dP^T) a thread holds
-  static_assert(HALF <= 128, "one m64n128 product a half");
+  static_assert(HALF <= 128 && HALF % 16 == 0, "one m64nHALF product a half");
   extern __shared__ __align__(128) unsigned char wg_smem[];
   bf16* ks = reinterpret_cast<bf16*>(wg_smem);  // [D / 8][64][8]
   bf16* vs = ks + kMmaRows * D;
-  bf16* qs = vs + kMmaRows * D;                 // kDkvStages x [D / 8][QN][8]
-  bf16* dos = qs + kDkvStages * QN * D;
-  float* lses = reinterpret_cast<float*>(dos + kDkvStages * QN * D);  // [stage][QN]
-  float* deltas = lses + kDkvStages * QN;
-  int32_t* segs = reinterpret_cast<int32_t*>(deltas + kDkvStages * QN);
-  float* xp = reinterpret_cast<float*>(segs + kDkvStages * QN);  // [NE][128]: P
+  bf16* qs = vs + kMmaRows * D;                 // ST x [D / 8][QN][8]
+  bf16* dos = qs + ST * QN * D;
+  float* lses = reinterpret_cast<float*>(dos + ST * QN * D);  // [stage][QN]
+  float* deltas = lses + ST * QN;
+  int32_t* segs = reinterpret_cast<int32_t*>(deltas + ST * QN);
+  float* xp = reinterpret_cast<float*>(segs + ST * QN);  // [NE][128]: P
   float* xd = xp + NE * 128;                                     // dP keep/(1-p)
   float* xk = xd + NE * 128;                                     // keep/(1-p)
   __shared__ int32_t wlo_s[NT / 32], whi_s[NT / 32];
@@ -631,7 +676,7 @@ __global__ void __launch_bounds__(kDkvHalvesThreads)
   for (int i = 0; i < HALF / 2; ++i) dk[i] = dv[i] = 0.f;
 
   auto stage = [&](int t) {
-    const int buf = t % kDkvStages;
+    const int buf = t % ST;
     const int l0 = q_first + t * QN;
     stage_tile<D, QN, NT>(qs + buf * QN * D, qp, p.q_sl, l0, qend, vec);
     stage_tile<D, QN, NT>(dos + buf * QN * D, gp, p.do_sl, l0, qend, vec);
@@ -648,20 +693,24 @@ __global__ void __launch_bounds__(kDkvHalvesThreads)
   stage_tile<D, kMmaRows, NT>(ks, kp, p.k_sl, blk0, p.L, vec);
   stage_tile<D, kMmaRows, NT>(vs, vp, p.v_sl, blk0, p.L, vec);
 #pragma unroll
-  for (int t = 0; t < kDkvStages - 1; ++t) {
+  for (int t = 0; t < ST - 1; ++t) {
     if (t < ntiles) stage(t);
     cp_async_commit();
   }
   // this warpgroup's operand of the first products, and its half of q and dO
   const bf16* kvs = wg == 0 ? ks : vs;
-  const int half0 = wg * (HALF / 8) * QN * 8;
+  // this warpgroup's first column (chunk blockIdx.z above 256) and its
+  // offset in a q/dO tile
+  const int chunk = D > kWgmmaWide ? blockIdx.z : 0;
+  const int col0 = chunk * CW + wg * HALF;
+  const int half0 = (chunk * (CW / 8) + wg * (HALF / 8)) * QN * 8;
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t + kDkvStages - 1 < ntiles) stage(t + kDkvStages - 1);
+    if (t + ST - 1 < ntiles) stage(t + ST - 1);
     cp_async_commit();
-    cp_async_wait<kDkvStages - 1>();
+    cp_async_wait<ST - 1>();
     fence_proxy_async();
-    const int buf = t % kDkvStages;
+    const int buf = t % ST;
     const int32_t* seg_t = segs + buf * QN;
     const int32_t sq_t = tid < QN ? seg_t[tid] : 0;
     if (!__syncthreads_or(sq_t != 0 && sq_t >= blo && sq_t <= bhi))
@@ -769,15 +818,14 @@ __global__ void __launch_bounds__(kDkvHalvesThreads)
     wgmma_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
-    __syncthreads();  // buf is restaged at t + kDkvStages; the exchange is read
+    __syncthreads();  // buf is restaged at t + ST; the exchange is read
   }
   cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (keys[i] >= p.L) continue;
-    const int64_t out =
-        ((static_cast<int64_t>(b) * p.L + keys[i]) * p.H + h) * D + wg * HALF;
+    const int64_t out = ((static_cast<int64_t>(b) * p.L + keys[i]) * p.H + h) * D + col0;
     bf16* dkp = static_cast<bf16*>(p.dk) + out;
     bf16* dvp = static_cast<bf16*>(p.dv) + out;
     const bool pad = sk[i] == 0;  // dK = dV = 0 exactly
@@ -1016,9 +1064,10 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_kernel_wide(const BwdParams 
 template <int D>
 const void* kernel_of(int design, int dropout) {
   if constexpr (D > 128) {
-    if (design == kDesignWgmma)
+    if (design == (D > kWgmmaWide ? kDesignWgmmaChunks : kDesignWgmma))
       return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma_halves<D, true>)
                      : reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma_halves<D, false>);
+    return nullptr;
   } else if constexpr (D >= 64) {
     if (design == kDesignWgmma)
       return dropout ? reinterpret_cast<const void*>(attn_bwd_dkv_kernel_wgmma<D, true>)
@@ -1051,7 +1100,7 @@ int launch(const BwdParams& p, int design, cudaStream_t stream) {
                     rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D) &&
                     (D < 64 || (rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
                                 rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D)));
-    const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+    const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows, D / dkv_chunk(D));
     constexpr size_t smem = dyn_smem_of<D>();
     if constexpr (D > 128) {
       if (p.dropout)
@@ -1089,7 +1138,7 @@ int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
       attn_bwd_dkv_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_design_head_dim(head_dim, design, [&](auto d) {
+  return with_bwd_head_dim(head_dim, design, [&](auto d) {
     return launch<decltype(d)::value>(p, design, stream);
   });
 }
@@ -1114,7 +1163,7 @@ extern "C" int flash_attn_bwd_dkv_attrs(int head_dim, int is_bf16, int design, i
                                         int* out) {
   if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
-  return flash::with_design_head_dim(head_dim, design, [&](auto d) {
+  return flash::with_bwd_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

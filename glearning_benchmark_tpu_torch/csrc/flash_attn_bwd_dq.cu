@@ -24,7 +24,7 @@
 // row) by bytes (0.19 ms) with the tensor-core FLOPs close behind, so there
 // the products have to run at the tensor cores' rate (PERF.md).
 //
-// Four designs, by head dim and input type (ops/flash_attention.py
+// Five designs, by head dim and input type (ops/flash_attention.py
 // `design` names a launch's; `launch` runs it, or refuses a design this
 // source has no instance of):
 //
@@ -87,6 +87,44 @@
 // 1.464; launching a batch*head's tiles together for L2 ran 1.006 against
 // 0.966.
 //
+// bf16 at head dims 257-512 (the wgmma_chunks design; the wrapper
+// zero-pads to its instances at 320, 384, 448 and 512, the next multiple of
+// 64): warpgroup wgmma over column halves (`attn_bwd_dq_kernel_wgmma_halves`).
+// The wide route ran at 374x the bound at 320, and the design at 256 does
+// not stretch: the dQ accumulator of a whole row (D / 2 registers a thread,
+// 160 at 320) beside S and dP would pass 255 registers, and q and dO of
+// its 128 rows (160 KB at 320) beside a K/V ring pass the 227 KB a block
+// may hold. A block is two warpgroups on 64 query rows, each holding one
+// column half of dQ (D / 4 accumulator registers a thread). q and dO of
+// the rows sit in shared memory; K, V and the key segment ids stream
+// through a two-stage cp.async ring of 32-key tiles (16 at 448 and 512,
+// where 32-key stages would pass 227 KB). Per tile that holds an allowed
+// pair for the block:
+//   - warpgroup 0 forms S = q k^T and P (the mask, the exp), warpgroup 1
+//     dP = dO v^T and the keep (the hash), each over the whole head dim
+//     (D / 16 k-steps of m64n32k16, m64n16k16 at 16 keys), and each hands
+//     the other its values through shared memory (P and dP keep/(1-p):
+//     KN / 2 a thread; the accumulator layouts of the two warpgroups agree);
+//   - both form dS = P (dP keep/(1-p) - delta) from the same values in the
+//     same order, as three bf16 terms, and run dQ += dS K on their half of
+//     the columns (m64n(D/2)k16, K read MN-major from the column half of
+//     the shared tile).
+// delta is summed over the whole head dim by both warpgroups (a quarter of
+// D a lane, the halves through shared memory) and written once. Registers
+// a thread with dropout (without) and dynamic shared memory at 320 / 384 /
+// 448 / 512 (PERF.md §6, chip_smoke.py phase 11): 176 (166) / 198 (190) /
+// 194 / 194, 180,480 / 213,248 / 180,352 / 204,928 B, 0 B spilled: one
+// block, eight warps an SM. Chosen by measurement (packed
+// [16, 1024, 8, 320] and [8, 1024, 8, 384], p 26/256, each pair of times
+// from one call): column chunks on grid z instead (a block one warpgroup
+// holding half of dQ's columns, S and dP formed again in the blocks of
+// both chunks, four warps an SM) ran 1.4813 ms against 0.9468 at 320 and
+// 0.7932 against 0.6301 at 384; 16-key tiles ran 0.9291 against 0.7803
+// at 320 and 0.4117 against 0.4220 at 384 (2% faster there; the 32-key
+// tiles stay wherever they fit). Above 512 the wide route remains: q and
+// dO of 64 rows alone take 128 KB at 512, and a 16-key ring beside them
+// leaves no room for a wider head dim.
+//
 // f32 at head dims 4-64: the FP32 pipe, a query row a thread. A block of
 // 128 threads owns 128 query rows with q, dO and the dQ accumulator of its
 // row in f32 registers and loops over key tiles of 64 staged in shared
@@ -95,7 +133,7 @@
 // thread; chip_smoke.py phase 11 times it against the wide route on the
 // same inputs, which is why both stay (PERF.md §6).
 //
-// f32 at head dim 128 and above, bf16 above 256: the wide FP32-pipe route
+// f32 at head dim 128 and above, bf16 above 512: the wide FP32-pipe route
 // (`attn_bwd_dq_kernel_wide`, flash_attn_common.cuh
 // `kWideRows`). A block owns 32 query rows and one chunk of 128 dQ columns
 // (grid z = ceil(D / 128)); a row is held by 4 threads, lane i of each
@@ -594,6 +632,255 @@ __global__ void __launch_bounds__(dq_threads(D))
   }
 }
 
+// The wgmma_chunks design at head dims 320-512 (see the header note): two
+// warpgroups on the block's 64 query rows, each holding one column half of
+// dQ (D / 2 columns: D / 4 accumulator registers a thread); warpgroup 0
+// forms S = q k^T and P (the mask, the exp), warpgroup 1 dP = dO v^T and
+// the keep (the hash), each over the whole head dim, and each hands the
+// other its values through shared memory. Shared bytes of a launch: q and
+// dO of the block's rows resident, the K/V ring and the exchange (P, dP
+// keep/(1-p): KN / 2 values a thread of a warpgroup each).
+constexpr int kDqHalvesThreads = 256;
+// Keys a tile: 32 up to 384; 16 above, where a ring of 32-key tiles beside
+// q and dO would pass a block's 227 KB.
+__host__ __device__ constexpr int dq_halves_keys(int d) { return d > 384 ? 16 : 32; }
+template <int D>
+__host__ __device__ constexpr size_t dq_halves_smem() {
+  return (2 * kMmaRows * D + kDqStages * 2 * dq_halves_keys(D) * D) * sizeof(bf16) +
+         kDqStages * dq_halves_keys(D) * sizeof(int32_t) +
+         2 * (dq_halves_keys(D) / 2) * 128 * sizeof(float);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(kDqHalvesThreads)
+    attn_bwd_dq_kernel_wgmma_halves(const BwdParams p, const int vec) {
+  constexpr int NT = kDqHalvesThreads;
+  constexpr int KN = dq_halves_keys(D);
+  constexpr int KD = D / 16;    // k-steps of S and dP
+  constexpr int HALF = D / 2;   // columns of dQ a warpgroup holds
+  constexpr int NE = KN / 2;    // elements of S (dP) a thread holds
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(wg_smem);  // [D / 8][64][8]
+  bf16* dos = qs + kMmaRows * D;
+  bf16* ks = dos + kMmaRows * D;                // kDqStages x [D / 8][KN][8]
+  bf16* vs = ks + kDqStages * KN * D;
+  int32_t* segs = reinterpret_cast<int32_t*>(vs + kDqStages * KN * D);
+  float* xp = reinterpret_cast<float*>(segs + kDqStages * KN);  // [NE][128]: P
+  float* xd = xp + NE * 128;                                    // dP keep/(1-p)
+  __shared__ float dpart[2][kMmaRows];  // delta, by the half of D summed
+  __shared__ int32_t wlo_s[4], whi_s[4];
+
+  const int tid = threadIdx.x;
+  const int tl = tid & 127;       // the thread in its warpgroup
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;       // the warpgroup: columns [HALF wg, HALF wg + HALF)
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int blk0 = blockIdx.y * kMmaRows;     // the block's first row
+  const int row0 = blk0 + (warp & 3) * 16;    // the warp's first row
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* gp = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+
+  // delta = rowsum(dO * O): four lanes a row (lanes l and l+16 of the two
+  // warpgroups' warps, a quarter of D each), the halves through shared memory
+  {
+    const int r = row0 + (lane & 15);
+    float acc = 0.f;
+    if (r < p.L) {
+      const bf16* gr = gp + static_cast<int64_t>(r) * p.do_sl;
+      const bf16* orow = static_cast<const bf16*>(p.o) +
+                         ((static_cast<int64_t>(b) * p.L + r) * p.H + h) * D;
+      const int d0 = wg * HALF + (lane >> 4) * (HALF / 2);
+      if (vec) {  // 16-byte loads (O is contiguous)
+#pragma unroll
+        for (int d = d0; d < d0 + HALF / 2; d += 8) {
+          const uint4 gv = *reinterpret_cast<const uint4*>(gr + d);
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + d);
+          const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+          const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gw[w]));
+            const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[w]));
+            acc = fmaf(gf.x, of.x, acc);
+            acc = fmaf(gf.y, of.y, acc);
+          }
+        }
+      } else {
+#pragma unroll 8
+        for (int d = d0; d < d0 + HALF / 2; ++d)
+          acc = fmaf(to_f32(gr[d]), to_f32(orow[d]), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+    if (lane < 16) dpart[wg][(warp & 3) * 16 + lane] = acc;
+  }
+
+  // the block's segment-id range (a key tile outside it is skipped) and key range
+  const int32_t my_seg = (lane < 16 && row0 + lane < p.L) ? seg_b[row0 + lane] : 0;
+  int32_t wlo, whi;
+  warp_seg_range(my_seg, &wlo, &whi);
+  if (lane == 0 && wg == 0) {
+    wlo_s[warp] = wlo;
+    whi_s[warp] = whi;
+  }
+  int k_first, k_last;
+  other_axis_range(seg_b, p.L, (tid < kMmaRows && blk0 + tid < p.L) ? seg_b[blk0 + tid] : 0,
+                   &k_first, &k_last);  // syncs: wlo_s, whi_s, dpart are visible
+  const int32_t blo = min(min(wlo_s[0], wlo_s[1]), min(wlo_s[2], wlo_s[3]));
+  const int32_t bhi = max(max(whi_s[0], whi_s[1]), max(whi_s[2], whi_s[3]));
+  const int kend = k_last + 1;
+  const int ntiles = (kend - k_first + KN - 1) / KN;  // <= 0: none
+  if (tid < kMmaRows && blk0 + tid < p.L)
+    p.delta[static_cast<int64_t>(bh) * p.L + blk0 + tid] = dpart[0][tid] + dpart[1][tid];
+
+  // this thread's two rows (g and g+8 of the warp's 16)
+  int rows[2];
+  int32_t sq[2], sq_match[2];
+  float lse2[2], dlt[2];
+  uint32_t hrow[2];  // the dropout hash's (batch*head, row) terms
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = row0 + g + 8 * i;
+    sq[i] = rows[i] < p.L ? seg_b[rows[i]] : 0;
+    sq_match[i] = sq[i] != 0 ? sq[i] : -1;  // a pad row pairs with no key
+    lse2[i] = sq[i] != 0 ? p.lse[static_cast<int64_t>(bh) * p.L + rows[i]] * kLog2e : 0.f;
+    const int rr = (warp & 3) * 16 + g + 8 * i;
+    dlt[i] = dpart[0][rr] + dpart[1][rr];
+    hrow[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
+              (static_cast<uint32_t>(rows[i]) * kHashRow);
+  }
+  asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
+  float acc[HALF / 2];  // this warpgroup's half of dQ, unscaled (wgmma layout)
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) acc[i] = 0.f;
+
+  auto stage = [&](int t) {
+    const int buf = t % kDqStages;
+    const int s0 = k_first + t * KN;
+    stage_tile<D, KN, NT>(ks + buf * KN * D, kp, p.k_sl, s0, kend, vec);
+    stage_tile<D, KN, NT>(vs + buf * KN * D, vp, p.v_sl, s0, kend, vec);
+    if (tid < KN)
+      cp_async<4>(&segs[buf * KN + tid], seg_b + (s0 + tid < kend ? s0 + tid : 0),
+                  s0 + tid < kend);
+  };
+  stage_tile<D, kMmaRows, NT>(qs, qp, p.q_sl, blk0, p.L, vec);
+  stage_tile<D, kMmaRows, NT>(dos, gp, p.do_sl, blk0, p.L, vec);
+  if (ntiles > 0) stage(0);
+  cp_async_commit();
+  // this warpgroup's operand of the first products, and its half of K
+  const bf16* xw = wg == 0 ? qs : dos;
+  const int half0 = wg * (HALF / 8) * KN * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    const int buf = t % kDqStages;
+    const int32_t* seg_t = segs + buf * KN;
+    const int32_t sk_t = tid < KN ? seg_t[tid] : 0;
+    if (!__syncthreads_or(sk_t != 0 && sk_t >= blo && sk_t <= bhi))
+      continue;  // no allowed pair for the block among these keys
+    const bf16* kt = ks + buf * KN * D;
+    const bf16* vt = vs + buf * KN * D;
+    const int s0 = k_first + t * KN;
+
+    // warpgroup 0: S = q k^T; warpgroup 1: dP = dO v^T
+    float x[NE];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<KN>::ss(x, desc_kmajor<kMmaRows>(xw, kk), desc_kmajor<KN>(wg == 0 ? kt : vt, kk),
+                    kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+
+    // warpgroup 0: P in place of S; warpgroup 1: dP keep/(1-p); each into
+    // the exchange
+    if (wg == 0) {
+#pragma unroll
+      for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int32_t sk = seg_t[n * 8 + 2 * tg + c];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {      // this thread's row
+            const int e = 4 * n + 2 * i + c;
+            x[e] = sk == sq_match[i] ? ex2_approx(fmaf(x[e], p.scale_log2, -lse2[i])) : 0.f;
+            xp[e * 128 + tl] = x[e];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < KN / 8; ++n) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t hk = static_cast<uint32_t>(s0 + n * 8 + 2 * tg + c) * kHashCol;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int e = 4 * n + 2 * i + c;
+            if constexpr (DROP) {
+              const uint32_t hv = hash_finish(p.seed, hrow[i] ^ hk);
+              x[e] = hv >= p.keep_thresh ? x[e] * p.keep_scale : 0.f;
+            }
+            xd[e * 128 + tl] = x[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the exchange is written
+
+    // both: dS = P (dP keep/(1-p) - delta) in x
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const float pr = wg == 0 ? x[e] : xp[e * 128 + tl];
+      const float dpk = wg == 0 ? xd[e * 128 + tl] : x[e];
+      x[e] = pr * (dpk - dlt[(e >> 1) & 1]);
+    }
+    SplitA<kSplitTerms> sa[KN / 16];
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16x2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], sa[kk], r);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int term = 0; term < kSplitTerms; ++term)
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        Wgmma<HALF>::rs_t(acc, sa[kk].t[term], desc_mnmajor<KN>(kt + half0, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // buf is restaged at t + kDqStages; the exchange is read
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= p.L) continue;
+    bf16* dqp = static_cast<bf16*>(p.dq) +
+                ((static_cast<int64_t>(b) * p.L + rows[i]) * p.H + h) * D + wg * HALF;
+    const bool pad = sq[i] == 0;  // dQ = 0 exactly
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dqp + n * 8 + 2 * tg) =
+          __floats2bfloat162_rn(pad ? 0.f : acc[4 * n + 2 * i] * p.scale,
+                                pad ? 0.f : acc[4 * n + 2 * i + 1] * p.scale);
+  }
+}
+
 // The f32 route (see the header note): one query row per thread.
 template <int D>
 __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
@@ -811,7 +1098,12 @@ __global__ void __launch_bounds__(128) attn_bwd_dq_kernel_wide(const BwdParams p
 // source has none; the wide route is `wide_kernel`.
 template <int D>
 const void* kernel_of(int design, int dropout) {
-  if constexpr (D >= 64) {
+  if constexpr (D > kWgmmaWide) {
+    if (design == kDesignWgmmaChunks)
+      return dropout ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_wgmma_halves<D, true>)
+                     : reinterpret_cast<const void*>(attn_bwd_dq_kernel_wgmma_halves<D, false>);
+    return nullptr;
+  } else if constexpr (D >= 64) {
     if (design == kDesignWgmma)
       return dropout ? reinterpret_cast<const void*>(attn_bwd_dq_kernel_wgmma<D, true>)
                      : reinterpret_cast<const void*>(attn_bwd_dq_kernel_wgmma<D, false>);
@@ -826,6 +1118,7 @@ const void* kernel_of(int design, int dropout) {
 }
 template <int D>
 constexpr size_t dyn_smem_of() {
+  if constexpr (D > kWgmmaWide) return dq_halves_smem<D>();
   if constexpr (D >= 64) return dq_wgmma_smem<D>();
   return mma_dyn_smem<mma_ld(D)>();
 }
@@ -843,7 +1136,15 @@ int launch(const BwdParams& p, int design, cudaStream_t stream) {
                     (D < 64 || (rows_vectorizable(p.q, p.q_sb, p.q_sl, p.q_sh, D) &&
                                 rows_vectorizable(p.dout, p.do_sb, p.do_sl, p.do_sh, D)));
     constexpr size_t smem = dyn_smem_of<D>();
-    if constexpr (D >= 64) {
+    if constexpr (D > kWgmmaWide) {
+      const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+      if (p.dropout)
+        launch_dyn(attn_bwd_dq_kernel_wgmma_halves<D, true>, grid, kDqHalvesThreads, smem,
+                   stream, p, vec);
+      else
+        launch_dyn(attn_bwd_dq_kernel_wgmma_halves<D, false>, grid, kDqHalvesThreads, smem,
+                   stream, p, vec);
+    } else if constexpr (D >= 64) {
       const dim3 grid(p.B * p.H, (p.L + dq_rows(D) - 1) / dq_rows(D));
       if (p.dropout)
         launch_dyn(attn_bwd_dq_kernel_wgmma<D, true>, grid, dq_threads(D), smem, stream, p, vec);
@@ -874,7 +1175,7 @@ int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
       attn_bwd_dq_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_design_head_dim(head_dim, design, [&](auto d) {
+  return with_bwd_head_dim(head_dim, design, [&](auto d) {
     return launch<decltype(d)::value>(p, design, stream);
   });
 }
@@ -898,7 +1199,7 @@ extern "C" int flash_attn_bwd_dq_attrs(int head_dim, int is_bf16, int design, in
                                        int* out) {
   if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
-  return flash::with_design_head_dim(head_dim, design, [&](auto d) {
+  return flash::with_bwd_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -6,7 +6,8 @@ JAX package and the plain version.
   through the instance at 256 (``padded_head_dim`` of the forward), at
   129-256; "mma" at 4-32; "f32"/"wide" for f32; the backward's designs
   by head dim and type (its own wgmma instance at 256 since the backward's
-  redesign above 128, ``tests/test_torch_bwd_wgmma.py``). A view TMA cannot
+  redesign above 128, and its wgmma_chunks instances at 320-512,
+  ``tests/test_torch_bwd_wgmma.py``). A view TMA cannot
   read (``tma_ok``) takes "mma" at 64 and 128 and the wide route at 256.
 - CPU: the wrapper's CPU route at head dims 160 and 256 equals the plain
   version; the zero-padding to 256 (the plain version in the kernel's
@@ -83,7 +84,9 @@ def test_bf16_forward_above_256_takes_the_wide_route(d):
     (16, torch.bfloat16, "mma", 16), (64, torch.bfloat16, "wgmma", 64),
     (128, torch.bfloat16, "wgmma", 128), (160, torch.bfloat16, "wgmma", 256),
     (256, torch.bfloat16, "wgmma", 256), (64, torch.float32, "f32", 64),
-    (128, torch.float32, "wide", 128)])
+    (128, torch.float32, "wide", 128), (300, torch.bfloat16, "wgmma_chunks", 320),
+    (384, torch.bfloat16, "wgmma_chunks", 384), (448, torch.bfloat16, "wgmma_chunks", 448),
+    (640, torch.bfloat16, "wide", 640)])
 def test_backward_designs_by_head_dim_and_type(d, dtype, design, padded):
     for name in BWD:
         assert fa.padded_head_dim(d, name, dtype) == padded

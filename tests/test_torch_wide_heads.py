@@ -20,7 +20,8 @@ the bf16 route's second products (three bf16 terms at every head dim, csrc
     ``bh_offset`` 6; dQ, dK, dV bit-equal on a second run;
   - all three kernels at head dims 160, 256 and 320 (f32: the wide route,
     unpadded; bf16: the wgmma instance at 256, 160 zero-padded to it, and
-    the wide route at 320);
+    at 320 the forward's wide route and the backward's wgmma_chunks
+    instance);
   - the cancelling-sum case against the f64 version at head dims 8, 16
     (mma.sync), 64 and 128 (wgmma): every bf16 design takes three split
     terms;
@@ -193,8 +194,8 @@ def test_backward_pair_matches_plain(d, dtype, p_drop):
 def test_wide_head_dims_match_plain(d, dtype):
     """All three kernels above head dim 128, with dropout: f32 on the wide
     route (column chunks of 128 and a partial last one at 160 and 320), bf16
-    on the wgmma instance at 256 (160 zero-padded) and on the wide route at
-    320."""
+    on the wgmma instance at 256 (160 zero-padded) and at 320 on the
+    forward's wide route and the backward's wgmma_chunks instance."""
     _check_all(d, dtype, TRAIN_RATE, bh_offset=6, seed=d)
 
 
@@ -221,7 +222,7 @@ def test_every_chosen_design_has_an_instance(name):
     ``fa.design`` chooses, for views TMA can read and for views it cannot;
     it raises where the source has none."""
     _card()
-    for d in fa.HEAD_DIMS + (160, 256, 320):
+    for d in fa.HEAD_DIMS + (160, 256, 257, 300, 320, 384, 448, 512, 513):
         for dtype in (torch.bfloat16, torch.float32):
             for dropout in (False, True):
                 for tma in (True, False):
