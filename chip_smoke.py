@@ -20,8 +20,9 @@ Phases; any failure exits non-zero before the last line is printed:
    (``train_rate``: the JAX package's quantised XLA rate), through the f32
    route, the bf16 tensor-core routes at head dims 64, 128 and 256
    (wgmma) and 16 and 4 (mma.sync), views TMA cannot read (mma.sync at 64
-   and 128, the wide route at 256) and the bf16 wide route at 320, and
-   must equal the plain version's bit for bit. Every forward held to its plain version also runs twice and
+   and 128, the wide route at 256) and the wgmma_chunks design at 320 (a
+   view off the 16-byte grid too) and 512, and must equal the plain
+   version's bit for bit. Every forward held to its plain version also runs twice and
    must give the same O and LSE bits. Then the served shapes as the model
    builds them: q, k, v as strided views of one fused qkv output, with the
    key masks of the served stand-in ZINC ``val`` rows, at [512, 1024, 4, 16]
@@ -173,9 +174,9 @@ Phases; any failure exits non-zero before the last line is printed:
    2 (agtt_zinc width, f32) is held to one process the same way.
 11. The tools. Every instance of the three kernels that the launchers can
    choose (each head dim with an instance, the three kernels' wgmma
-   instances at 256, the two backward kernels' wgmma_chunks instances at
-   320, 384, 448 and 512, and the wide route, bf16 and f32, views TMA can
-   and cannot read, with and without dropout):
+   instances at 256, their wgmma_chunks instances at 320, 384, 448 and 512,
+   and the wide route, bf16 and f32, views TMA can and cannot read, with
+   and without dropout, and the forward's short-hash instances):
    its design, shared memory, registers and spills as
    ``cudaFuncGetAttributes`` reports them; every instance but the f32
    design's (mma.sync, whose second products take three split terms at
@@ -190,10 +191,13 @@ Phases; any failure exits non-zero before the last line is printed:
    valid) at 128 and 64, on the dense attention of mfu_bench's d_model
    2048 step [16, 1024, 8, 256], and at flash_ab's xl [4, 4096, 8, 64]
    with its ragged key mask; bf16 above the wgmma instances at 256 (320, 16
-   batch rows, and 512, 8 batch rows: the forward's wide route, the
-   backward's wgmma_chunks instances, each design logged and required).
-   Each row is held to the plain versions (the tolerances of phases 3-4)
-   and its inputs then timed beside the plain versions and SDPA. The
+   batch rows, and 512, 8 batch rows: the three kernels' wgmma_chunks
+   instances, each design logged and required; and the forward alone at
+   384, 8 batch rows). Each row is held to the plain versions (the
+   tolerances of phases 3-4) and its inputs then timed beside the plain
+   versions and SDPA; above 256 the forward is also timed on the wide
+   route on the same inputs (the launcher's ``force``: the design the
+   wgmma_chunks forward replaced). The
    backward's padding copies at a head dim between wgmma_chunks instances
    (300 on the d320 row's segments, padded to 320) are timed beside the
    whole backward call.
@@ -210,9 +214,9 @@ Phases; any failure exits non-zero before the last line is printed:
    attention kernels launched), then at d_model 2048, batch 16 (head dim
    256: the backward's wgmma instances at 256; valid, each attention
    kernel launched), then at d_model 2560, 8 heads, 2 layers, batch 8
-   (head dim 320: the backward's wgmma_chunks instances; the launch counts
-   set to 0 before it and read after, each attention kernel launched and
-   the backward's design required); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
+   (head dim 320: the three kernels' wgmma_chunks instances; the launch
+   counts set to 0 before it and read after, each attention kernel
+   launched and its design required); ``tools.flash_ab`` at ibtt-zinc, agtt-zinc
    and xl; ``tools.serve_bench`` for agtt and MPNN at buckets 1 and 256
    (1-epoch checkpoints on phase 7's corpus, 3 warm requests);
    ``tools.scaling_bench`` at N = 1 and 2 (1,000 molecules a host, vocab
@@ -512,9 +516,9 @@ def off_grid(t: torch.Tensor) -> torch.Tensor:
 
 def dropout_pattern(fa, seed: int, p_drop: float) -> None:
     """Read the kernel's keep pattern back, through the f32 route, the bf16
-    tensor-core routes (wgmma at 64, 128 and 256, mma.sync at 16 and 4),
-    views TMA cannot read (mma.sync at 64 and 128, the wide route at 256)
-    and the bf16 wide route above 256 (320): with q = k = 0 every allowed
+    tensor-core routes (wgmma at 64, 128 and 256, mma.sync at 16 and 4,
+    wgmma_chunks at 320 and 512), views TMA cannot read (mma.sync at 64 and
+    128, the wide route at 256, wgmma_chunks at 320): with q = k = 0 every allowed
     key gets p = 1, and a one-hot v maps key j to output column j - D w of
     window w; so O > 0 exactly where (row, key) is kept. L = 300 ends in a
     partial key tile."""
@@ -531,7 +535,8 @@ def dropout_pattern(fa, seed: int, p_drop: float) -> None:
             (bf16, 128, "wgmma", torch.clone), (bf16, 256, "wgmma", torch.clone),
             (bf16, 16, "mma", torch.clone), (bf16, 4, "mma", torch.clone),
             (bf16, 64, "mma", off_grid), (bf16, 128, "mma", off_grid),
-            (bf16, 256, "wide", off_grid), (bf16, 320, "wide", torch.clone)):
+            (bf16, 256, "wide", off_grid), (bf16, 320, "wgmma_chunks", torch.clone),
+            (bf16, 320, "wgmma_chunks", off_grid), (bf16, 512, "wgmma_chunks", torch.clone)):
         zeros = place(torch.zeros(b, l, h, d, device="cuda", dtype=dtype))
         eye = torch.eye(d, device="cuda", dtype=dtype)[:, None, :]
         kept = torch.zeros(b, h, l, l, dtype=torch.bool, device="cuda")
@@ -2319,11 +2324,12 @@ MFU_SHAPE = (64, 1024, 8, 128)   # tools/mfu_bench.py's d_model 1024 rows: B, L,
 PADDED_HEAD_DIM = 12
 WIDE_HEAD_DIMS = (256, 160)      # above 128: bf16 the wgmma instance at 256 (160 zero-padded),
                                  # f32 the wide route (a whole chunk, and one and a partial one)
-ABOVE_WGMMA = 320                # bf16 above the wgmma instance at 256: the forward's wide
-                                 # route, the backward's wgmma_chunks instance at 320
-CHUNK_HEAD_DIMS = (384, 448, 512)    # the backward's other wgmma_chunks instances
-ABOVE_CHUNKS = 640               # bf16 above them: the backward's wide route too
+ABOVE_WGMMA = 320                # bf16 above the wgmma instance at 256: the three kernels'
+                                 # wgmma_chunks instance at 320
+CHUNK_HEAD_DIMS = (384, 448, 512)    # the other wgmma_chunks instances
+ABOVE_CHUNKS = 640               # bf16 above them: the wide route
 CHUNKS_ROW = (8, 1024, 8, 512)   # the widest wgmma_chunks instance, packed
+CHUNKS_FWD_ROW = (8, 1024, 8, 384)   # the forward alone at the next instance, packed
 PADDED_CHUNK_DIM = 300           # padded to 320 by the backward's wrappers
 D2560_ARGS = ["--d-model", "2560", "--heads", "8", "--layers", "2", "--batch", "8"]
 D2048_SHAPE = (16, 1024, 8, 256) # mfu_bench --d-model 2048 --batch 16: its attention, dense
@@ -2342,9 +2348,9 @@ GCN_GAT_EPOCHS = 20
 def instances(fa) -> dict:
     """Every instance of the three kernels that ``fa.design`` can choose (the
     head dims with an instance, the three kernels' wgmma instances at 256,
-    the backward's wgmma_chunks instances at 320-512, the wide route, each
-    input type, views TMA can and cannot read, with and without dropout,
-    and the forward's wgmma instances of the short hash):
+    the wgmma_chunks instances at 320-512, the wide route, each input
+    type, views TMA can and cannot read, with and without dropout, and the
+    forward's wgmma and wgmma_chunks instances of the short hash):
     its design and its resources as ``cudaFuncGetAttributes`` reports them.
     Every instance of the bf16 route's designs (mma.sync at head dims 4-32,
     whose second products take three split terms, and at 64 and 128 for
@@ -2358,7 +2364,7 @@ def instances(fa) -> dict:
                 for tma in (True, False):
                     design = fa.design(name, d, dtype, tma)
                     forms = [(True, False), (False, False)]
-                    if name == "flash_attn_fwd" and design == "wgmma":
+                    if name == "flash_attn_fwd" and design in ("wgmma", "wgmma_chunks"):
                         forms.append((True, True))      # the short-hash instance
                     for drop, short in forms:
                         key = (f"{name}_{design}_d{'>128' if design == 'wide' and d > 128 else d}"
@@ -2388,8 +2394,9 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
     own shape) at 128 and 64, on the dense attention of the d_model 2048
     step (``D2048_SHAPE``, head dim 256), and at xl (flash_ab's ragged key
     mask); bf16 above the wgmma instances at 256 (320, packed, 16 batch
-    rows, and ``CHUNKS_ROW``: the forward's wide route, the backward's
-    wgmma_chunks instances) and the backward's padding copies between its
+    rows, and ``CHUNKS_ROW``: the three kernels' wgmma_chunks instances;
+    the forward alone at ``CHUNKS_FWD_ROW``; the forward also on the wide
+    route, ``wide_forward``) and the backward's padding copies between its
     instances (``padding_share``); then views TMA cannot read (the forward
     at 64, 128 and 256). Every row is held to the plain versions before the same inputs
     are timed. Returns (forward errors, backward errors, timings by
@@ -2455,15 +2462,27 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
         label = f"mfu rows d{dim} bfloat16"
         designs = {name: fa.design(name, dim, q.dtype, fa.tma_ok(q, k, v)) for name in fa.SOURCES}
         log(f"[kernel] {label} {list(shape)}: designs {designs}")
-        if designs != {"flash_attn_fwd": "wide", **{n: "wgmma_chunks" for n in fa.BWD_SOURCES}}:
-            raise AssertionError(f"{label}: not the forward's wide route and the backward's "
-                                 f"wgmma_chunks design: {designs}")
+        if set(designs.values()) != {"wgmma_chunks"}:
+            raise AssertionError(f"{label}: not the wgmma_chunks design: {designs}")
         errs.append(compare(label, fa, q, k, v, seg_d, p_drop=p, seed=11, chunk=8))
         berrs.append(compare_bwd(label, fa, q, k, v, seg_d, do, p, 11, chunk=8))
-        timing[f"mfu_rows_d{dim}_B{rows}_bfloat16_p{p}"] = time_bwd(
+        timing[f"mfu_rows_d{dim}_B{rows}_bfloat16_p{p}"] = t = time_bwd(
             fa, q, k, v, seg_d, do, p, 11, label, iters=5, plain_iters=2)
+        wide_forward(fa, q, k, v, seg_d, p, label, t["flash_attn_fwd"])
         del q, k, v, do
         torch.cuda.empty_cache()
+    shape = CHUNKS_FWD_ROW
+    seg_d = seg[:shape[0]].contiguous()
+    q, k, v = qkv_views(shape, torch.bfloat16, gen)
+    label = f"mfu rows d{shape[3]} bfloat16"
+    if fa.design("flash_attn_fwd", shape[3], q.dtype, fa.tma_ok(q, k, v)) != "wgmma_chunks":
+        raise AssertionError(f"{label}: the forward does not take the wgmma_chunks design")
+    errs.append(compare(label, fa, q, k, v, seg_d, p_drop=p, seed=11, chunk=8))
+    t = time_fwd(fa, q, k, v, seg_d, p, 11, label, iters=20, plain_iters=2)
+    timing[f"mfu_rows_d{shape[3]}_B{shape[0]}_bfloat16_p{p}"] = {"flash_attn_fwd": t}
+    wide_forward(fa, q, k, v, seg_d, p, label, t)
+    del q, k, v
+    torch.cuda.empty_cache()
     padding_share(fa, gen, seg[:WIDE_F32_ROWS].contiguous(),
                   (WIDE_F32_ROWS, l, h, PADDED_CHUNK_DIM), p)
     for dim, design in ((64, "mma"), (d, "mma"), (WIDE_HEAD_DIMS[0], "wide")):
@@ -2471,6 +2490,19 @@ def head_dim_rows(fa, gen: torch.Generator, cgen: torch.Generator, p: float) -> 
         errs.append(err)
         timing[f"mfu_rows_d{dim}_B8_bfloat16_off_grid_p{p}"] = {"flash_attn_fwd": ms}
     return errs, berrs, timing
+
+
+def wide_forward(fa, q, k, v, seg, p: float, label: str, t: dict) -> None:
+    """The forward on the wide route (the launcher's ``force``) on the
+    inputs that ``t`` (``time_fwd``'s result) timed in the wgmma_chunks
+    design: the design it replaced, read in the same call."""
+    kw = {"p_drop": p, "seed": 11, "bh_offset": 0, "scale": q.shape[3] ** -0.5}
+    ms = cuda_ms(lambda: fa._launch_fwd(q, k, v, seg, force="wide", **kw), 3)
+    log(f"[kernel] forward {label} {list(q.shape)} bfloat16 p_drop {p}: wgmma_chunks "
+        f"{t['ms']:.4f} ms against the wide route's {fmt_ms(ms)} on the same inputs "
+        f"({min(ms) / t['ms']:.1f}x), sdpa forward {t['library_ms']:.4f} ms "
+        f"({t['ms'] / t['library_ms']:.3f}x), bound {t['bound_ms']:.4f} ms "
+        f"({t['ms'] / t['bound_ms']:.1f}x)")
 
 
 def padding_share(fa, gen: torch.Generator, seg: torch.Tensor, shape: tuple,
@@ -2640,8 +2672,8 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
         f"{row['mfu_vs_measured']:.4f}; attention launches {attn}, designs {designs}; "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # a model with few heads above head dim 256: the backward's wgmma_chunks
-    # instances on the training path
+    # a model with few heads above head dim 256: the three kernels'
+    # wgmma_chunks instances on the training path
     t0 = time.perf_counter()
     reset_launches(fa)
     row = captured(mfu_bench.main, D2560_ARGS + ["--steps", str(MFU_STEPS), "--out",
@@ -2651,7 +2683,7 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
         raise AssertionError(f"mfu_bench d_model 2560: not a valid row: {row}")
     attn = attention_launches(launches["mfu_bench_d2560"])
     designs = {name: fa.design(name, row["head_dim"], torch.bfloat16) for name in attn}
-    if min(attn.values()) == 0 or any(designs[n] != "wgmma_chunks" for n in fa.BWD_SOURCES):
+    if min(attn.values()) == 0 or set(designs.values()) != {"wgmma_chunks"}:
         raise AssertionError(f"mfu_bench d_model 2560: launches {attn}, designs {designs}")
     log(f"[tools] mfu_bench d_model 2560 heads 8 layers {row['layers']} batch {row['batch']} "
         f"(head dim {row['head_dim']}): step {row['step_s'] * 1e3:.2f} ms, mfu "

@@ -1138,7 +1138,7 @@ int dispatch_d(int head_dim, int is_bf16, int design, const BwdParams& p,
       attn_bwd_dkv_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_bwd_head_dim(head_dim, design, [&](auto d) {
+  return with_chunks_head_dim(head_dim, design, [&](auto d) {
     return launch<decltype(d)::value>(p, design, stream);
   });
 }
@@ -1163,7 +1163,7 @@ extern "C" int flash_attn_bwd_dkv_attrs(int head_dim, int is_bf16, int design, i
                                         int* out) {
   if (!flash::design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == flash::kDesignWide) return flash::func_attrs(wide_kernel(is_bf16), 0, out);
-  return flash::with_bwd_head_dim(head_dim, design, [&](auto d) {
+  return flash::with_chunks_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -3,8 +3,8 @@
 // backward kernels' parameter block, the tensor-core building blocks of the
 // bf16 route (mma.sync, ldmatrix, cp.async, the bf16 split of a second
 // product's operand; wgmma and its shared-memory tiles for the kernels at
-// head dims 64, 128 and 256, and for the backward's column chunks at 320,
-// 384, 448 and 512), and the pieces of the wide route (the FP32-pipe kernels of f32
+// head dims 64, 128 and 256, and for the column halves and chunks of the
+// wgmma_chunks design at 320, 384, 448 and 512), and the pieces of the wide route (the FP32-pipe kernels of f32
 // at head dim 128 and of every head dim above 128 that no wgmma instance
 // takes).
 #pragma once
@@ -124,17 +124,17 @@ enum Design : int {
   kDesignWgmma = 1,
   kDesignF32 = 2,
   kDesignWide = 3,
-  kDesignWgmmaChunks = 4,  // the bf16 backward above kWgmmaWide, up to kChunksWide
+  kDesignWgmmaChunks = 4,  // the bf16 kernels above kWgmmaWide, up to kChunksWide
 };
 
 // The wgmma design's instance above 128 (ops/flash_attention.py
 // WGMMA_WIDE): the wrappers zero-pad bf16 head dims 129-255 to it.
 constexpr int kWgmmaWide = 256;
 
-// The bf16 backward's wgmma_chunks design (ops/flash_attention.py
+// The bf16 kernels' wgmma_chunks design (ops/flash_attention.py
 // CHUNKS_WIDE, CHUNK_STEP): instances at 320, 384, 448 and 512, to which
 // the wrappers zero-pad bf16 head dims 257-511 (the next multiple of 64);
-// above kChunksWide the backward takes the wide route.
+// above kChunksWide the three kernels take the wide route.
 constexpr int kChunksWide = 512;
 
 // The head dims with an instance of `design`: with_head_dim's, and
@@ -146,11 +146,10 @@ int with_design_head_dim(int head_dim, int design, F&& f) {
   return with_head_dim(head_dim, f);
 }
 
-// The backward kernels' head dims: with_design_head_dim's, and 320, 384,
-// 448 and 512 in the wgmma_chunks design (only the two backward sources
-// instantiate these).
+// The three kernels' head dims: with_design_head_dim's, and 320, 384, 448
+// and 512 in the wgmma_chunks design.
 template <typename F>
-int with_bwd_head_dim(int head_dim, int design, F&& f) {
+int with_chunks_head_dim(int head_dim, int design, F&& f) {
   if (design == kDesignWgmmaChunks) {
     switch (head_dim) {
       case 320: return f(std::integral_constant<int, 320>{});
@@ -549,7 +548,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // One warpgroup's m64nNk16 product, bf16 in, f32 accumulators in registers
 // (N / 2 a thread: element 4 i + e is row 16 warp + g + 8 (e >> 1), column
 // 8 i + 2 t + (e & 1), as mma.sync's n-tiles), in the two forms the
-// backward kernels use:
+// kernels use:
 // - ss (N 32, 64 and, for the 16-row tiles above 384, 16: S and dP): D
 //   (+)= A B^T with A and B K-major tiles in shared memory (acc 0: D is
 //   overwritten);
@@ -638,7 +637,7 @@ struct Wgmma<128> {
 // The wgmma_chunks design's widths: ss at N 16 (the 16-row tiles at head
 // dims 448 and 512); rs_t at N 80, 96, 112, 128 (the dK/dV halves of the
 // column chunks at 320, 384, 448, 512) and 160, 192, 224, 256 (the dQ
-// halves there)
+// and O halves there)
 template <>
 struct Wgmma<80> {
   static __device__ __forceinline__ void rs_t(float (&d)[40], const uint32_t (&a)[4],
@@ -902,15 +901,13 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
 }
 
 // ---------------------------------------------------------------------------
-// the wide route: f32 at head dim 128 and above; in bf16 the forward above
-// kWgmmaWide and the backward above kChunksWide
+// the wide route: f32 at head dim 128 and above; bf16 above kChunksWide
 // ---------------------------------------------------------------------------
 
 // What it still serves: every f32 head dim from 128 (tensor cores take no
-// f32, and TF32 would not hold f32 accuracy), the bf16 forward above 256
-// and the bf16 dQ and dK/dV above 512, where the wgmma_chunks design has no
-// instance (the header notes of the two backward sources). No shipped
-// config runs a head dim above 256.
+// f32, and TF32 would not hold f32 accuracy) and the three bf16 kernels
+// above 512, where the wgmma_chunks design has no instance (the header
+// notes of the three sources). No shipped config runs a head dim above 256.
 
 // A block of 128 threads owns kWideRows rows of its own axis (a row a lane)
 // and one chunk of kWideChunk output columns (grid z: chunk z of

@@ -27,13 +27,16 @@
 // never the limit at head dims 4-64; at 128 on dense rows they come near the
 // exps.
 //
-// Four designs, by head dim and input type (ops/flash_attention.py `design`
+// Five designs, by head dim and input type (ops/flash_attention.py `design`
 // names a launch's): bf16 at head dims 4-32 warp-level mma.sync (below);
 // bf16 at 64, 128 and 256 warpgroup wgmma fed by TMA (`attn_fwd_kernel_wgmma`,
 // further below; a view whose pointer or strides TMA cannot take runs the
-// mma.sync design at 64 and 128, the wide route at 256); f32 up to 64 the
-// FP32 pipe a row a thread; f32 at 128 and every head dim the others do not
-// take, the wide route.
+// mma.sync design at 64 and 128, the wide route at 256); bf16 at 320, 384,
+// 448 and 512 (257-511 zero-padded to the next multiple of 64 by the
+// wrapper) wgmma over column halves of O fed by cp.async
+// (`attn_fwd_kernel_wgmma_halves`, the wgmma_chunks design; any view); f32
+// up to 64 the FP32 pipe a row a thread; f32 at 128 and every head dim the
+// others do not take (f32 above 64, bf16 above 512), the wide route.
 //
 // Design, bf16 at head dims 4-32 (mma.sync). Nothing of the Pallas grid
 // carries over (a sequential key axis with VMEM carries, Z=8 folded
@@ -80,9 +83,10 @@
 // P in registers between the two products.
 //
 // Head dims. 4, 8, 16, 32, 64 and 128 have instances (`with_head_dim`), and
-// 256 in the wgmma design; the wrapper zero-pads any other head dim up to
-// 128 to the next of them (bf16 129-256 to 256) and hands the kernel the
-// scale of the true one. At 128 the mma.sync route's two double-buffered
+// 256 in the wgmma design, 320, 384, 448 and 512 in the wgmma_chunks
+// design; the wrapper zero-pads any other head dim up to 128 to the next
+// of them (bf16 129-255 to 256, 257-511 to the next multiple of 64) and
+// hands the kernel the scale of the true one. At 128 the mma.sync route's two double-buffered
 // tiles take 69,632 bytes, past the 48 KB of static shared memory, so that
 // route keeps them in dynamic shared memory there (`MmaTiles`,
 // `launch_dyn`).
@@ -126,6 +130,44 @@
 //     16-byte pieces; pad rows exact zeros. No atomics: the same bits on two
 //     runs and in batches of any size.
 //
+// Design, bf16 at head dims 257-512 (wgmma_chunks;
+// `attn_fwd_kernel_wgmma_halves`, instances at 320, 384, 448 and 512). The
+// wide route ran at 228x the bound at 320, and the design at 256 does not
+// stretch: its O accumulator of 64 rows a warpgroup takes D / 2 registers
+// a thread (160 at 320, 256 at 512) beside S and P~'s split terms. As the
+// dQ kernel at these head dims (flash_attn_bwd_dq.cu), a block is two
+// warpgroups on the same 64 query rows, each holding one column half of O
+// (D / 4 accumulator registers a thread: 80 at 320, 128 at 512). q sits in
+// shared memory for the block's life; K, V and the key segment ids stream
+// through a two-stage cp.async ring of 32-key tiles filled by the same
+// threads one tile ahead (any view; plain loads where a pointer or stride
+// does not fit 16-byte pieces). Per tile that holds an allowed pair for the
+// block:
+//   - each warpgroup forms the whole S = q k^T (D / 16 k-steps of
+//     m64n32k16, both operands in shared memory) and its online softmax
+//     (`fwd_softmax`: the mask, or none where the tile's keys and the
+//     block's rows share one segment; the max, alpha, p, l, the dropout
+//     keep), the same products and arithmetic in both, so m and l agree;
+//   - acc is rescaled where a row's max moved, and P~ goes into P~ V as
+//     three bf16 terms straight from the S accumulator (the A fragment),
+//     m64n(D/2)k16 on the warpgroup's column half of V (MN-major).
+// Epilogue: O = acc (1 / (1 - p_drop)) / l staged in the q tile, 16-byte
+// stores, LSE from warpgroup 0; pad rows exact zeros; no atomics: the same
+// bits on two runs. 205-245 registers a thread, 0 B spilled, 123,136 /
+// 147,712 / 172,288 / 196,864 B of dynamic shared memory at 320 / 384 /
+// 448 / 512: one block, eight warps an SM. Chosen by measurement
+// (tools/kernel_ab.py, PERF.md §6; packed [16, 1024, 8, 320] and
+// [8, 1024, 8, 384], p 26/256, every variant timed in turns with this one
+// in one call): each warpgroup forming S of half the tile's keys and
+// trading row maxima and P~ through shared memory ran 1.09x / 1.06x this
+// design's time, column halves on grid z (a block one warpgroup) 1.65x /
+// 1.62x, 64-key tiles at 320 1.19x, a three-stage ring 0.99x / 1.03x
+// (1.20x at 448), and the next tile's q k^T and softmax under this tile's
+// P~ V (three stages) 0.96x / 1.21x (1.41x at 448; it spills there).
+// Nothing overlaps within a block: at 320, without the ring's copies it
+// ran 0.79x, without q k^T 0.84x, without P~ V 0.86x, without the softmax
+// 0.90x. Above 512 the wide route remains.
+//
 // f32 (the FP32-pipe route) up to head dim 64. Tensor cores take no f32
 // input, and TF32 would not hold f32 accuracy. One block of 128 threads
 // takes 128 query rows, one per thread, with q, the output accumulator and
@@ -134,7 +176,7 @@
 // online-softmax chunks of 16 keys; it skips tiles and query blocks the
 // mask rules out the same way.
 //
-// f32 at head dim 128 and every head dim above 128 (both input types): the
+// f32 at head dim 128 and every head dim above 128, bf16 above 512: the
 // wide FP32-pipe route (`attn_fwd_kernel_wide`, flash_attn_common.cuh
 // `kWideRows`). A block owns 32 query rows and one chunk of 128 columns of
 // O (grid z = ceil(D / 128)); a row is held by 4 threads, 32 columns each,
@@ -1016,6 +1058,240 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma_chunks route (bf16 at head dims 320, 384, 448 and 512; see the
+// header note)
+// ---------------------------------------------------------------------------
+
+constexpr int kChunksThreads = 256;  // two warpgroups on the block's 64 query rows
+constexpr int kChunksKeys = 32;      // keys a tile
+constexpr int kChunksStages = 2;     // K/V tiles in the ring
+// Dynamic shared bytes of a launch: q of the block's rows resident, the K/V
+// ring and the tiles' key segment ids.
+template <int D>
+__host__ __device__ constexpr size_t chunks_smem() {
+  return (kMmaRows * D + kChunksStages * 2 * kChunksKeys * D) * sizeof(bf16) +
+         kChunksStages * kChunksKeys * sizeof(int32_t);
+}
+
+// Two warpgroups on the block's 64 query rows, warpgroup w holding columns
+// [w D / 2, w D / 2 + D / 2) of O (D / 4 accumulator registers a thread).
+// Both form the whole S = q k^T of a tile (the same products on the same
+// operands: the same bits) and its softmax, and each runs P~ V on its half
+// of V's columns; m and l are therefore the same in both.
+template <int D, int DROP>
+__global__ void __launch_bounds__(kChunksThreads, 1)
+    attn_fwd_kernel_wgmma_halves(const Params p, const int vec) {
+  constexpr int KN = kChunksKeys;
+  constexpr int KD = D / 16;    // k-steps of q k^T
+  constexpr int HALF = D / 2;   // columns of O a warpgroup holds
+  constexpr int NS = kSplitTerms;
+  constexpr bool DROPS = DROP != kNoDrop;
+  constexpr bool SHORT = DROP == kDropShort;
+  extern __shared__ __align__(128) unsigned char fwd_smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(fwd_smem_raw);  // [D / 8][64][8]
+  bf16* ks = qs + kMmaRows * D;                      // kChunksStages x [D / 8][KN][8]
+  bf16* vs = ks + kChunksStages * KN * D;
+  int32_t* segs = reinterpret_cast<int32_t*>(vs + kChunksStages * KN * D);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;     // the warpgroup: columns [HALF wg, HALF wg + HALF)
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int tile0 = blockIdx.y * kMmaRows;
+  const int32_t* seg_b = p.seg + static_cast<int64_t>(b) * p.L;
+  const int64_t o_sl = static_cast<int64_t>(p.H) * D;  // O is contiguous
+  bf16* ob = static_cast<bf16*>(p.o) + static_cast<int64_t>(b) * p.L * o_sl + h * D;
+  float* lse_bh = p.lse + static_cast<int64_t>(bh) * p.L;
+
+  // a query tile with no valid row: zeros and -1e30, nothing else
+  const int blk_row = tile0 + tid;
+  const int32_t blk_seg = (tid < kMmaRows && blk_row < p.L) ? seg_b[blk_row] : 0;
+  if (!__syncthreads_or(blk_seg != 0)) {
+    store_rows<D, D>(ob, o_sl, tile0, kMmaRows, p.L, nullptr, tid, kChunksThreads);
+    if (tid < kMmaRows && blk_row < p.L) lse_bh[blk_row] = kNegInf;
+    return;
+  }
+  // the block's segment-id range and the id all its rows share (else 0),
+  // the same in every warp; the block's key range
+  int32_t blo, bhi, buni;
+  {
+    int32_t lo = INT32_MAX, hi = 0;
+    bool pad = false;
+#pragma unroll
+    for (int j = lane; j < kMmaRows; j += 32) {
+      const int32_t s = tile0 + j < p.L ? seg_b[tile0 + j] : 0;
+      pad |= s == 0;
+      if (s != 0) {
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+    }
+    blo = __reduce_min_sync(0xffffffffu, lo);
+    bhi = __reduce_max_sync(0xffffffffu, hi);
+    buni = !__any_sync(0xffffffffu, pad) && blo == bhi ? blo : 0;
+  }
+  int k_first, k_last;
+  other_axis_range(seg_b, p.L, blk_seg, &k_first, &k_last);
+  const int kend = k_last + 1;
+  const int ntiles = (kend - k_first + KN - 1) / KN;  // >= 1: the block has a valid row
+
+  int rows[2];
+  int32_t sq[2];     // this thread's rows' segment ids; -1 on a pad row (pairs with no key)
+  uint32_t hrow[2];  // the dropout hash's (batch*head, row) terms
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = tile0 + 16 * (warp & 3) + g + 8 * i;
+    const int32_t s = rows[i] < p.L ? seg_b[rows[i]] : 0;
+    sq[i] = s != 0 ? s : -1;
+    hrow[i] = ((static_cast<uint32_t>(bh) + p.bh_offset) * kHashBh) ^
+              (static_cast<uint32_t>(rows[i]) * kHashRow);
+  }
+  asm volatile("" : "+r"(hrow[0]), "+r"(hrow[1]));
+
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  auto stage = [&](int t) {
+    const int buf = t % kChunksStages;
+    const int s0 = k_first + t * KN;
+    stage_tile<D, KN, kChunksThreads>(ks + buf * KN * D, kp, p.k_sl, s0, kend, vec);
+    stage_tile<D, KN, kChunksThreads>(vs + buf * KN * D, vp, p.v_sl, s0, kend, vec);
+    if (tid < KN)
+      cp_async<4>(&segs[buf * KN + tid], seg_b + (s0 + tid < kend ? s0 + tid : 0),
+                  s0 + tid < kend);
+  };
+  stage_tile<D, kMmaRows, kChunksThreads>(qs, qp, p.q_sl, tile0, p.L, vec);
+  stage(0);
+  cp_async_commit();
+
+  float acc[HALF / 2];  // this warpgroup's half of the unnormalised O (wgmma layout)
+#pragma unroll
+  for (int e = 0; e < HALF / 2; ++e) acc[e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the log2-scaled logits
+  float l[2] = {0.f, 0.f};          // this thread's part of the undropped sum
+  float alpha[2];
+  const int half0 = wg * (HALF / 8) * KN * 8;  // this warpgroup's columns of a V tile
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    const int buf = t % kChunksStages;
+    const int32_t* seg_t = segs + buf * KN;
+    const int32_t sk_t = tid < KN ? seg_t[tid] : 0;  // the id this thread staged
+    // keys of the tile whose ids lie in the block's range; all of them in
+    // the id every row of the block has: nothing is masked (FULL)
+    const int hits = __syncthreads_count(sk_t != 0 && sk_t >= blo && sk_t <= bhi);
+    if (hits == 0) continue;  // no allowed pair for the block among these keys
+    const bf16* kt = ks + buf * KN * D;
+    const bf16* vt = vs + buf * KN * D;
+    const uint32_t col0 = static_cast<uint32_t>(k_first + t * KN);
+
+    float sc[KN / 2];  // S, then P~
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      Wgmma<KN>::ss(sc, desc_kmajor<kMmaRows>(qs, kk), desc_kmajor<KN>(kt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (buni != 0 && hits == KN)
+      fwd_softmax<KN, DROPS, SHORT, true>(sc, m, l, alpha, seg_t, sq, hrow, col0, p);
+    else
+      fwd_softmax<KN, DROPS, SHORT, false>(sc, m, l, alpha, seg_t, sq, hrow, col0, p);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int e = 0; e < HALF / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    }
+    SplitA<NS> pa[KN / 16];
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pa[kk], r);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int term = 0; term < NS; ++term)
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        Wgmma<HALF>::rs_t(acc, pa[kk].t[term], desc_mnmajor<KN>(vt + half0, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // buf is restaged at t + kChunksStages
+  }
+  cp_async_wait<0>();
+
+  // l across the quad, in a fixed order; O = acc / l staged in the q tile
+  // (free: every product is done; 16-byte chunk c of row r at chunk
+  // c ^ (r & 7)), then 16-byte stores; LSE in f32 from warpgroup 0
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  bf16* os = qs;
+  __syncthreads();
+  fence_proxy_async();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool live = sq[i] > 0 && l[i] > 0.f;  // pad rows: exact zeros
+    const float inv = live ? p.keep_scale / l[i] : 0.f;
+    const int r = 16 * (warp & 3) + g + 8 * i;
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n) {
+      const int col = wg * HALF + 8 * n + 2 * tg;
+      *reinterpret_cast<__nv_bfloat162*>(os + r * D + (((col >> 3) ^ (r & 7)) << 3) +
+                                         (col & 7)) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+    }
+    if (wg == 0 && tg == 0 && rows[i] < p.L)
+      lse_bh[rows[i]] = live ? (m[i] + log2f(l[i])) * kLn2 : kNegInf;
+  }
+  __syncthreads();
+  for (int c = tid; c < kMmaRows * (D / 8); c += kChunksThreads) {
+    const int r = c / (D / 8);
+    const int cc = c - r * (D / 8);
+    if (tile0 + r < p.L)
+      *reinterpret_cast<uint4*>(ob + static_cast<int64_t>(tile0 + r) * o_sl + cc * 8) =
+          *reinterpret_cast<const uint4*>(os + r * D + ((cc ^ (r & 7)) << 3));
+  }
+}
+
+// Launch the wgmma_chunks design at head dim D (q, k, v staged by cp.async
+// where their pointers and strides fit 16-byte pieces, else by plain loads:
+// any view).
+template <int D>
+int launch_chunks(const Params& p, cudaStream_t stream) {
+  const int vec = rows_vectorizable(p.q, p.q_sb, p.q_sl, p.q_sh, D) &&
+                  rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
+                  rows_vectorizable(p.v, p.v_sb, p.v_sl, p.v_sh, D);
+  const dim3 grid(p.B * p.H, (p.L + kMmaRows - 1) / kMmaRows);
+  constexpr size_t smem = chunks_smem<D>();
+  switch (fwd_drop(p.dropout, p.keep_thresh)) {
+    case kNoDrop:
+      launch_dyn(attn_fwd_kernel_wgmma_halves<D, kNoDrop>, grid, kChunksThreads, smem, stream,
+                 p, vec);
+      break;
+    case kDrop:
+      launch_dyn(attn_fwd_kernel_wgmma_halves<D, kDrop>, grid, kChunksThreads, smem, stream, p,
+                 vec);
+      break;
+    default:
+      launch_dyn(attn_fwd_kernel_wgmma_halves<D, kDropShort>, grid, kChunksThreads, smem,
+                 stream, p, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The f32 route (see the header note): one query row per thread.
 template <int D>
 __global__ void __launch_bounds__(kF32Rows, f32_min_blocks(D))
@@ -1228,11 +1504,19 @@ __global__ void __launch_bounds__(128) attn_fwd_kernel_wide(const Params p, cons
 // none; the wide route is `wide_kernel`.
 template <int D>
 const void* kernel_of(int design, int dropout) {
-  if constexpr (D >= 64)
+  if constexpr (D > kWgmmaWide) {
+    if (design == kDesignWgmmaChunks)
+      return dropout == kDropShort
+                 ? reinterpret_cast<const void*>(attn_fwd_kernel_wgmma_halves<D, kDropShort>)
+             : dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_wgmma_halves<D, kDrop>)
+                       : reinterpret_cast<const void*>(attn_fwd_kernel_wgmma_halves<D, kNoDrop>);
+    return nullptr;
+  } else if constexpr (D >= 64) {
     if (design == kDesignWgmma)
       return dropout == kDropShort ? reinterpret_cast<const void*>(attn_fwd_kernel_wgmma<D, kDropShort>)
              : dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_wgmma<D, kDrop>)
                        : reinterpret_cast<const void*>(attn_fwd_kernel_wgmma<D, kNoDrop>);
+  }
   if constexpr (D <= 128) {
     if (design == kDesignMma)
       return dropout ? reinterpret_cast<const void*>(attn_fwd_kernel_mma<D, true>)
@@ -1245,8 +1529,11 @@ const void* kernel_of(int design, int dropout) {
 // the dynamic shared bytes a launch of `design` at head dim D asks for
 template <int D>
 size_t dyn_smem_of(int design) {
-  if constexpr (D >= 64)
+  if constexpr (D > kWgmmaWide) {
+    if (design == kDesignWgmmaChunks) return chunks_smem<D>();
+  } else if constexpr (D >= 64) {
     if (design == kDesignWgmma) return fwd_smem_bytes<D>();
+  }
   if constexpr (D <= 128)
     if (design == kDesignMma) return mma_dyn_smem<mma_ld(D)>();
   return 0;
@@ -1259,8 +1546,11 @@ const void* wide_kernel(int is_bf16) {
 template <int D>
 int launch(const Params& p, int design, cudaStream_t stream) {
   if (kernel_of<D>(design, p.dropout) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (D >= 64)
+  if constexpr (D > kWgmmaWide) {
+    return launch_chunks<D>(p, stream);
+  } else if constexpr (D >= 64) {
     if (design == kDesignWgmma) return launch_wgmma<D>(p, stream);
+  }
   if constexpr (D <= 128) {
     if (design == kDesignMma) {
       const int vec = rows_vectorizable(p.k, p.k_sb, p.k_sl, p.k_sh, D) &&
@@ -1289,7 +1579,7 @@ int dispatch_d(int head_dim, int is_bf16, int design, const Params& p, cudaStrea
       attn_fwd_kernel_wide<float><<<grid, 128, 0, stream>>>(p, head_dim);
     return static_cast<int>(cudaGetLastError());
   }
-  return with_design_head_dim(head_dim, design, [&](auto d) {
+  return with_chunks_head_dim(head_dim, design, [&](auto d) {
     return launch<decltype(d)::value>(p, design, stream);
   });
 }
@@ -1338,7 +1628,7 @@ extern "C" int flash_attn_fwd_attrs(int head_dim, int is_bf16, int design, int d
                                     int* out) {
   if (!design_takes(design, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   if (design == kDesignWide) return func_attrs(wide_kernel(is_bf16), 0, out);
-  return with_design_head_dim(head_dim, design, [&](auto d) {
+  return with_chunks_head_dim(head_dim, design, [&](auto d) {
     constexpr int D = decltype(d)::value;
     const void* fn = kernel_of<D>(design, dropout);
     if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);

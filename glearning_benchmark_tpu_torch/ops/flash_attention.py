@@ -23,13 +23,12 @@ its design and what bounds it on an H100.
   :data:`HEAD_DIMS` (4 to 128), and the wrappers run any other head dim up
   to 128 through the next instance, zero-padded (:func:`pad_head_dim`);
   in bf16 all three kernels run head dims 129-256 through their ``wgmma``
-  instance at :data:`WGMMA_WIDE`, zero-padded, and the two backward kernels
-  run 257-512 through their ``wgmma_chunks`` instances at 320, 384, 448
-  and 512 (:data:`CHUNKS_WIDE`), zero-padded to the next multiple of
-  :data:`CHUNK_STEP`; f32 above 128, the bf16 forward above 256 and the
-  bf16 backward above 512 run unpadded in the kernels' wide route, which
-  takes the head dim at run time (so does f32 at 128). :func:`design`
-  names the design a launch runs.
+  instance at :data:`WGMMA_WIDE`, zero-padded, and 257-512 through their
+  ``wgmma_chunks`` instances at 320, 384, 448 and 512 (:data:`CHUNKS_WIDE`),
+  zero-padded to the next multiple of :data:`CHUNK_STEP`; f32 above 128
+  and bf16 above 512 run unpadded in the kernels' wide route, which takes
+  the head dim at run time (so does f32 at 128). :func:`design` names the
+  design a launch runs.
 - :func:`bound` and :func:`bound_bwd` give the least time the card could
   take for a kernel's work on given inputs (``chip_smoke.py`` and
   ``tools/flash_ab.py`` print it beside the kernel's time).
@@ -57,8 +56,8 @@ from ..utils.card import HBM_BYTES_S, PEAK_FLOPS, SFU_PER_SM_CLK, nvidia_smi
 NEG_INF = -1e30
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # the kernels' instances (csrc: with_head_dim)
 WGMMA_WIDE = 256     # the bf16 kernels' wgmma instance above 128 (csrc: kWgmmaWide)
-CHUNKS_WIDE = 512    # the bf16 backward's wgmma_chunks design up to here (csrc: kChunksWide)
-CHUNK_STEP = 64      # ... its instances: 320, 384, 448, 512 (csrc: with_bwd_head_dim)
+CHUNKS_WIDE = 512    # the bf16 kernels' wgmma_chunks design up to here (csrc: kChunksWide)
+CHUNK_STEP = 64      # ... its instances: 320, 384, 448, 512 (csrc: with_chunks_head_dim)
 DESIGNS = ("mma", "wgmma", "f32", "wide", "wgmma_chunks")   # csrc: Design, in this order
 _U32 = 0xFFFFFFFF
 
@@ -280,26 +279,30 @@ def _nvcc() -> str:
     return path
 
 
-def _compile(name: str, lib: Path) -> float:
-    secs, ptxas = compile_library([_nvcc()] + _NVCC_FLAGS + [str(SOURCES[name])], lib)
+def _compile(src: Path, lib: Path) -> float:
+    secs, ptxas = compile_library([_nvcc()] + _NVCC_FLAGS + [str(src)], lib)
     (lib.parent / f"{lib.stem}.ptxas.txt").write_text(ptxas)
     return secs
 
 
-def build() -> Dict[str, Path]:
-    """Compile every kernel source for sm_90a into a shared library of its
-    own, named by the hash of the source, the shared header and the flags
-    (a changed source gets a new library), and return {name: path}. The
-    compilers run side by side; a library already built from the same text
-    is reused."""
-    inputs = [h.read_bytes() for h in HEADERS] + [" ".join(_NVCC_FLAGS).encode()]
+def build(sources: Optional[Dict[str, Path]] = None,
+          headers: Optional[Tuple[Path, ...]] = None) -> Dict[str, Path]:
+    """Compile every kernel source (:data:`SOURCES` and :data:`HEADERS`
+    unless given: ``tools.kernel_ab`` builds other trees) for sm_90a into a
+    shared library of its own, named by the hash of the source, the shared
+    header and the flags (a changed source gets a new library), and return
+    {name: path}. The compilers run side by side; a library already built
+    from the same text is reused."""
+    sources = SOURCES if sources is None else sources
+    headers = HEADERS if headers is None else headers
+    inputs = [h.read_bytes() for h in headers] + [" ".join(_NVCC_FLAGS).encode()]
     libs = {name: library_path(name, [src.read_bytes()] + inputs)
-            for name, src in SOURCES.items()}
+            for name, src in sources.items()}
     todo = [name for name, lib in libs.items() if not lib.is_file()]
     if todo:
         with ThreadPoolExecutor(len(todo)) as pool:
             for name, secs in zip(todo, pool.map(
-                    lambda n: _compile(n, libs[n]), todo)):
+                    lambda n: _compile(sources[n], libs[n]), todo)):
                 _build_seconds[name] = secs
     return libs
 
@@ -353,16 +356,16 @@ def padded_head_dim(d: int, name: Optional[str] = None,
     """The head dim that head dim ``d`` runs at in kernel ``name`` (one of
     :data:`SOURCES`) with inputs of ``dtype``: up to 128 the least of
     :data:`HEAD_DIMS` at or above it; above 128 in bf16 :data:`WGMMA_WIDE`
-    up to that (each kernel's wgmma instance) and, in the two backward
-    kernels, the next multiple of :data:`CHUNK_STEP` up to
-    :data:`CHUNKS_WIDE` (their wgmma_chunks instances at 320-512);
-    else ``d`` itself (the wide route takes any head dim). Without a name:
-    the wide route's head dim above 128."""
+    up to that (each kernel's wgmma instance) and the next multiple of
+    :data:`CHUNK_STEP` up to :data:`CHUNKS_WIDE` (each kernel's
+    wgmma_chunks instances at 320-512); else ``d`` itself (the wide route
+    takes any head dim). Without a name: the wide route's head dim above
+    128."""
     if d > HEAD_DIMS[-1]:
         if name in SOURCES and dtype == torch.bfloat16:
             if d <= WGMMA_WIDE:
                 return WGMMA_WIDE
-            if name in BWD_SOURCES and d <= CHUNKS_WIDE:
+            if d <= CHUNKS_WIDE:
                 return -(-d // CHUNK_STEP) * CHUNK_STEP
         return d
     return next(inst for inst in HEAD_DIMS if d <= inst)
@@ -391,18 +394,19 @@ def design(name: str, head_dim: int, dtype: torch.dtype, tma: bool = True) -> st
     (bf16 at head dims up to 32: warp-level mma.sync), "wgmma" (bf16 at 64
     and 128, and at 129-256 through the instance at :data:`WGMMA_WIDE`:
     warpgroup wgmma; the forward's operands come by TMA, the backward's by
-    cp.async), "wgmma_chunks" (the bf16 dQ and dK/dV at 257-512, through
+    cp.async), "wgmma_chunks" (the three bf16 kernels at 257-512, through
     their instances at 320, 384, 448 and 512: warpgroup wgmma on column
-    halves of the outputs, S and dP over the whole head dim; dQ's two
-    warpgroups share them, dK/dV forms them in each of two blocks), "f32"
-    (f32 up to 64: the FP32 pipe, a row a thread) or "wide" (f32 at 128
-    and above, the bf16 forward above 256 and the bf16 backward above 512:
-    the FP32 pipe, a row a lane, four warps of 32
-    columns each to a chunk of 128 output columns). ``tma`` False (the
-    forward's q, k, v fail :func:`tma_ok`): the forward runs mma.sync at 64
-    and 128, the wide route above; the backward reads any view."""
+    halves of the outputs, S (and dP) over the whole head dim, operands by
+    cp.async; the forward's two warpgroups each form S, dQ's share S and
+    dP, dK/dV forms them in each of two blocks), "f32" (f32 up to 64: the
+    FP32 pipe, a row a thread) or "wide" (f32 at 128 and above and bf16
+    above 512: the FP32 pipe, a row a lane, four warps of 32 columns each
+    to a chunk of 128 output columns). ``tma`` False (the forward's q, k,
+    v fail :func:`tma_ok`): the forward runs mma.sync at 64 and 128 and
+    the wide route at 129-256; the backward, and every kernel above 256,
+    read any view."""
     d = padded_head_dim(head_dim, name, dtype)
-    if dtype == torch.bfloat16 and name in BWD_SOURCES and WGMMA_WIDE < d <= CHUNKS_WIDE:
+    if dtype == torch.bfloat16 and WGMMA_WIDE < d <= CHUNKS_WIDE:
         return "wgmma_chunks"
     if dtype == torch.bfloat16 and 64 <= d <= WGMMA_WIDE:
         if tma or name != "flash_attn_fwd":

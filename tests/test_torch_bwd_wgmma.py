@@ -66,8 +66,7 @@ def test_bf16_backward_runs_wgmma_at_256(d):
 def test_bf16_backward_above_256_stays_wide(d):
     """Above 256 the bf16 backward stays on wgmma up to ``fa.CHUNKS_WIDE``
     (the wgmma_chunks design, padded to the next multiple of 64) and on the
-    wide route, unpadded, above it; the forward takes the wide route above
-    256."""
+    wide route, unpadded, above it; so does the forward."""
     chunks = d <= fa.CHUNKS_WIDE
     for name in BWD:
         assert fa.padded_head_dim(d, name, torch.bfloat16) == (
@@ -75,8 +74,10 @@ def test_bf16_backward_above_256_stays_wide(d):
         for tma in (True, False):                   # cp.async: any view
             assert fa.design(name, d, torch.bfloat16, tma=tma) == (
                 "wgmma_chunks" if chunks else "wide")
-    assert fa.padded_head_dim(d, "flash_attn_fwd", torch.bfloat16) == d
-    assert fa.design("flash_attn_fwd", d, torch.bfloat16) == "wide"
+    assert fa.padded_head_dim(d, "flash_attn_fwd", torch.bfloat16) == (
+        -(-d // 64) * 64 if chunks else d)
+    assert fa.design("flash_attn_fwd", d, torch.bfloat16) == (
+        "wgmma_chunks" if chunks else "wide")
 
 
 @pytest.mark.parametrize("d", [128, 160, 256, 320])

@@ -9,6 +9,9 @@ JAX package and the plain version.
   redesign above 128, and its wgmma_chunks instances at 320-512,
   ``tests/test_torch_bwd_wgmma.py``). A view TMA cannot
   read (``tma_ok``) takes "mma" at 64 and 128 and the wide route at 256.
+  Above 256 the forward leaves this design: "wgmma_chunks" up to 512, for
+  any view (its kernel's tests: ``tests/test_torch_fwd_chunks.py``), the
+  wide route above.
 - CPU: the wrapper's CPU route at head dims 160 and 256 equals the plain
   version; the zero-padding to 256 (the plain version in the kernel's
   place sees head dim 256) keeps LSE within 1e-5 and the bf16 O within one
@@ -74,10 +77,19 @@ def test_f32_forward_designs_are_unchanged(d, design):
     assert fa.design(FWD, d, torch.float32) == design
 
 
-@pytest.mark.parametrize("d", [257, 300, 320, 512])
+@pytest.mark.parametrize("d", [257, 300, 320, 383, 384, 448, 512, 513, 640])
 def test_bf16_forward_above_256_takes_the_wide_route(d):
-    assert fa.padded_head_dim(d, FWD, torch.bfloat16) == d
-    assert fa.design(FWD, d, torch.bfloat16) == "wide"
+    """Above 256 the bf16 forward leaves the wgmma design: the wgmma_chunks
+    instances up to 512 (padded to the next multiple of 64; fed by cp.async,
+    they read any view), the wide route, unpadded, above 512; f32 stays on
+    the wide route, unpadded."""
+    chunks = d <= fa.CHUNKS_WIDE
+    assert fa.padded_head_dim(d, FWD, torch.bfloat16) == (-(-d // 64) * 64 if chunks else d)
+    for tma in (True, False):
+        assert fa.design(FWD, d, torch.bfloat16, tma=tma) == (
+            "wgmma_chunks" if chunks else "wide")
+    assert fa.padded_head_dim(d, FWD, torch.float32) == d
+    assert fa.design(FWD, d, torch.float32) == "wide"
 
 
 @pytest.mark.parametrize("d,dtype,design,padded", [

@@ -1,10 +1,10 @@
 """Head dims the JAX package runs: the port's attention takes every head dim
 (kernel instances at 4, 8, 16, 32, 64 and 128, any other head dim up to 128
 zero-padded to the next instance; above 128 the three kernels' wgmma
-instance at 256, bf16 129-256 zero-padded to it, the two backward kernels'
+instance at 256, bf16 129-256 zero-padded to it, the three kernels'
 wgmma_chunks instances at 320, 384, 448 and 512, bf16 257-512 zero-padded
-to the next multiple of 64, and f32 above 128, the bf16 forward above 256
-and the bf16 backward above 512 unpadded in the kernels' wide route).
+to the next multiple of 64, and f32 above 128 and bf16 above 512 unpadded
+in the kernels' wide route).
 
 - The port's ``SimpleTransformer`` against the flax one at head dims 12,
   24, 128, 160 and 256 (weights through ``convert.py``, f32, one layer,
@@ -18,9 +18,8 @@ and the bf16 backward above 512 unpadded in the kernels' wide route).
   another order: measured 5e-7), and at 160 and 320, which pass unpadded.
 - Head dims 129-512 in f32 run at themselves in the wide route, in all
   three kernels; in bf16 the three kernels run 129-256 in their wgmma
-  instance at 256; above 256 the forward runs the wide route, and the two
-  backward kernels run 257-512 in their wgmma_chunks instances at 320,
-  384, 448 and 512 and above 512 the wide route.
+  instance at 256, 257-512 in their wgmma_chunks instances at 320, 384,
+  448 and 512 and above 512 the wide route.
 - The bf16 forward's padding to 256, with the plain version in place of the
   kernel: LSE within 1e-5 of the unpadded version's, O within one bf16
   rounding (with dropout).
@@ -152,17 +151,16 @@ KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")
                                321, 383, 384, 385, 448, 511, 512, 513, 640])
 def test_head_dims_above_128_route_by_input_type(d):
     """f32, in every kernel: unpadded, in the wide route. bf16, in every
-    kernel: the wgmma instance at 256 up to 256; above 256 the forward's
-    wide route and the backward's wgmma_chunks instances (320-512, every
-    64) up to 512, the wide route above. Without a kernel's name: the wide route's
-    head dim."""
+    kernel: the wgmma instance at 256 up to 256; above 256 the
+    wgmma_chunks instances (320-512, every 64) up to 512, the wide route
+    above. Without a kernel's name: the wide route's head dim."""
     assert fa.padded_head_dim(d) == d
     for name in KERNELS:
         for dtype in (torch.bfloat16, torch.float32):
             if dtype == torch.bfloat16:
                 if d <= fa.WGMMA_WIDE:
                     padded, design = fa.WGMMA_WIDE, "wgmma"
-                elif name in fa.BWD_SOURCES and d <= fa.CHUNKS_WIDE:
+                elif d <= fa.CHUNKS_WIDE:
                     padded, design = -(-d // 64) * 64, "wgmma_chunks"
                 else:
                     padded, design = d, "wide"

@@ -20,8 +20,7 @@ the bf16 route's second products (three bf16 terms at every head dim, csrc
     ``bh_offset`` 6; dQ, dK, dV bit-equal on a second run;
   - all three kernels at head dims 160, 256 and 320 (f32: the wide route,
     unpadded; bf16: the wgmma instance at 256, 160 zero-padded to it, and
-    at 320 the forward's wide route and the backward's wgmma_chunks
-    instance);
+    at 320 the three kernels' wgmma_chunks instances);
   - the cancelling-sum case against the f64 version at head dims 8, 16
     (mma.sync), 64 and 128 (wgmma): every bf16 design takes three split
     terms;
@@ -194,8 +193,8 @@ def test_backward_pair_matches_plain(d, dtype, p_drop):
 def test_wide_head_dims_match_plain(d, dtype):
     """All three kernels above head dim 128, with dropout: f32 on the wide
     route (column chunks of 128 and a partial last one at 160 and 320), bf16
-    on the wgmma instance at 256 (160 zero-padded) and at 320 on the
-    forward's wide route and the backward's wgmma_chunks instance."""
+    on the wgmma instance at 256 (160 zero-padded) and at 320 on the three
+    kernels' wgmma_chunks instances."""
     _check_all(d, dtype, TRAIN_RATE, bh_offset=6, seed=d)
 
 
