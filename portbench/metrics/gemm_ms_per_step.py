@@ -1,0 +1,7 @@
+"""Device ms a traced training step in the kernel group ``gemm`` (``_groups.py``)."""
+
+from portbench.metrics._reads import group_ms_per_unit
+
+
+def read(ctx):
+    return group_ms_per_unit(ctx, "gemm")
