@@ -55,6 +55,9 @@ and its parameter rule set them up:
 
 The pipeline (PP) runs these same layers in another schedule
 (``parallel/pipeline.py``).
+
+Under a running profiler the embedding, each layer's four parts and the
+readout are named regions, forward and backward (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import ring_attention, seq_block
 from ..parallel.comm import all_gather
 from ..parallel.tp import dense as _dense
+from ..utils.trace import region
 from .moe import SwitchFFN
 
 LN_EPS = 1e-6            # flax nn.LayerNorm default
@@ -155,31 +159,44 @@ class EncoderLayer(nn.Module):
         seq = self.seq_axis
         # a sequence-parallel rank's masks are its token block of the global masks
         place = None if seq is None else {1: (seq.index * l, seq.size * l)}
-        # q|k|v along the last axis (jnp.split order); each stays a strided
-        # view of qkv, which the kernels read in place
-        q, k, v = (t.unflatten(-1, (h, d // h))
-                   for t in _dense(self.qkv, x, self.dtype).split(d, dim=-1))
-        p_attn = self.p_attn if seeds is not None else 0.0
-        if seq is not None:
-            attn = ring_attention(seq, q, k, v, seg > 0, p_attn, s_attn, bh_offset=row0 * h)
-        else:
-            attn = flash_attention(q, k, v, seg=seg, p_drop=p_attn, seed=s_attn,
-                                   bh_offset=row0 * h)
-        attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
-        if seeds is not None:
-            attn = cheap_dropout(s_out, attn, self.p_res, batch_offset=row0, place=place)
-        x = _layer_norm(self.norm1, x + attn.float())
-        aux = None
-        if hasattr(self, "moe"):
-            y, aux = self.moe(x.to(self.dtype), seg > 0, s_relu, shard)
-        else:
-            y = F.relu(_dense(self.ff1, x, self.dtype))
+
+        def attention(x):
+            # q|k|v along the last axis (jnp.split order); each stays a
+            # strided view of qkv, which the kernels read in place
+            q, k, v = (t.unflatten(-1, (h, d // h))
+                       for t in _dense(self.qkv, x, self.dtype).split(d, dim=-1))
+            p_attn = self.p_attn if seeds is not None else 0.0
+            if seq is not None:
+                attn = ring_attention(seq, q, k, v, seg > 0, p_attn, s_attn,
+                                      bh_offset=row0 * h)
+            else:
+                attn = flash_attention(q, k, v, seg=seg, p_drop=p_attn, seed=s_attn,
+                                       bh_offset=row0 * h)
+            attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
             if seeds is not None:
-                y = cheap_dropout(s_relu, y, self.p_ffn, batch_offset=row0, place=place)
-            y = _dense(self.ff2, y, self.dtype)
-        if seeds is not None:
-            y = cheap_dropout(s_ff2, y, self.p_res, batch_offset=row0, place=place)
-        return _layer_norm(self.norm2, x + y.float()), aux
+                attn = cheap_dropout(s_out, attn, self.p_res, batch_offset=row0, place=place)
+            return attn
+
+        def ffn(x):
+            aux = None
+            if hasattr(self, "moe"):
+                y, aux = self.moe(x.to(self.dtype), seg > 0, s_relu, shard)
+            else:
+                y = F.relu(_dense(self.ff1, x, self.dtype))
+                if seeds is not None:
+                    y = cheap_dropout(s_relu, y, self.p_ffn, batch_offset=row0, place=place)
+                y = _dense(self.ff2, y, self.dtype)
+            if seeds is not None:
+                y = cheap_dropout(s_ff2, y, self.p_res, batch_offset=row0, place=place)
+            return y, aux
+
+        def add_norm(norm):
+            return lambda x, y: _layer_norm(norm, x + y.float())
+
+        attn = region("layer.attn", attention, x)
+        x = region("layer.attn_norm", add_norm(self.norm1), x, attn)
+        y, aux = region("layer.ffn", ffn, x)
+        return region("layer.ffn_norm", add_norm(self.norm2), x, y), aux
 
 
 def transformer_embed(embed: nn.Embedding, pos_embed: nn.Embedding,
@@ -350,11 +367,11 @@ class SimpleTransformer(nn.Module):
             # this rank's contiguous block of tokens, at its global positions
             ls = seq_block(x.shape[1], seq)
             lo = seq.index * ls
-            h = transformer_embed(self.embed, self.pos, x[:, lo:lo + ls],
-                                  torch.arange(lo, lo + ls, device=x.device)[None, :])
+            h = region("model.embed", transformer_embed, self.embed, self.pos,
+                       x[:, lo:lo + ls], torch.arange(lo, lo + ls, device=x.device)[None, :])
             seg_ids = attn_mask[:, lo:lo + ls].to(torch.int32).contiguous()
         else:
-            h = transformer_embed(self.embed, self.pos, x, pos)
+            h = region("model.embed", transformer_embed, self.embed, self.pos, x, pos)
             seg_ids = (attn_mask if seg is None else seg).to(torch.int32).contiguous()
         seeds = [None] * self.nlayers
         if self.training and self.has_dropout:
@@ -376,9 +393,9 @@ class SimpleTransformer(nn.Module):
                 aux.append(layer_aux)
         if seq is not None:
             h = all_gather(h, seq, 1)
-        return transformer_readout(
+        return region("model.readout", lambda h: transformer_readout(
             lambda t: _layer_norm(self.norm, t), self.cls, h, x, attn_mask,
             task=self.task, use_query_nodes=self.use_query_nodes,
             bos_id=self.bos_id, query_offsets=self.query_offsets,
             q_token_id=q_token_id, seg=seg, pos_bos=pos_bos, pos_u=pos_u,
-            pos_v=pos_v)
+            pos_v=pos_v), h)

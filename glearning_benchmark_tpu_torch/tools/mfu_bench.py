@@ -34,11 +34,6 @@ always runs the kernels, so its base is the JAX package's ``flash_attn``
 variant; the reference's XLA-attention base and its ``rbg_keys`` variant
 (a JAX PRNG implementation) have no counterpart and give no row.
 
-``--profile`` traces two steps a width with ``torch.profiler`` (the
-trainer's ``train.profile_epochs`` profiler), writes the Chrome trace under
-``runs_torch/mfu_trace/`` and adds the step's device time by kernel group
-to the row (``profile``).
-
 With ``--device cpu`` the steps run for their losses and FLOP count only:
 no time, MFU or validity is measured there. Writes ``--out`` (default
 ``runs_torch/mfu.json``, ``runs_torch/mfu_attrib.json`` with ``--attrib``).
@@ -157,42 +152,10 @@ def time_block(step: Step, k: int) -> Tuple[float, float]:
     return t0.elapsed_time(t1) / 1e3 / k, float(loss)
 
 
-# kernel groups of the step's device time, by name: the attention kernels,
-# the hash-dropout kernel, the cuBLAS GEMMs, the rest by kernel
-KERNEL_GROUPS = (("attention kernels", ("attn_fwd_kernel", "attn_bwd_dq_kernel",
-                                        "attn_bwd_dkv_kernel")),
-                 ("hash-dropout kernel", ("hash_dropout",)),
-                 ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")))
-
-
-def profile_steps(step: "Step", device: torch.device, trace: str, n: int = 2) -> Dict:
-    """Device ms a step by kernel group over ``n`` steps under the trainer's
-    ``torch.profiler`` profile; the Chrome trace goes to ``trace``."""
-    from torch.autograd import DeviceType
-
-    from ..train.trainer import start_profile, stop_profile
-
-    torch.cuda.synchronize(device)
-    prof = start_profile(device)
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize(device)
-    stop_profile(prof, trace)
-    groups: Dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        name = next((g for g, keys in KERNEL_GROUPS if any(k in e.key for k in keys)),
-                    e.key[:60])
-        groups[name] = groups.get(name, 0.0) + e.self_device_time_total / 1e3 / n
-    top = dict(sorted(groups.items(), key=lambda kv: -kv[1])[:12])
-    return {"device_ms_per_step": sum(groups.values()), "by_kernel_ms": top, "trace": trace}
-
-
 def run_one(d_model: int, layers: int, heads: int, d_ff: int, seq: int, batch: int,
             steps: int, vocab: int, device: torch.device,
             measured_tflops: Optional[float] = None, warmup: int = 2,
-            profile: Optional[str] = None, **variant) -> Dict:
+            **variant) -> Dict:
     step = Step(d_model, layers, heads, d_ff, seq, batch, vocab, device, **variant)
     n_params = sum(p.numel() for p in step.params)
     flops, p_mm = analytic_train_flops(step.model, batch, seq, layers, d_model)
@@ -218,7 +181,6 @@ def run_one(d_model: int, layers: int, heads: int, d_ff: int, seq: int, batch: i
     step()
     torch.cuda.synchronize(device)
     peak_mem = torch.cuda.max_memory_allocated(device)
-    prof = None if profile is None else profile_steps(step, device, profile)
     mfu = flops / (dt * peaks["bf16_flops"])
     flop_bound_s = flops / peaks["bf16_flops"]
     # the step's least HBM traffic: bf16 matmul weights read forward and
@@ -245,7 +207,6 @@ def run_one(d_model: int, layers: int, heads: int, d_ff: int, seq: int, batch: i
                                 else flops / (dt * measured_tflops * 1e12)),
             "flop_bound_ms": flop_bound_s * 1e3, "hbm_bound_ms": hbm_bound_s * 1e3,
             "regime": regime, "peak_memory_bytes": peak_mem, "final_loss": loss,
-            **({"profile": prof} if prof else {}),
             "valid": not reasons, **({"invalid_reasons": reasons} if reasons else {})}
 
 
@@ -262,8 +223,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--no-calibrate", action="store_true")
     ap.add_argument("--attrib", action="store_true",
                     help="time the step variants (module docstring) at each --d-model")
-    ap.add_argument("--profile", action="store_true",
-                    help="trace two steps a width (module docstring)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -276,11 +235,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     rows = []
     for dm in args.d_model:
         for name, kw in variants:
-            trace = (os.path.join(RESULTS_DIR, "mfu_trace", f"{name}_d{dm}.json")
-                     if args.profile and device.type == "cuda" else None)
             row = run_one(dm, args.layers, args.heads, args.ff_mult * dm, args.seq,
-                          args.batch, args.steps, args.vocab, device, measured,
-                          profile=trace, **kw)
+                          args.batch, args.steps, args.vocab, device, measured, **kw)
             rows.append(emit({"variant": name, **row}, card))
             if device.type == "cuda":
                 torch.cuda.empty_cache()

@@ -74,7 +74,9 @@ so checkpoints keep the one-process layout (``convert.py``, serving and
 
 Observability, as the reference has it: ``train.profile_epochs`` traces the
 listed epochs with ``torch.profiler`` (CPU, and CUDA on the card) into a
-Chrome trace under ``{out_dir}/{run_name}_trace/``; a classification run
+Chrome trace under ``{out_dir}/{run_name}_trace/``, in which every training
+step carries the spans of ``utils/trace.py`` (``train.step`` and its
+forward, backward and update, the model's parts); a classification run
 writes its test confusion matrix as ``{run_name}_test_cm.png`` and, with
 wandb, logs it as an image and (up to 30 classes) a table; with wandb, every
 block of epochs ends with per-parameter histograms of the parameters and of
@@ -111,6 +113,7 @@ from ..parallel.mesh import (Axis, BatchShard, Mesh, ParamShard, gather_tensor, 
 from ..parallel.pipeline import pp_transformer_forward
 from ..tokenization.vocab import SPECIAL
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from .checkpoint import load_checkpoint, save_checkpoint, serving_meta
 from .datasets import QUERY_OFFSETS, QUERY_TASKS, DatasetBundle, build_dataset
 from .metrics import (class_names, classification_metrics_from_cm,
@@ -523,15 +526,19 @@ def train_epoch(model, opt: ClippedAdamW, arrays, idx, valid,
     total, losses = None, []
     steps = idx.shape[0] if max_steps is None else min(max_steps, idx.shape[0])
     for b in range(steps):
-        loss, stats, count = _batch_loss(model, arrays, idx[b], valid[b], bundle,
-                                         generator, layout, moe_aux_weight)
-        grads = _batch_grads(loss, opt, layout)
-        # the gradient norm BEFORE clipping, as a per-epoch mean
-        has = (count > 0).to(torch.float32)
-        stats["gn_sum"] = opt.step(grads) * has
-        stats["gn_cnt"] = has
-        total = _add_stats(total, stats)
-        losses.append(loss.detach())
+        with span("train.step"):
+            with span("train.forward"):
+                loss, stats, count = _batch_loss(model, arrays, idx[b], valid[b], bundle,
+                                                 generator, layout, moe_aux_weight)
+            with span("train.backward"):
+                grads = _batch_grads(loss, opt, layout)
+            with span("train.update"):
+                # the gradient norm BEFORE clipping, as a per-epoch mean
+                has = (count > 0).to(torch.float32)
+                stats["gn_sum"] = opt.step(grads) * has
+                stats["gn_cnt"] = has
+                total = _add_stats(total, stats)
+                losses.append(loss.detach())
     losses = torch.stack(losses)
     if mesh is not None:
         losses = _all_reduce_(losses, mesh.axis())   # the shares sum to each step's loss

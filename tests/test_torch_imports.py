@@ -41,7 +41,7 @@ def test_package_is_covered():
                    "ops/ring_attention.py", "bench.py", "utils/card.py",
                    "tools/__init__.py", "tools/serve_bench.py", "tools/mfu_bench.py",
                    "tools/flash_ab.py", "tools/export_zinc.py",
-                   "tools/graph_stats_report.py", "tools/roofline.py"):
+                   "tools/graph_stats_report.py", "tools/roofline.py", "utils/trace.py"):
         assert module in names, module
 
 
