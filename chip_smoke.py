@@ -66,11 +66,24 @@ Phases; any failure exits non-zero before the last line is printed:
    no-op with no launch and 255.9/256 raises. One agtt_zinc-width training
    step (the first minibatch, from the config's seed) through the kernel,
    twice, and through ``cheap_dropout_reference``: equal loss and
-   gradients, bit for bit, 6 launches a layer. Then the kernel, the plain
+   gradients, bit for bit, 2 launches a layer (the residual sites run
+   their own kernels). Then the kernel, the plain
    int64 path and the kernel's bound at [64, 1024, 1024] and [64, 1024,
    4096] bf16 (mfu_bench's d_model 1024 rows), and ``tools.dropout_microbench``
    at its default shape with 3 iterations. Every training phase below also
-   requires the kernel's launches (a token model's: 6 a layer and step).
+   requires the kernel's launches (a token model's: 2 a layer and step, at
+   the ReLU's site).
+4c. The residual site's kernels (``csrc/residual_norm.cu``) at tt_d1024's
+   dense and packed rows ([64 x 1024, 1024], [389 x 256, 1024]) and at
+   agtt_zinc's width ([49 x 256, 64]), bf16 branch, the training rate:
+   the output and the stream's, branch's, weight's and bias's gradients
+   against the composition (``cheap_dropout``, the f32 add, PyTorch's
+   LayerNorm, autograd) within rounding, the bf16 copy bit-equal to the
+   cast of the kernel's own output, the branch gradient's zeros where
+   ``cheap_dropout`` puts them; then the forward's and the backward's time
+   beside the bytes bound and the composition's. Every token model's
+   training phase below requires the fused kernels at both residual sites
+   of every layer, forward and backward, and no plain site.
 5. Serving at full width: an ``agtt_zinc``-width model (the literal below,
    random weights from ``--seed``, bf16 compute) is saved through the
    port's ``save_checkpoint``, restored by ``Predictor.from_checkpoint`` on
@@ -137,8 +150,9 @@ Phases; any failure exits non-zero before the last line is printed:
    (packed, dropout 0.1) on the full stand-in splits for 2 epochs at f32
    and at bf16, with a batch size near 128 whose row batch divides over the
    ranks, and MPNN cycle_check at f32. Each run must shard; every rank
-   must report the same metrics and the one process's kernel launches, with
-   finite, falling losses; the first 4 step losses within 1e-4 relative of
+   must report the same metrics and the one process's kernel launches (the
+   residual sites' fused calls among them, no plain one), with finite,
+   falling losses; the first 4 step losses within 1e-4 relative of
    the one process's (f32) or 2e-3 (bf16). Each epoch's losses and
    examples/s are printed for both, two ranks sharing one card (not a
    scaling figure), beside a second one-process f32 run: the card's own
@@ -159,7 +173,9 @@ Phases; any failure exits non-zero before the last line is printed:
    agtt_zinc width with ``moe_experts: 4`` and ``expert_shards: 2``, auto
    and ``ep_manual``. Each run: every rank reports the same metrics; the
    kernels' launch counters on each rank are what the schedule implies
-   (TP, PP and EP: the one process's; SP: none, the ring runs no kernel);
+   (TP, PP and EP: the one process's; SP: no attention kernel, the ring
+   runs none; every run: the one process's fused residual sites, no plain
+   one);
    losses finite and falling; the first 4 step losses within 1e-4
    relative (f32) or 2e-3 (bf16) of the one process's, where the bf16 EP
    runs (auto and manual), whose top-1 routing can flip at router margins
@@ -246,6 +262,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from glearning_benchmark_tpu_torch.ops import hash_dropout as hd
+from glearning_benchmark_tpu_torch.ops import residual_norm as rn
 from glearning_benchmark_tpu_torch.ops.flash_attention import allowed_pairs, bound, bound_bwd
 from glearning_benchmark_tpu_torch.utils.card import cuda_ms, nvidia_smi
 
@@ -379,15 +396,27 @@ def reset_launches(fa) -> None:
     """Every kernel's launch counter to 0."""
     fa.reset_launches()
     hd.reset_launches()
+    rn.reset_calls()
 
 
 def launches_now(fa) -> dict:
-    """Every kernel's launches since the last :func:`reset_launches`."""
-    return {**fa.LAUNCHES, **hd.LAUNCHES}
+    """Every kernel's launches since the last :func:`reset_launches` (the
+    residual site's as its fused forward and backward calls and its plain
+    calls)."""
+    return {**fa.LAUNCHES, **hd.LAUNCHES, "residual_norm": rn.CALLS["fused"],
+            "residual_norm_bwd": rn.CALLS["fused_backward"],
+            "residual_norm_plain": rn.CALLS["plain"]}
 
 
 def attention_launches(launches: dict) -> dict:
-    return {k: v for k, v in launches.items() if k != "hash_dropout"}
+    return {k: v for k, v in launches.items()
+            if k != "hash_dropout" and not k.startswith("residual_norm")}
+
+
+def residual_launches(launches: dict) -> dict:
+    """The residual site's fused forwards and backwards and its plain
+    calls."""
+    return {k: v for k, v in launches.items() if k.startswith("residual_norm")}
 
 
 def fmt_ms(readings: list) -> str:
@@ -870,7 +899,8 @@ def dropout_train_step(bundle, config: dict) -> None:
     """One training step at agtt_zinc width (the first minibatch of the
     run ``config`` describes, from its seed) through the kernel, twice, and
     through the plain version (``cheap_dropout_reference`` in the
-    transformer's place): equal losses and gradients, bit for bit. The step
+    transformer's place, at the ReLU's site; the residual sites run their
+    fused kernels in all three): equal losses and gradients, bit for bit. The step
     runs under ``torch.use_deterministic_algorithms`` (warnings only): a
     gradient summed by atomics in another order on each run (the backward
     of a gather) would part even two runs of the same step."""
@@ -912,7 +942,7 @@ def dropout_train_step(bundle, config: dict) -> None:
         f"plain version ({runs[2][2]} launches); the kernel's step again: "
         f"{'bit-equal' if not again else f'differs in {again}'}; the plain step, loss and "
         f"{len(runs[0][1])} gradients: {'bit-equal' if not plain else f'differs in {plain}'}")
-    if [r[2] for r in runs] != [6 * nlayers, 6 * nlayers, 0] or again or plain:
+    if [r[2] for r in runs] != [2 * nlayers, 2 * nlayers, 0] or again or plain:
         raise AssertionError("the training step through the hash-dropout kernel differs "
                              "from the plain one")
 
@@ -994,6 +1024,142 @@ def dropout_phase(gen: torch.Generator, bundle, config: dict, row_bs: int, l: in
     log(f"[dropout] dropout_microbench ({DROP_MICROBENCH_ITERS} iterations): {time.perf_counter() - t1:.1f} s")
     log(f"[phase] hash dropout {time.perf_counter() - t0:.1f} s")
     return timing
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the residual site's kernels
+# ---------------------------------------------------------------------------
+
+# [rows, d] of the residual site: tt_d1024's dense rows (64 x 1024) and packed
+# rows (389 x 256), and agtt_zinc's width at its packed rows (49 x 256)
+RESIDUAL_SHAPES = ((64 * 1024, 1024), (389 * 256, 1024), (49 * 256, 64))
+RESIDUAL_SEED = 12345
+
+
+def residual_case(rows: int, d: int, gen: torch.Generator) -> dict:
+    """The fused site against the composition on the card at [rows, d]
+    with the training rate's dropout: out and the three gradients within
+    rounding, the bf16 copy bit-equal to the cast of the kernel's own
+    output, the branch gradient's zeros where ``cheap_dropout``'s are.
+    Returns the largest differences."""
+    from torch import nn
+
+    from glearning_benchmark_tpu_torch.ops import residual_norm as rn
+    from glearning_benchmark_tpu_torch.ops.attention import cheap_dropout
+
+    rate = train_rate()
+    norm = nn.LayerNorm(d, eps=1e-6).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.5 * torch.randn(d, device="cuda", generator=gen))
+        norm.bias.copy_(0.5 * torch.randn(d, device="cuda", generator=gen))
+    x = torch.randn(rows, d, device="cuda", generator=gen)
+    y = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    g_out = torch.randn(rows, d, device="cuda", generator=gen)
+    g_copy = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+
+    def run(fused: bool):
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        norm.zero_grad()
+        if fused:
+            out, copy = rn.residual_norm(xg, yg, norm, RESIDUAL_SEED, rate,
+                                         copy_dtype=torch.bfloat16)
+        else:
+            out = rn.plain(xg, yg, norm, RESIDUAL_SEED, rate)
+            copy = out.to(torch.bfloat16)
+        torch.autograd.backward((out, copy), (g_out, g_copy))
+        return (out.detach(), copy.detach(), xg.grad, yg.grad, norm.weight.grad.clone(),
+                norm.bias.grad.clone())
+
+    rn.reset_calls()
+    got = run(True)
+    calls = dict(rn.CALLS)
+    want = run(False)
+    keep = cheap_dropout(RESIDUAL_SEED, torch.ones_like(y), rate) != 0
+    torch.cuda.synchronize()
+    err = {name: float((a.float() - b.float()).abs().max())
+           for name, a, b in zip(("out", "copy", "dx", "dy", "dweight", "dbias"), got, want)}
+    same_copy = torch.equal(got[1], got[0].to(torch.bfloat16))
+    # dy is 0 where cheap_dropout drops; where it keeps, only where the
+    # gradient of the sum (dx) is itself 0 in bf16 (an exact cancellation,
+    # a few in 1e8 elements)
+    same_zeros = all(torch.equal(dy == 0, ~keep | (dx.to(torch.bfloat16) == 0))
+                     for dx, dy in ((got[2], got[3]), (want[2], want[3])))
+    # tolerances: f32 sums in another order; the weight's and bias's run over
+    # every row, so their rounding grows with the rows (1e-7 a row: 6.6e-3
+    # at 65,536 rows, where the two orders part by 1.1e-3)
+    # every row; dy is rounded to bf16 twice (the cast, then the scale), so
+    # the two can part by two bf16 steps (1/64 at the top of a binade)
+    sums = max(1e-4, 1e-7 * rows)
+    tol = {"out": (1e-5, 1e-5), "dx": (1e-4, 1e-4), "dy": (1 / 64, 1e-3),
+           "dweight": (1e-4, sums), "dbias": (1e-4, sums)}
+    names = ("out", "copy", "dx", "dy", "dweight", "dbias")
+    off = [name for name, a, b in zip(names, got, want) if name in tol
+           and not torch.allclose(a.float(), b.float(), rtol=tol[name][0], atol=tol[name][1])]
+    ok = (calls == {"fused": 1, "fused_backward": 1, "plain": 0} and same_copy and same_zeros
+          and not off)
+    log(f"[residual] [{rows}, {d}] bf16 branch, p {rate:.4f}: calls {calls}; max |d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f"; copy bit-equal to the cast: {same_copy}; dy's zeros are cheap_dropout's: "
+        f"{same_zeros}; outside their limits (rtol, atol {tol}): {off or 'none'}")
+    if not ok:
+        raise AssertionError(f"residual site [{rows}, {d}]: the kernels differ from the "
+                             "composition")
+    return err
+
+
+def time_residual(rows: int, d: int, gen: torch.Generator, card: str) -> dict:
+    """The fused site's forward + backward (three launches) against the
+    composition's (autograd) and the bytes bound, at [rows, d], bf16
+    branch, the training rate."""
+    from torch import nn
+
+    from glearning_benchmark_tpu_torch.ops import residual_norm as rn
+    from glearning_benchmark_tpu_torch.ops.hash_dropout import blocked_site
+
+    rate = train_rate()
+    thresh = round(rate * 256)
+    site = blocked_site((rows, d), RESIDUAL_SEED, thresh, 1 - thresh / 256)
+    norm = nn.LayerNorm(d, eps=1e-6).cuda()
+    x = torch.randn(rows, d, device="cuda", generator=gen)
+    y = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    g_out = torch.randn(rows, d, device="cuda", generator=gen)
+    g_copy = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+    w, b = norm.weight.detach(), norm.bias.detach()
+    _, _, mean, rstd = rn.launch_forward(x, y, w, b, site, 1e-6, True)
+    fwd = lambda: rn.launch_forward(x, y, w, b, site, 1e-6, True)          # noqa: E731
+    bwd = lambda: rn.launch_backward(x, y, w, mean, rstd, g_out, g_copy, site)  # noqa: E731
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+
+    def plain():   # the gradients as new tensors: no accumulation into .grad
+        out = rn.plain(xg, yg, norm, RESIDUAL_SEED, rate)
+        torch.autograd.grad((out, out.to(torch.bfloat16)), (xg, yg, norm.weight, norm.bias),
+                            (g_out, g_copy))
+
+    f_ms, b_ms, p_ms = cuda_ms(fwd, 20), cuda_ms(bwd, 20), cuda_ms(plain, 5)
+    bd = rn.bound(rows, d, torch.bfloat16, True)
+    ms = min(f_ms) + min(b_ms)
+    log(f"[residual] time [{rows}, {d}] bf16 p {rate:.4f}: forward {fmt_ms(f_ms)} "
+        f"(bound {bd['parts_ms']['forward']:.4f}), backward {fmt_ms(b_ms)} (bound "
+        f"{bd['parts_ms']['backward']:.4f}); pair {ms:.4f} ms against {bd['bound_ms']:.4f} "
+        f"({ms / bd['bound_ms']:.2f}x the bound, {bd['bytes'] / 1e9:.3f} GB); the "
+        f"composition {fmt_ms(p_ms)} ({min(p_ms) / ms:.1f}x); on {card}")
+    return {"ms": ms, "forward_ms": min(f_ms), "backward_ms": min(b_ms),
+            "plain_ms": min(p_ms), "bound_ms": bd["bound_ms"], "bound_by": "bytes",
+            "library_ms": None}
+
+
+def residual_phase(gen: torch.Generator, card: str) -> tuple:
+    """Phase 4c (module docstring). Returns (the largest differences, the
+    timings by shape)."""
+    t0 = time.perf_counter()
+    errs, timing = {}, {}
+    for rows, d in RESIDUAL_SHAPES:
+        key = f"{rows}x{d}"
+        errs[key] = residual_case(rows, d, gen)
+        timing[key] = time_residual(rows, d, gen, card)
+        torch.cuda.empty_cache()
+    log(f"[phase] residual site {time.perf_counter() - t0:.1f} s")
+    return errs, timing
 
 
 # ---------------------------------------------------------------------------
@@ -1139,9 +1305,10 @@ def train_config(model_name: str, model_cfg: dict, zinc_root: str, out_dir: str,
 def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
     """``train()`` of the port on cuda; checks the losses and the launch
     counters (a graph model launches no attention kernel; every model with
-    dropout launches the hash-dropout kernel, a token model 6 times a layer
-    and step: three sites, forward and backward). Returns (result,
-    launches)."""
+    dropout launches the hash-dropout kernel, a token model twice a layer
+    and step: the ReLU's site, forward and backward; a token model's two
+    residual sites a layer run their fused kernels in every forward and
+    backward). Returns (result, launches)."""
     from glearning_benchmark_tpu_torch.train.trainer import train, train_batch_size
 
     reset_launches(fa)
@@ -1171,9 +1338,13 @@ def train_phase(fa, model_name: str, config: dict, limit, card: str) -> tuple:
             f"{card}")
         want = {"flash_attn_fwd": nlayers * (steps + eval_batches),
                 "flash_attn_bwd_dq": nlayers * steps, "flash_attn_bwd_dkv": nlayers * steps,
-                "hash_dropout": 6 * nlayers * steps}
+                "hash_dropout": 2 * nlayers * steps,
+                "residual_norm": 2 * nlayers * (steps + eval_batches),
+                "residual_norm_bwd": 2 * nlayers * steps, "residual_norm_plain": 0}
         expect = (f"forward {nlayers} x ({steps} steps + {eval_batches} eval batches), "
-                  f"backward {nlayers} x {steps} each, hash dropout 6 x {nlayers} x {steps}")
+                  f"backward {nlayers} x {steps} each, hash dropout 2 x {nlayers} x {steps} "
+                  f"(the ReLU's site), the residual sites' fused kernels 2 x {nlayers} a "
+                  f"forward and a backward")
     else:
         log(f"[train] {model_name}-{task}: graphs [{bs}, {tr['adj'].shape[1]} nodes, "
             f"{bundle.in_dim} features], {bundle.n('train')} train graphs, "
@@ -1878,8 +2049,7 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
             results["vocab"] = multiprocess_zinc_vocab(mols[start:end])
             results["vocab_s"] = time.perf_counter() - t0
             continue
-        fa.reset_launches()
-        hd.reset_launches()
+        reset_launches(fa)
         states = []
         restore = record_states(states, CPU_CHECK_STEPS) if job.get("stepwise") else None
         try:
@@ -1889,7 +2059,7 @@ def dp_worker(rank: int, world: int, backend: str, init: str, jobs: list,
             if restore is not None:
                 restore()
         torch.cuda.synchronize()
-        launches = {**fa.LAUNCHES, **hd.LAUNCHES}
+        launches = launches_now(fa)
         # the model train() returned (whole, on this rank) on the first val rows
         val = res.bundle.splits["val"]
         batch = {k: torch.from_numpy(v[:CPU_CHECK_ROWS]).to(dev) for k, v in val.items()}
@@ -2034,6 +2204,7 @@ def dp_against_single(name: str, ranks: list, single, single_launches: dict,
                                      f"(rank 0, rank {r}) {differ}")
     for r, g in enumerate(got):
         if (attention_launches(g["launches"]) != attention_launches(single_launches)
+                or residual_launches(g["launches"]) != residual_launches(single_launches)
                 or not g["launches"]["hash_dropout"] > 0):
             raise AssertionError(f"{name}: rank {r} kernel launches {g['launches']}, "
                                  f"one process {single_launches}")
@@ -2219,8 +2390,10 @@ def mesh_against_single(name: str, ranks: list, cfg: dict, single,
     want = attention_launches(single_launches)
     if name.startswith("sp_"):
         want = {k: 0 for k in want}
+    want.update(residual_launches(single_launches))
     for r, g in enumerate(got):
-        if attention_launches(g["launches"]) != want or not g["launches"]["hash_dropout"] > 0:
+        if ({**attention_launches(g["launches"]), **residual_launches(g["launches"])} != want
+                or not g["launches"]["hash_dropout"] > 0):
             raise AssertionError(f"{name}: rank {r} kernel launches {g['launches']}, "
                                  f"expected {want} and hash-dropout launches")
     layout = (f"{len(got)} ranks sharing one card (not a scaling figure)"
@@ -2647,8 +2820,10 @@ def tools_phase(fa, tmp: str, gt_root: str, seg_train: torch.Tensor, gen, cgen, 
             raise AssertionError(f"mfu_bench d_model {row['d_model']}: not a valid row: {row}")
     if [r["d_model"] for r in rows] != [256, 512, 1024]:
         raise AssertionError("mfu_bench did not run the three widths")
-    if min(launches["mfu_bench"].values()) == 0:
-        raise AssertionError(f"mfu_bench ran no attention or hash-dropout kernel: {launches}")
+    ran = dict(launches["mfu_bench"])
+    if ran.pop("residual_norm_plain") or min(ran.values()) == 0:
+        raise AssertionError(f"mfu_bench ran no attention, hash-dropout or residual kernel, "
+                             f"or a plain residual site: {launches}")
     log(f"[tools] mfu_bench: " + "; ".join(
         f"d_model {r['d_model']} step {r['step_s'] * 1e3:.2f} ms, mfu {r['mfu']:.4f}, "
         f"mfu_vs_measured {r['mfu_vs_measured']:.4f}" for r in rows)
@@ -2791,10 +2966,12 @@ def main() -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         hd_build = pool.submit(hd.build_seconds)       # beside the attention kernels
+        rn_build = pool.submit(rn.build_seconds)
         fa_secs = fa.build_seconds()
         fa_secs["hash_dropout"] = hd_build.result()
+        fa_secs["residual_norm"] = rn_build.result()
     for name, secs in fa_secs.items():
         log(f"[build] {name} for sm_90a: nvcc {secs:.1f} s")
     log(f"[build] all kernels built side by side in {time.perf_counter() - t0:.1f} s")
@@ -2909,6 +3086,10 @@ def main() -> int:
         # phase 4b: the hash-dropout kernel against its plain version, one
         # training step through both, its time and the dropout microbench
         drop_timing = dropout_phase(gen, bundle, agtt_cfg, row_bs, l_train, tmp, card)
+
+        # phase 4c: the residual site's kernels against the composition and
+        # their time
+        res_errs, res_timing = residual_phase(gen, card)
 
         paths = {"agtt": serve_checkpoint(tmp, "agtt", AGTT_ZINC_MODEL, graphs, args.seed),
                  "ibtt": serve_checkpoint(tmp, "ibtt", IBTT_ZINC_MODEL, ibtt_graphs,
@@ -3065,6 +3246,15 @@ def main() -> int:
                              **{path: n["hash_dropout"] for path, n in
                                 {**graph_launches, **dp_launches}.items()}},
         "by_shape": drop_timing})
+    t = res_timing["x".join(map(str, RESIDUAL_SHAPES[0]))]
+    kernels.append({
+        "name": "residual_norm", "route": "cuda", "source": src + "residual_norm.cu",
+        "replaces": "glearning_benchmark_tpu/models/transformer.py:122, :135 "
+                    "(XLA-fused, no pallas_call)",
+        "launches": train_launches["residual_norm"],
+        "max_abs_err": max(e["out"] for e in res_errs.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "by_shape": res_timing})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

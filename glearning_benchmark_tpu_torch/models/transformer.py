@@ -19,8 +19,12 @@ zeros, which no readout reads.
 
 Dropout runs only in ``train()`` mode, at the reference's four sites per
 layer: on the attention probabilities inside the attention kernels (an
-int32 seed per call), and by :func:`..ops.attention.cheap_dropout` after
-``out_proj``, after the ReLU and after ``ff2``. The seeds of a forward are
+int32 seed per call), by :func:`..ops.attention.cheap_dropout` after the
+ReLU, and with ``cheap_dropout``'s bits on the two residual branches (after
+``out_proj`` and ``ff2``) inside :func:`..ops.residual_norm.residual_norm`,
+which also adds the branch to the f32 stream, normalises, and gives the
+next GEMM its copy of the result in the compute dtype (fused into one
+kernel a site on the card, forward and backward). The seeds of a forward are
 drawn on the host from the ``torch.Generator`` the caller passes, before
 any layer runs, so a checkpointed (``remat``) layer sees the same masks
 when it is recomputed.
@@ -72,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import cheap_dropout
 from ..ops.flash_attention import flash_attention
+from ..ops.residual_norm import residual_norm
 from ..ops.ring_attention import ring_attention, seq_block
 from ..parallel.comm import all_gather
 from ..parallel.tp import dense as _dense
@@ -144,14 +149,17 @@ class EncoderLayer(nn.Module):
             nn.init.zeros_(norm.bias)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor,
-                seeds: Optional[Sequence[int]] = None, shard=None
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                seeds: Optional[Sequence[int]] = None, shard=None,
+                xc: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         """x [B, L, d] f32, seg [B, L] int32 (0 = pad) -> ([B, L, d] f32,
-        the MoE aux loss of a training forward or None). ``seeds``
-        (attention, out_proj, ReLU, ff2) turns dropout on; None is the
-        deterministic forward. ``shard``: the rows' place in the global
-        batch (module docstring). Sequence-parallel (``seq_axis``), x is
-        this rank's token block and seg its key mask."""
+        its copy in the compute dtype or None, the MoE aux loss of a
+        training forward or None). ``xc``: x's copy in the compute dtype
+        (the previous layer's), which the first GEMM then reads; None casts
+        x. ``seeds`` (attention, out_proj, ReLU, ff2) turns dropout on; None
+        is the deterministic forward. ``shard``: the rows' place in the
+        global batch (module docstring). Sequence-parallel (``seq_axis``), x
+        is this rank's token block and seg its key mask."""
         b, l, d = x.shape
         h = self.nhead
         s_attn, s_out, s_relu, s_ff2 = seeds if seeds is not None else (None,) * 4
@@ -172,10 +180,7 @@ class EncoderLayer(nn.Module):
             else:
                 attn = flash_attention(q, k, v, seg=seg, p_drop=p_attn, seed=s_attn,
                                        bh_offset=row0 * h)
-            attn = _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
-            if seeds is not None:
-                attn = cheap_dropout(s_out, attn, self.p_res, batch_offset=row0, place=place)
-            return attn
+            return _dense(self.out_proj, attn.reshape(b, l, d), self.dtype)
 
         def ffn(x):
             aux = None
@@ -186,17 +191,19 @@ class EncoderLayer(nn.Module):
                 if seeds is not None:
                     y = cheap_dropout(s_relu, y, self.p_ffn, batch_offset=row0, place=place)
                 y = _dense(self.ff2, y, self.dtype)
-            if seeds is not None:
-                y = cheap_dropout(s_ff2, y, self.p_res, batch_offset=row0, place=place)
             return y, aux
 
-        def add_norm(norm):
-            return lambda x, y: _layer_norm(norm, x + y.float())
+        def add_norm(norm, seed):
+            # the branch's residual dropout, the f32 add and the norm, and
+            # the result's copy for the next GEMM (ops/residual_norm.py)
+            return lambda x, y: residual_norm(x, y, norm, seed, self.p_res, batch_offset=row0,
+                                              place=place, copy_dtype=self.dtype)
 
-        attn = region("layer.attn", attention, x)
-        x = region("layer.attn_norm", add_norm(self.norm1), x, attn)
-        y, aux = region("layer.ffn", ffn, x)
-        return region("layer.ffn_norm", add_norm(self.norm2), x, y), aux
+        attn = region("layer.attn", attention, x if xc is None else xc)
+        x, xc = region("layer.attn_norm", add_norm(self.norm1, s_out), x, attn)
+        y, aux = region("layer.ffn", ffn, x if xc is None else xc)
+        x, xc = region("layer.ffn_norm", add_norm(self.norm2, s_ff2), x, y)
+        return x, xc, aux
 
 
 def transformer_embed(embed: nn.Embedding, pos_embed: nn.Embedding,
@@ -383,12 +390,13 @@ class SimpleTransformer(nn.Module):
             # randint(0, int32 max)
             seeds = torch.randint(0, 2**31 - 1, (self.nlayers, 4),
                                   generator=generator).tolist()
+        hc = None     # h's copy in the compute dtype, from the layer before
         for layer, layer_seeds in zip(self.layers(), seeds):
             if self.remat and torch.is_grad_enabled():
-                h, layer_aux = checkpoint(layer, h, seg_ids, layer_seeds, shard,
-                                          use_reentrant=False)
+                h, hc, layer_aux = checkpoint(layer, h, seg_ids, layer_seeds, shard, hc,
+                                              use_reentrant=False)
             else:
-                h, layer_aux = layer(h, seg_ids, layer_seeds, shard)
+                h, hc, layer_aux = layer(h, seg_ids, layer_seeds, shard, hc)
             if layer_aux is not None and aux is not None:
                 aux.append(layer_aux)
         if seq is not None:

@@ -44,6 +44,8 @@ from .flash_attention import _NVCC_FLAGS, _nvcc
 _U32 = 0xFFFFFFFF
 MAX_AXES = 8                   # csrc: kMaxAxes
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "hash_dropout.cu"
+# Site and the hash, shared with csrc/residual_norm.cu
+HEADER = SOURCE.parent / "hash_site.cuh"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # integer operations a word of hash and an element of compare, scale and
 # select (bound); the INT32 lanes of one Hopper SM
@@ -163,7 +165,7 @@ def words(site: Site) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 class _SiteStruct(ctypes.Structure):
-    """``Site`` of csrc/hash_dropout.cu, field by field."""
+    """``Site`` of csrc/hash_site.cuh, field by field."""
     _fields_ = [("rows", ctypes.c_int64), ("s", ctypes.c_int64), ("sq", ctypes.c_int64),
                 ("size", ctypes.c_int64 * MAX_AXES), ("gstride", ctypes.c_uint32 * MAX_AXES),
                 ("naxes", ctypes.c_int32), ("blocked", ctypes.c_int32),
@@ -177,10 +179,12 @@ _build_seconds = 0.0
 
 def build() -> Path:
     """Compile ``csrc/hash_dropout.cu`` for sm_90a into a shared library
-    named by the hash of the source and the flags (the attention kernels'
-    flags: no fast math), unless one built from the same text is there."""
+    named by the hash of the source, its header and the flags (the
+    attention kernels' flags: no fast math), unless one built from the same
+    text is there."""
     global _build_seconds
-    lib = library_path("hash_dropout", [SOURCE.read_bytes(), " ".join(_NVCC_FLAGS).encode()])
+    lib = library_path("hash_dropout", [SOURCE.read_bytes(), HEADER.read_bytes(),
+                                        " ".join(_NVCC_FLAGS).encode()])
     if not lib.is_file():
         _build_seconds, ptxas = compile_library([_nvcc()] + _NVCC_FLAGS + [str(SOURCE)], lib)
         (lib.parent / f"{lib.stem}.ptxas.txt").write_text(ptxas)
@@ -212,6 +216,17 @@ def inverse_scale(keep_scale: float) -> float:
     return float(np.float32(1.0) / np.float32(keep_scale))
 
 
+def site_struct(site: Site) -> _SiteStruct:
+    """The kernels' ``Site`` of a site (csrc/hash_site.cuh)."""
+    rows, per_row = words(site)
+    st = _SiteStruct(rows=rows, s=site.shape[-1], sq=per_row if site.blocked else 0,
+                     naxes=len(site.axes), blocked=int(site.blocked), base=site.base,
+                     seed=site.seed, thresh=site.thresh, inv=inverse_scale(site.keep_scale))
+    for i, (size, gstride) in enumerate(site.axes):
+        st.size[i], st.gstride[i] = size, gstride
+    return st
+
+
 def launch(x: torch.Tensor, site: Site) -> torch.Tensor:
     """The kernel on a contiguous CUDA tensor of the site's shape: a new
     tensor, x with the site's dropout applied."""
@@ -226,12 +241,7 @@ def launch(x: torch.Tensor, site: Site) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rows, per_row = words(site)
-    st = _SiteStruct(rows=rows, s=x.shape[-1], sq=per_row if site.blocked else 0,
-                     naxes=len(site.axes), blocked=int(site.blocked), base=site.base,
-                     seed=site.seed, thresh=site.thresh, inv=inverse_scale(site.keep_scale))
-    for i, (size, gstride) in enumerate(site.axes):
-        st.size[i], st.gstride[i] = size, gstride
+    st = site_struct(site)
     fn = _kernel()
     with torch.cuda.device(x.device):
         err = fn(ctypes.byref(st), x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype],

@@ -106,13 +106,14 @@ def pp_transformer_forward(mesh: Mesh, model, x: torch.Tensor, attn_mask: torch.
                               row0 + x.shape[0] if shard is None else shard.total,
                               1 if shard is None else shard.size,
                               None if shard is None else shard.axis)
+        copy = None   # act's copy in the compute dtype, within the stage
         for i in mine:
             layer = getattr(model, f"layer_{i}")
             if model.remat and torch.is_grad_enabled():
-                act, _ = checkpoint(layer, act, mb_seg, seeds[i], mb_shard,
-                                    use_reentrant=False)
+                act, copy, _ = checkpoint(layer, act, mb_seg, seeds[i], mb_shard, copy,
+                                          use_reentrant=False)
             else:
-                act, _ = layer(act, mb_seg, seeds[i], mb_shard)
+                act, copy, _ = layer(act, mb_seg, seeds[i], mb_shard, copy)
         return act
 
     # Autograd runs an exchange's backward on a rank only if its input

@@ -24,10 +24,11 @@ The names the port uses:
   (``torch.autograd.grad`` and the gradients' sums on a mesh) and
   ``train.update`` (the optimizer step and the step's statistics);
 - the token transformer's regions ``model.embed`` and ``model.readout``,
-  and in each encoder layer ``layer.attn`` (qkv, attention, out projection,
-  its dropout), ``layer.attn_norm`` (the f32 residual add and ``norm1``),
-  ``layer.ffn`` (the FFN or the MoE FFN, with its dropouts) and
-  ``layer.ffn_norm`` (the f32 residual add and ``norm2``).
+  and in each encoder layer ``layer.attn`` (qkv, attention, out
+  projection), ``layer.attn_norm`` (the residual site: the branch's
+  dropout, the f32 residual add, ``norm1`` and the copy for the next GEMM),
+  ``layer.ffn`` (the FFN or the MoE FFN, with its inner dropout) and
+  ``layer.ffn_norm`` (the same residual site with ``norm2``).
 """
 
 from __future__ import annotations

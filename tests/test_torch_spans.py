@@ -173,11 +173,26 @@ def test_backward_nodes_run_in_the_backward_of_their_region(token_events):
          "model.readout": STEPS})
     assert _regions(token_events, spans, {"FlashAttentionFunctionBackward"}) == same(
         {"layer.attn": LAYERS * STEPS})
-    # the f32 residual's cast back: the norm regions' own
+    # the residual sites' casts, the branch's to f32 and the result's copy
+    # for the next GEMM: the norm regions' own
     casts = _regions(token_events, spans, {"ToCopyBackward0"})
     for name in ("layer.attn_norm", "layer.ffn_norm"):
-        assert casts[name, name] == LAYERS * STEPS
+        assert casts[name, name] == 2 * LAYERS * STEPS
     assert all(a == b for a, b in casts)
+
+
+def test_residual_dropouts_run_in_the_norm_regions(token_events):
+    """The two residual sites' dropouts run inside their residual site's
+    region, forward and backward; the ReLU's inside ``layer.ffn``."""
+    spans = _spans(token_events)
+    want = {"layer.attn_norm": LAYERS * STEPS, "layer.ffn_norm": LAYERS * STEPS,
+            "layer.ffn": LAYERS * STEPS}
+    forward = Counter(_innermost(e.start_ns(), spans) for e in token_events
+                      if e.name() == "HashDropoutFunction"
+                      and _inside(e.start_ns(), spans, {"train.forward"}))
+    assert forward == want
+    assert _regions(token_events, spans, {"HashDropoutFunctionBackward"}) == {
+        (name, name): n for name, n in want.items()}
 
 
 def test_span_does_nothing_without_a_profiler(monkeypatch):
